@@ -1,0 +1,62 @@
+"""dSSFN serving on the card: load exported stacks, serve them bucketed.
+
+Centralized equivalence makes the stack that M workers trained one
+feed-forward network; this package serves it:
+
+- :mod:`repro_torch.serve.export` — ``repro``'s artifact format
+  (``export_artifact`` / ``load_artifact`` / ``is_valid_artifact``);
+- :mod:`repro_torch.serve.engine` — :class:`ServeEngine`, device-resident
+  weights and one cached forward program per (shape bucket, dtype),
+  every propagation through the CUDA ``matmul_relu`` kernel on the card;
+- :mod:`repro_torch.serve.batcher` — :class:`MicroBatcher`, synchronous
+  micro-batching (``submit``/``flush``, max-batch + max-wait-µs);
+- :mod:`repro_torch.serve.features` — the feature-spec grammar.
+
+``launch/serve_dssfn.py`` is the CLI.
+"""
+from repro_torch.serve.batcher import (
+    COMPLETED,
+    EXPIRED,
+    FAILED,
+    PENDING,
+    REJECTED,
+    TERMINAL_STATES,
+    MicroBatcher,
+    PendingResult,
+    RequestError,
+    pack_fifo,
+    scatter_results,
+    size_bucket,
+)
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.export import (
+    ArtifactCorruptError,
+    ServeArtifact,
+    export_artifact,
+    is_valid_artifact,
+    load_artifact,
+)
+from repro_torch.serve.features import FeatureExtractor, parse_features
+
+__all__ = [
+    "ArtifactCorruptError",
+    "COMPLETED",
+    "EXPIRED",
+    "FAILED",
+    "FeatureExtractor",
+    "MicroBatcher",
+    "PENDING",
+    "PendingResult",
+    "REJECTED",
+    "RequestError",
+    "ServeArtifact",
+    "ServeEngine",
+    "TERMINAL_STATES",
+    "export_artifact",
+    "is_valid_artifact",
+    "load_artifact",
+    "pack_fifo",
+    "parse_features",
+    "scatter_results",
+    "size_bucket",
+]
