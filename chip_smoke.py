@@ -13,12 +13,28 @@ Phases, each of which raises (non-zero exit) on any failed check:
    at buckets 1, 8, 32 and 128, in f32 and bf16 — plus a ragged
    (1204, 3000) x (3000, 77), each held against its plain PyTorch
    version and timed beside it and beside ``relu(matmul)``.
-3. The serving slice at full width: a Table-I MNIST-geometry stack
+3. Kernel vs plain: ``gram`` and ``propagate_gram`` at every shape the
+   training slice launches — layer 0 (20, 784, 3000) and (1, 784, 60000),
+   layers 1 and l >= 2 with W (1020, 784) and (1020, 1020) over M=20
+   workers of 3000 samples and one of 60000 — plus ragged cases in f32
+   and bf16, each timed beside its plain version, its library call
+   (``baddbmm``; ``relu(matmul)`` then ``baddbmm``) and its bound.
+4. The serving slice at full width: a Table-I MNIST-geometry stack
    (P=784, Q=10, n=2Q+1000=1020, L=20) with seeded untrained weights is
    exported with the port's ``export_artifact`` and served through
    ``repro_torch.launch.serve_dssfn.main``; the logits are held against
    a float64 numpy forward of the same weights.
-4. The card line, one ``{"kernels": [...]}`` line, and as the last line
+5. The training slice at full width: Table-I MNIST geometry (P=784,
+   Q=10, n=1020, L=20, K=100, J=60000 train and 10000 test of the port's
+   planted-teacher data) trained through
+   ``repro_torch.launch.train_dssfn.main``, decentralized (M=20) and
+   centralized (M=1).  It checks finite readouts, one ``gram`` and 20
+   ``propagate_gram`` launches per train, a full-width layer-1 step on
+   the card against the same step on the CPU through the plain versions,
+   the reference's centralized-equivalence bars, and that the exported
+   stack serves through ``ServeEngine`` bit for bit like
+   ``ssfn.predict``.  It prints where a layer's time goes.
+6. The card line, one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -51,6 +67,16 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # layer adds an f32 rounding error of order sqrt(K) * 2**-24 ~ 2e-6.
 STACK_TOL = 1e-4
 
+# Gram kernels: f32 sums of J products in two orders.  An f32 sum of J
+# terms taken in order is off by about sqrt(J) 2**-24 of its size (a
+# random walk of roundings), and the library GEMM behind the plain
+# version may sum in order.  So the tolerance is 1e-5 x max|plain| up to
+# J = 7000 (2 sqrt(7000) 2**-24 = 1.0e-5) and 2 sqrt(J) 2**-24 x
+# max|plain| above: 2.9e-5 at J = 60000, the centralized layer.
+def gram_tol(j: int) -> float:
+    return max(1e-5, 2.0 * j**0.5 * 2.0**-24)
+
+
 SLICE = {"P": 784, "Q": 10, "L": 20}          # Table-I MNIST, paper §III-B
 SLICE_BUCKETS = (1, 8, 32, 128)
 SLICE_REQUESTS = 64
@@ -66,14 +92,38 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def bound(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
-    """Least time (ms) for relu(W @ X): each operand read once and the
-    output written once at HBM rate, or 2mnk operations at the peak rate
-    of the operands' type, whichever is larger."""
-    elem = 4 if dtype == "float32" else 2
-    t_bytes = (m * k + k * n + m * n) * elem / PEAK_BYTES_PER_S
-    t_ops = 2.0 * m * n * k / PEAK_FLOPS[dtype]
+def roofline(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    """Least time (ms): ``nbytes`` at HBM rate or ``ops`` at the peak rate
+    of the operands' type, whichever is larger, and which one it is."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def elem_bytes(dtype: str) -> int:
+    return 4 if dtype == "float32" else 2
+
+
+def bound(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
+    """relu(W @ X): each operand read once, the output written once, 2mnk
+    operations."""
+    return roofline(2.0 * m * n * k, (m * k + k * n + m * n) * elem_bytes(dtype), dtype)
+
+
+def gram_bound(m: int, n: int, j: int, dtype: str) -> tuple[float, str]:
+    """G = Y Y^T + I/mu for M workers: a symmetric Gram is n(n+1)J
+    operations per worker; Y is read once and the f32 G written once."""
+    return roofline(
+        float(n) * (n + 1) * j * m, m * n * j * elem_bytes(dtype) + m * n * n * 4, dtype
+    )
+
+
+def propagate_bound(n: int, n_prev: int, m: int, j: int, dtype: str) -> tuple[float, str]:
+    """Y' = relu(W @ Y_m), G = Y' Y'^T + I/mu: 2 n n_prev J M + n(n+1) J M
+    operations; W and Y read once, Y' and the f32 G written once."""
+    ops = 2.0 * n * n_prev * j * m + float(n) * (n + 1) * j * m
+    nbytes = (n * n_prev + m * n_prev * j + m * n * j) * elem_bytes(dtype) + m * n * n * 4
+    return roofline(ops, nbytes, dtype)
 
 
 def time_ms(torch, fn, ws, x, iters: int = 60) -> float:
@@ -160,6 +210,115 @@ def kernel_cases(torch, np):
             )
             cases.append(case)
     return cases
+
+
+# (M, n, J, dtype) of the gram launches: the train's layer 0, decentralized
+# (M=20 workers of 3000) and centralized (one of 60000), and ragged edges.
+GRAM_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32"),
+              (3, 33, 65, "float32"), (3, 33, 65, "bfloat16")]
+# (n, n_prev, M, J, dtype) of the propagate_gram launches: layer 1 (W is
+# 1020 x 784) and layers l >= 2 (1020 x 1020), decentralized and
+# centralized, and ragged edges.
+PROPAGATE_CASES = [(1020, 784, 20, 3000, "float32"), (1020, 1020, 20, 3000, "float32"),
+                   (1020, 784, 1, 60000, "float32"), (1020, 1020, 1, 60000, "float32"),
+                   (33, 257, 3, 65, "float32"), (33, 257, 3, 65, "bfloat16")]
+GRAM_HEADLINE = (20, 784, 3000, "float32")
+PROPAGATE_HEADLINE = (1020, 1020, 20, 3000, "float32")
+GRAM_MU = 1e-3      # SSFNConfig.mu0, the layer-0 mu
+PROPAGATE_MU = 1.0  # SSFNConfig.mul
+
+
+def max_err(got, want) -> tuple[float, float]:
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
+def gram_kernel_cases(torch):
+    """gram and propagate_gram at the training slice's shapes, each held
+    against its plain version and timed beside it, beside one library
+    call of the same function and beside its bound."""
+    from repro_torch.kernels.gram import gram_cuda, gram_ref
+    from repro_torch.kernels.propagate_gram import propagate_gram_cuda, propagate_gram_ref
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def normal(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtypes[dtype])
+
+    def diag(n, mu, dtype):
+        return (torch.eye(n, device="cuda") / mu).to(dtype)
+
+    gram_cases, prop_cases = [], []
+    for m, n, j, dt in GRAM_CASES:
+        y = normal((m, n, j), 1.0, dt)
+        got, want = gram_cuda(y, mu=GRAM_MU), gram_ref(y, mu=GRAM_MU)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        tol = gram_tol(j) * scale
+        if got.shape != (m, n, n) or not err <= tol or not torch.equal(got, got.mT):
+            raise AssertionError(
+                f"gram y({m},{n},{j}) {dt}: max|kernel - plain| = {err:.3e} > "
+                f"{tol:.3e}, or G not exactly symmetric"
+            )
+        d = diag(n, GRAM_MU, y.dtype)
+        iters = 10 if m * n * j > 1e7 else 60
+        ms = time_ms(torch, lambda _w, a: gram_cuda(a, mu=GRAM_MU), [None], y, iters)
+        plain_ms = time_ms(torch, lambda _w, a: gram_ref(a, mu=GRAM_MU), [None], y, iters)
+        library_ms = time_ms(torch, lambda _w, a: torch.baddbmm(d, a, a.mT), [None], y, iters)
+        bound_ms, bound_by = gram_bound(m, n, j, dt)
+        gram_cases.append({
+            "shape": f"y({m},{n},{j}) {dt}", "key": (m, n, j, dt),
+            "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        del y, got, want
+    for n, n_prev, m, j, dt in PROPAGATE_CASES:
+        w = normal((n, n_prev), n_prev**-0.5, dt)
+        y = torch.relu(normal((m, n_prev, j), 1.0, dt))
+        (y_new, g), (want_y, want_g) = (
+            propagate_gram_cuda(w, y, mu=PROPAGATE_MU),
+            propagate_gram_ref(w, y, mu=PROPAGATE_MU),
+        )
+        torch.cuda.synchronize()
+        err_y, scale_y = max_err(y_new, want_y)
+        err_g, scale_g = max_err(g, want_g)
+        tol_y = KERNEL_TOL[dt] * scale_y
+        tol_g = gram_tol(j) * scale_g   # G is built from the f32 Y' in both
+        if not (err_y <= tol_y and err_g <= tol_g and torch.equal(g, g.mT)):
+            raise AssertionError(
+                f"propagate_gram w({n},{n_prev}) y({m},{n_prev},{j}) {dt}: "
+                f"Y' err {err_y:.3e} (tol {tol_y:.3e}), G err {err_g:.3e} "
+                f"(tol {tol_g:.3e}), or G not exactly symmetric"
+            )
+        d = diag(n, PROPAGATE_MU, y.dtype)
+
+        def library(ww, yy, d=d):
+            yn = torch.relu(torch.matmul(ww, yy))
+            return torch.baddbmm(d, yn, yn.mT)
+
+        iters = 10 if m * n * j > 1e7 else 60
+        ms = time_ms(torch, lambda ww, yy: propagate_gram_cuda(ww, yy, mu=PROPAGATE_MU), [w], y, iters)
+        plain_ms = time_ms(torch, lambda ww, yy: propagate_gram_ref(ww, yy, mu=PROPAGATE_MU), [w], y, iters)
+        library_ms = time_ms(torch, library, [w], y, iters)
+        bound_ms, bound_by = propagate_bound(n, n_prev, m, j, dt)
+        prop_cases.append({
+            "shape": f"w({n},{n_prev}) y({m},{n_prev},{j}) {dt}", "key": (n, n_prev, m, j, dt),
+            "max_abs_err": max(err_y, err_g), "max_abs_err_y": err_y, "max_abs_err_g": err_g,
+            "tolerance": tol_g, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        del w, y, y_new, g, want_y, want_g
+    for name, cases in (("gram", gram_cases), ("propagate_gram", prop_cases)):
+        for c in cases:
+            print(
+                f"{name} {c['shape']}: err {c['max_abs_err']:.3e} (tol {c['tolerance']:.3e}) "
+                f"kernel {c['ms']:.3f} ms plain {c['plain_ms']:.3f} ms "
+                f"library {c['library_ms']:.3f} ms bound {c['bound_ms']:.3f} ms "
+                f"({c['bound_by']})",
+                flush=True,
+            )
+    return gram_cases, prop_cases
 
 
 def random_stack(np, seed: int = 0):
@@ -294,6 +453,216 @@ def serve_slice(torch, np, card: str) -> int:
     return main_path_launches
 
 
+# Table-I MNIST geometry (paper §III-B; repro's benchmarks/common.py):
+# P=784, Q=10, n=2Q+1000, L=20 layers, K=100 ADMM iterations, M=20
+# workers, 60000 training and 10000 test samples of the port's synthetic
+# planted-teacher data, SSFNConfig's mu0=1e-3 and mul=1.
+TRAIN = {"P": 784, "Q": 10, "n": 1020, "L": 20, "K": 100, "M": 20,
+         "J": 60000, "J_test": 10000, "seed": 0}
+# Reference bars for centralized equivalence (tests/test_system.py:45-49).
+EQUIV_AGREEMENT = 0.85
+EQUIV_ACC_GAP = 0.05
+STEP_TOL = 1e-4   # o_star, card vs CPU: relative Frobenius gap
+
+
+def train_argv(workers: int, artifact: str) -> list[str]:
+    t = TRAIN
+    return [
+        "--workers", str(workers), "--layers", str(t["L"]), "--hidden", str(t["n"]),
+        "--classes", str(t["Q"]), "--input-dim", str(t["P"]), "--train", str(t["J"]),
+        "--test", str(t["J_test"]), "--admm-iters", str(t["K"]),
+        "--seed", str(t["seed"]), "--export-artifact", artifact,
+    ]
+
+
+def card_params(torch, path: str):
+    """The readouts and R of an exported artifact, as tensors on the card."""
+    from repro_torch.core.ssfn import SSFNParams
+    from repro_torch.serve import load_artifact
+
+    p = load_artifact(path).params
+    return SSFNParams(o=tuple(o.cuda() for o in p.o), r=tuple(r.cuda() for r in p.r))
+
+
+def timed(torch, fn):
+    """(result, ms): fn's span on the card's timeline, host gaps included."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def layer_breakdown(torch, x_workers, t_workers, w1, cfg) -> dict:
+    """Where a full-width layer step's time goes on the card (layer 1,
+    M workers, the train's own settings), then the same step on the CPU
+    through the plain versions from the same inputs, held against it."""
+    from repro_torch.core import admm, engine
+    from repro_torch.core.backend import SimulatedBackend
+    from repro_torch.kernels.propagate_gram import propagate_gram, propagate_gram_ref
+
+    m = x_workers.shape[0]
+    x = x_workers.contiguous()
+    kw = dict(mu=cfg.mul, eps_radius=cfg.eps_radius, num_iters=cfg.admm_iters)
+    step0, ms_step0 = timed(torch, lambda: engine.fused_layer_step(
+        SimulatedBackend(m), x, t_workers, None, mu=cfg.mu0,
+        eps_radius=cfg.eps_radius, num_iters=cfg.admm_iters))
+    step1, ms_step1 = timed(torch, lambda: engine.fused_layer_step(
+        SimulatedBackend(m), x, t_workers, w1, **kw))
+    (y1, g), ms_kernel = timed(torch, lambda: propagate_gram(w1, x, mu=cfg.mul))
+    (chol, _), ms_chol = timed(torch, lambda: admm.guarded_cholesky(g))
+    a, ms_a = timed(torch, lambda: torch.matmul(t_workers, y1.mT))
+    z0 = torch.zeros_like(a[0])
+    _, ms_admm = timed(torch, lambda: admm.worker_admm_iterations(
+        SimulatedBackend(m), a, chol, y1, t_workers, z0, trace_every=1, **kw))
+    _, ms_admm0 = timed(torch, lambda: admm.worker_admm_iterations(
+        SimulatedBackend(m), a, chol, y1, t_workers, z0, trace_every=0, **kw))
+
+    # The same step on the CPU, through the plain versions.
+    x_c, t_c, w_c = x.cpu(), t_workers.cpu(), w1.cpu()
+    y_ref, g_ref = propagate_gram_ref(w_c, x_c, mu=cfg.mul)
+    err_y, scale_y = max_err(y1.cpu(), y_ref)
+    err_g, scale_g = max_err(g.cpu(), g_ref)
+    j = x.shape[2]
+    if not (err_y <= KERNEL_TOL["float32"] * scale_y and err_g <= gram_tol(j) * scale_g):
+        raise AssertionError(
+            f"layer-1 step: card vs CPU Y' err {err_y:.3e} (max {scale_y:.3e}), "
+            f"G err {err_g:.3e} (max {scale_g:.3e})"
+        )
+    del y_ref, g_ref
+    cpu_step = engine.fused_layer_step(
+        SimulatedBackend(m), x_c, t_c, w_c, trace_every=0, **kw)
+    # Both f32 steps beside a float64 step of the same math on the CPU,
+    # so a gap between them can be told apart from f32 rounding.
+    f64 = torch.float64
+    y64 = torch.relu(w_c.to(f64) @ x_c.to(f64))
+    g64 = y64 @ y64.mT + torch.eye(y64.shape[1], dtype=f64) / cfg.mul
+    t64 = t_c.to(f64)
+    (_, z64, _), _ = admm.worker_admm_iterations(
+        SimulatedBackend(m), t64 @ y64.mT, torch.linalg.cholesky(g64), y64, t64,
+        torch.zeros_like(z0, device="cpu", dtype=f64), trace_every=0, **kw)
+    del y64, g64
+
+    def rel(a, b):
+        a, b = a.detach().cpu().to(f64), b.detach().cpu().to(f64)
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    gap = rel(step1.o_star, cpu_step.o_star)
+    if not gap <= STEP_TOL:
+        raise AssertionError(f"layer-1 o_star card vs CPU: relative gap {gap:.3e} > {STEP_TOL}")
+    return {
+        "layer0_ms": ms_step0, "layer1_ms": ms_step1, "propagate_gram_ms": ms_kernel,
+        "cholesky_ms": ms_chol, "a_ms": ms_a, "admm_ms": ms_admm,
+        "admm_untraced_ms": ms_admm0, "err_y": err_y, "err_g": err_g,
+        "o_star_gap": gap, "card_f64_gap": rel(step1.o_star, z64[0]),
+        "cpu_f64_gap": rel(cpu_step.o_star, z64[0]), "jitter": step1.jitter.tolist(),
+    }
+
+
+def train_slice(torch, card: str) -> dict:
+    """Train the full-width stack decentralized and centralized through the
+    launcher, check it, break a layer's time down, serve what it trained.
+    Returns each training kernel's main-path launch count."""
+    from repro_torch.core import equivalence, ssfn
+    from repro_torch.data import make_classification, partition_workers
+    from repro_torch.kernels import gram, matmul_relu, propagate_gram
+    from repro_torch.launch import train_dssfn
+    from repro_torch.serve import ServeEngine, load_artifact
+
+    counters = (gram, propagate_gram, matmul_relu)
+    launches = {"gram": 0, "propagate_gram": 0}
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        for label, workers in (("decentralized", TRAIN["M"]), ("centralized", 1)):
+            path = os.path.join(tmp, label)
+            for c in counters:
+                c.reset_launch_count()
+            res = train_dssfn.main(train_argv(workers, path))
+            counts = {"gram": gram.launch_count(), "propagate_gram": propagate_gram.launch_count()}
+            run = res["runs"][0]
+            if res["device"] != "cuda" or run["kernel_launches"]["gram"] != 1 \
+                    or run["kernel_launches"]["propagate_gram"] != TRAIN["L"] \
+                    or counts != {"gram": 1, "propagate_gram": TRAIN["L"]}:
+                raise AssertionError(
+                    f"{label} train on {res['device']}: kernel launches "
+                    f"{run['kernel_launches']} (counters {counts}); expected 1 "
+                    f"gram and {TRAIN['L']} propagate_gram"
+                )
+            for k in launches:
+                launches[k] += counts[k]
+            params = card_params(torch, path)
+            if not all(bool(torch.isfinite(o).all()) for o in params.o):
+                raise AssertionError(f"{label} train: non-finite readouts")
+            if run["final_objective"] is None or run["final_objective"] != run["final_objective"]:
+                raise AssertionError(f"{label} train: objective {run['final_objective']}")
+            runs[label] = (run, params, path)
+            print(
+                f"train {label} M={workers}: {run['wall_time_s']:.3f} s per train, "
+                f"{run['wall_time_s'] / (TRAIN['L'] + 1) * 1e3:.1f} ms per layer (mean), "
+                f"objective {run['final_objective']:.4f}, test accuracy "
+                f"{run['test_accuracy']:.4f}, jitter events {run['jitter_events']}, "
+                f"kernel launches {run['kernel_launches']} on {card}",
+                flush=True,
+            )
+
+        # The launcher's data and R, made again from the same seeds.
+        q = TRAIN["Q"]
+        data = make_classification(
+            torch.Generator(device="cuda").manual_seed(TRAIN["seed"]),
+            num_train=TRAIN["J"], num_test=TRAIN["J_test"],
+            input_dim=TRAIN["P"], num_classes=q,
+        )
+        (run_d, dec, dec_path), (run_c, cen, _) = runs["decentralized"], runs["centralized"]
+        rep = equivalence.compare(cen, dec, data.x_test, q)
+        acc_gap = abs(run_d["test_accuracy"] - run_c["test_accuracy"])
+        print(
+            f"equivalence centralized vs decentralized (M={TRAIN['M']}, K={TRAIN['K']}): "
+            f"max readout gap {rep.max_readout_gap:.3e}, prediction gap "
+            f"{rep.prediction_gap:.3e}, agreement {rep.agreement:.4f}, "
+            f"|test accuracy gap| {acc_gap:.4f}",
+            flush=True,
+        )
+        if not (rep.agreement >= EQUIV_AGREEMENT and acc_gap < EQUIV_ACC_GAP):
+            raise AssertionError(
+                f"equivalence bars missed: agreement {rep.agreement:.4f} "
+                f"(>= {EQUIV_AGREEMENT}), accuracy gap {acc_gap:.4f} (< {EQUIV_ACC_GAP})"
+            )
+
+        cfg = ssfn.SSFNConfig(input_dim=TRAIN["P"], num_classes=q, num_layers=TRAIN["L"],
+                              hidden=TRAIN["n"], admm_iters=TRAIN["K"])
+        xw, tw = partition_workers(data.x_train, data.t_train, TRAIN["M"])
+        w1 = ssfn.build_weight(dec.o[0], dec.r[0], q)
+        bd = layer_breakdown(torch, xw, tw, w1, cfg)
+        share = bd["propagate_gram_ms"] / bd["layer1_ms"]
+        print(
+            f"layer step on the card (M={TRAIN['M']}, J_m={TRAIN['J'] // TRAIN['M']}): "
+            f"layer 0 {bd['layer0_ms']:.2f} ms, layer 1 {bd['layer1_ms']:.2f} ms = "
+            f"propagate_gram {bd['propagate_gram_ms']:.2f} ms ({share:.0%}) + "
+            f"guarded Cholesky {bd['cholesky_ms']:.2f} ms + A=TY^T {bd['a_ms']:.2f} ms + "
+            f"{TRAIN['K']} ADMM iterations {bd['admm_ms']:.2f} ms traced "
+            f"({bd['admm_untraced_ms']:.2f} ms untraced); vs CPU plain: Y' err "
+            f"{bd['err_y']:.3e}, G err {bd['err_g']:.3e}, o_star gap "
+            f"{bd['o_star_gap']:.3e} (card vs float64 {bd['card_f64_gap']:.3e}, "
+            f"CPU f32 vs float64 {bd['cpu_f64_gap']:.3e}), jitter {bd['jitter']}",
+            flush=True,
+        )
+
+        # The trained stack serves: within one bucket, bit for bit predict.
+        engine = ServeEngine(load_artifact(dec_path), buckets=(32,))
+        xb = data.x_test[:, :32].contiguous()
+        out = engine.forward(xb.cpu())
+        pred = ssfn.predict(dec, xb, q)
+        torch.cuda.synchronize()
+        if not torch.equal(out, pred):
+            raise AssertionError("trained stack: ServeEngine.forward != ssfn.predict (bucket 32)")
+        print("trained stack served: ServeEngine.forward == ssfn.predict bit for bit "
+              "(bucket 32)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -316,25 +685,39 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     cases = kernel_cases(torch, np)
+    gram_cases, prop_cases = gram_kernel_cases(torch)
     launches = serve_slice(torch, np, card)
+    train_launches = train_slice(torch, card)
 
-    head = next(c for c in cases if c["key"] == HEADLINE)
-    kernels = [{
-        "name": "matmul_relu",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/matmul_relu.cu",
-        "replaces": "src/repro/kernels/matmul_relu/kernel.py:36",
-        "launches": launches,
-        "shapes": head["shape"],
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"],
-        "kernel_ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
-    }]
+    def entry(name, source, replaces, launches, cases, headline):
+        head = next(c for c in cases if c["key"] == headline)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "shapes": head["shape"],
+            "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"],
+            "kernel_ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
+        }
+
+    csrc = "src/repro_torch/kernels/csrc"
+    kernels = [
+        entry("matmul_relu", f"{csrc}/matmul_relu.cu",
+              "src/repro/kernels/matmul_relu/kernel.py:36", launches, cases, HEADLINE),
+        entry("gram", f"{csrc}/gram.cu", "src/repro/kernels/gram/kernel.py:47",
+              train_launches["gram"], gram_cases, GRAM_HEADLINE),
+        entry("propagate_gram", f"{csrc}/propagate_gram.cu",
+              "src/repro/kernels/propagate_gram/kernel.py:55",
+              train_launches["propagate_gram"], prop_cases, PROPAGATE_HEADLINE),
+    ]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

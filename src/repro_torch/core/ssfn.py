@@ -10,16 +10,22 @@ problem (6) and R_{l+1} ((n-2Q) x n_{l-1}) is a frozen random matrix.
 The V_Q block gives the lossless flow property: g(V_Q u) = [relu(u);
 relu(-u)] retains u exactly, so cost is monotone in depth.
 
-Every propagation ``relu(W y)`` goes through the ``matmul_relu`` op: the
-hand-written kernel for tensors on the card, its plain version on the CPU.
+Every propagation ``relu(W y)`` here goes through the ``matmul_relu`` op:
+the hand-written kernel for tensors on the card, its plain version on the
+CPU.  Training propagates through ``propagate_gram`` instead
+(``core/engine.py``).  So :class:`SSFNConfig` has no ``use_kernels``
+field, unlike the reference's: on the port, CUDA tensors always launch
+the kernels and CPU tensors take the plain versions.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.kernels.matmul_relu import matmul_relu
 
 
@@ -57,6 +63,33 @@ class SSFNParams(NamedTuple):
 def v_q(q: int, dtype=torch.float32, device=None) -> torch.Tensor:
     eye = torch.eye(q, dtype=dtype, device=device)
     return torch.cat([eye, -eye], dim=0)
+
+
+def init_random_matrices(
+    cfg: SSFNConfig,
+    *,
+    generator: torch.Generator,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """R_1..R_L, shared across all workers (Algorithm 1, input line 3):
+    N(0, 1) / sqrt(fan_in) in ``cfg.dtype``, drawn in layer order from
+    ``generator`` on its own device, then placed on ``device`` (``None``
+    means ``cuda``, and raises without it).
+
+    The draws are PyTorch's, not ``jax.random``'s: the same seed gives
+    other matrices than ``repro``'s.  To hold the two packages against
+    each other, carry ``repro``'s R across (``convert.r_from_numpy``)."""
+    dev = resolve_device(device)
+    n, p, q = cfg.n, cfg.input_dim, cfg.num_classes
+    rs = []
+    for l in range(cfg.num_layers):
+        fan_in = p if l == 0 else n
+        r = torch.randn(
+            (n - 2 * q, fan_in), generator=generator, device=generator.device,
+            dtype=cfg.dtype,
+        )
+        rs.append((r / math.sqrt(fan_in)).to(dev))
+    return tuple(rs)
 
 
 def build_weight(o_l: torch.Tensor, r_next: torch.Tensor, q: int) -> torch.Tensor:

@@ -1,0 +1,21 @@
+from repro_torch.data.synthetic import (
+    PAPER_DATASETS,
+    PARTITIONS,
+    Dataset,
+    make_classification,
+    paper_dataset,
+    partition_by_spec,
+    partition_workers,
+    partition_workers_noniid,
+)
+
+__all__ = [
+    "PAPER_DATASETS",
+    "PARTITIONS",
+    "Dataset",
+    "make_classification",
+    "paper_dataset",
+    "partition_by_spec",
+    "partition_workers",
+    "partition_workers_noniid",
+]

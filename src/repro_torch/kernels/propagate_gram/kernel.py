@@ -1,0 +1,114 @@
+"""ctypes wrapper of the hand-written CUDA kernels ``csrc/propagate_gram.cu``.
+
+Port of ``repro/kernels/propagate_gram/kernel.py``
+(``propagate_gram_pallas``), batched over the worker axis with W shared.
+One op call issues two kernels on the current stream (the propagation,
+then the Gram of its f32 output) and counts as one launch.  The wrapper
+checks what the kernels take and raises on anything else, allocates the
+outputs (and, for bf16, the f32 copy of Y' the Gram pass reads), and
+does not synchronise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = (torch.float32, torch.bfloat16)
+_INT_MAX = 2**31 - 1
+_MAX_WORKERS = 65535      # the grids' z and y dimensions
+_MAX_ROWS = 65535 * 64    # n row tiles of 64 on the grid's y dimension
+
+#: Op calls that launched the kernels in this process; raised by one at
+#: each call and nowhere else.  Read with :func:`launch_count`.
+_launches = 0
+
+
+def launch_count() -> int:
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("propagate_gram")
+    for fn in (lib.propagate_gram_f32, lib.propagate_gram_bf16):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(w: torch.Tensor, y: torch.Tensor) -> None:
+    if w.device.type != "cuda" or y.device != w.device:
+        raise ValueError(
+            f"propagate_gram kernel needs both operands on one CUDA device, "
+            f"got w on {w.device} and y on {y.device}"
+        )
+    if w.dtype not in DTYPES or y.dtype != w.dtype:
+        raise TypeError(
+            f"propagate_gram kernel takes float32 or bfloat16 operands of one "
+            f"dtype, got w {w.dtype} and y {y.dtype}"
+        )
+    if w.ndim != 2 or y.ndim != 3 or w.shape[1] != y.shape[1]:
+        raise ValueError(
+            f"propagate_gram needs w (n, n_prev) and y (M, n_prev, J), got "
+            f"{tuple(w.shape)} and {tuple(y.shape)}"
+        )
+    n, n_prev = w.shape
+    m, j = y.shape[0], y.shape[2]
+    if (min(m, n, n_prev, j) < 1 or m > _MAX_WORKERS or n > _MAX_ROWS
+            or max(n * n_prev, n_prev, j) > _INT_MAX):
+        raise ValueError(
+            f"propagate_gram kernel takes 1 <= M <= {_MAX_WORKERS}, "
+            f"1 <= n <= {_MAX_ROWS} and sizes < 2**31, got M={m} n={n} "
+            f"n_prev={n_prev} J={j}"
+        )
+    if not (w.is_contiguous() and y.is_contiguous()):
+        raise ValueError("propagate_gram kernel needs row-major contiguous operands")
+
+
+def propagate_gram_cuda(
+    w: torch.Tensor, y: torch.Tensor, *, mu: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Y', G) on the card: w (n, n_prev), y (M, n_prev, J) -> Y' (M, n, J)
+    in w's dtype and G (M, n, n) f32."""
+    global _launches
+    _check(w, y)
+    lib = _lib()
+    n, n_prev = w.shape
+    m, j = y.shape[0], y.shape[2]
+    y_out = torch.empty((m, n, j), dtype=w.dtype, device=w.device)
+    g = torch.empty((m, n, n), dtype=torch.float32, device=w.device)
+    if w.dtype == torch.float32:
+        fn, y32 = lib.propagate_gram_f32, None
+    else:
+        fn = lib.propagate_gram_bf16
+        y32 = torch.empty((m, n, j), dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            w.data_ptr(), y.data_ptr(), y_out.data_ptr(),
+            None if y32 is None else y32.data_ptr(), g.data_ptr(),
+            m, n, n_prev, j, 1.0 / mu, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"propagate_gram kernel launch failed with cudaError_t {err} "
+            f"(M={m} n={n} n_prev={n_prev} J={j}, {w.dtype})"
+        )
+    _launches += 1
+    # y32 may be freed on return: the caching allocator hands its memory
+    # out again only to work queued after the Gram pass on this stream.
+    return y_out, g

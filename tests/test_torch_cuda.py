@@ -8,14 +8,23 @@ that has only the port's dependencies:
 Tolerances: f32 rtol/atol 1e-5 against the plain version (both sum in
 f32, in different orders); bf16 one bf16 ulp, 2**-7 relative, since both
 round an f32 sum to bf16 and two orders may leave it on either side of a
-rounding boundary.
+rounding boundary.  The Gram kernels are held at 1e-5 x max|G| (their
+sums run over J <= 3000 samples; for J = 60000 at 2 sqrt(J) 2**-24 x
+max|G| = 2.9e-5, the random-walk growth of an in-order f32 sum of J
+terms, which the library GEMM behind the plain version may take).  A bf16 propagate_gram
+rounds Y' (one bf16 ulp) but builds G from the f32 Y' in both versions,
+so its G keeps the f32 tolerance.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import ssfn
+from repro_torch.kernels import gram as gram_mod
+from repro_torch.kernels import propagate_gram as pg_mod
 from repro_torch.kernels.matmul_relu import (
     launch_count,
     matmul_relu,
@@ -121,3 +130,204 @@ def test_engine_on_card_launches_kernel_per_layer_and_stays_bit_exact(cuda, tmp_
     assert torch.equal(torch.cat([h.result() for h in handles], dim=1), full)
     cpu = ServeEngine(path, buckets=(8, 32), device="cpu").forward(x)
     np.testing.assert_allclose(full.cpu().numpy(), cpu.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# gram and propagate_gram
+# ---------------------------------------------------------------------------
+
+
+def _gram_tol(j):
+    return max(1e-5, 2 * math.sqrt(j) * 2**-24)
+
+
+def _close_scaled(got, want, rel):
+    """max|got - want| <= rel * max|want|, in f32."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= rel * scale, (err, rel * scale)
+
+
+def _features(m, n, j, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((m, n, j)).astype(np.float32)
+
+
+# (M, n, J): the train's layer-0 launches (decentralized and centralized),
+# a full-width propagated layer, and ragged edges.
+GRAM_SHAPES = [(20, 784, 3000), (1, 784, 60000), (20, 1020, 3000),
+               (3, 33, 65), (1, 1, 1), (2, 130, 31)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,j", GRAM_SHAPES)
+def test_gram_matches_plain(cuda, m, n, j):
+    y = torch.from_numpy(_features(m, n, j)).to(cuda)
+    before = gram_mod.launch_count()
+    got = gram_mod.gram(y, mu=1e-3)
+    torch.cuda.synchronize()
+    assert gram_mod.launch_count() == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n, n)
+    _close_scaled(got, gram_mod.gram_ref(y, mu=1e-3), _gram_tol(j))
+
+
+@pytest.mark.cuda
+def test_gram_sums_are_compensated(cuda):
+    """60000 non-negative products per entry (ReLU features, the
+    centralized layer): the kernel's Kahan-added 32-term chains stay
+    within 8 f32 ulps of max|G| of a float64 Gram, where one in-order
+    chain drifts by about sqrt(J/3) = 141 ulps."""
+    y = torch.relu(torch.from_numpy(_features(1, 64, 60000, seed=10))).to(cuda)
+    got = gram_mod.gram(y, mu=1.0).double()
+    y64 = y.double()
+    want = y64 @ y64.mT + torch.eye(64, dtype=torch.float64, device=cuda)
+    assert (got - want).abs().max().item() <= 8 * 2**-24 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gram_bf16_matches_plain(cuda):
+    y = torch.from_numpy(_features(3, 33, 65)).to(cuda, torch.bfloat16)
+    got = gram_mod.gram(y, mu=1.0)
+    assert got.dtype == torch.float32
+    _close_scaled(got, gram_mod.gram_ref(y, mu=1.0), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,j", [(3, 200, 300), (3, 1020, 257), (20, 784, 3000)])
+def test_gram_symmetric_and_deterministic(cuda, m, n, j):
+    """Exactly symmetric; bit-identical across calls, across batch
+    positions, and whether a worker is computed at M=1 or in a batch."""
+    y = torch.from_numpy(_features(m, n, j, seed=2)).to(cuda)
+    g1 = gram_mod.gram(y, mu=0.5)
+    g2 = gram_mod.gram(y, mu=0.5)
+    assert torch.equal(g1, g2)
+    assert torch.equal(g1, g1.mT)
+    rolled = gram_mod.gram(torch.roll(y, 1, dims=0).contiguous(), mu=0.5)
+    assert torch.equal(torch.roll(rolled, -1, dims=0), g1)
+    for w in range(m):
+        assert torch.equal(gram_mod.gram(y[w:w + 1].contiguous(), mu=0.5)[0], g1[w])
+
+
+# (n, n_prev, M, J): the train's layer-1 and layer-l launches, decentralized
+# and centralized, and ragged edges.
+PROPAGATE_SHAPES = [(1020, 784, 20, 3000), (1020, 1020, 20, 3000),
+                    (1020, 1020, 1, 60000), (33, 257, 3, 65), (1, 1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_prev,m,j", PROPAGATE_SHAPES)
+def test_propagate_gram_matches_plain(cuda, n, n_prev, m, j):
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(
+        (rng.standard_normal((n, n_prev)) / np.sqrt(n_prev)).astype(np.float32)
+    ).to(cuda)
+    y = torch.from_numpy(_features(m, n_prev, j, seed=4)).to(cuda)
+    before = pg_mod.launch_count()
+    y_new, g = pg_mod.propagate_gram(w, y, mu=1.0)
+    torch.cuda.synchronize()
+    assert pg_mod.launch_count() == before + 1
+    assert y_new.shape == (m, n, j) and g.shape == (m, n, n)
+    want_y, want_g = pg_mod.propagate_gram_ref(w, y, mu=1.0)
+    _close_scaled(y_new, want_y, 1e-5)
+    _close_scaled(g, want_g, _gram_tol(j))
+    assert torch.equal(g, g.mT)
+    assert (y_new >= 0).all()
+
+
+@pytest.mark.cuda
+def test_propagate_gram_bf16_grams_the_unrounded_features(cuda):
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((33, 257)).astype(np.float32) / 16)
+    y = torch.from_numpy(_features(3, 257, 65, seed=6))
+    w, y = w.to(cuda, torch.bfloat16), y.to(cuda, torch.bfloat16)
+    y_new, g = pg_mod.propagate_gram(w, y, mu=1.0)
+    want_y, want_g = pg_mod.propagate_gram_ref(w, y, mu=1.0)
+    assert y_new.dtype == torch.bfloat16 and g.dtype == torch.float32
+    _close_scaled(y_new, want_y, 1e-2)
+    _close_scaled(g, want_g, 1e-5)          # f32: G saw no bf16 rounding
+    # The tolerance tells the two apart: a Gram of the rounded Y' misses it.
+    rounded = want_y.float()
+    g_rounded = torch.matmul(rounded, rounded.mT) + torch.eye(33, device=cuda)
+    assert (g_rounded - want_g).abs().max() > 1e-5 * want_g.abs().max()
+
+
+@pytest.mark.cuda
+def test_propagate_gram_deterministic_per_worker(cuda):
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.standard_normal((300, 200)).astype(np.float32) / 14).to(cuda)
+    y = torch.from_numpy(_features(3, 200, 129, seed=8)).to(cuda)
+    y1, g1 = pg_mod.propagate_gram(w, y, mu=1.0)
+    y2, g2 = pg_mod.propagate_gram(w, y, mu=1.0)
+    assert torch.equal(y1, y2) and torch.equal(g1, g2)
+    y_one, g_one = pg_mod.propagate_gram(w, y[2:].contiguous(), mu=1.0)
+    assert torch.equal(y_one[0], y1[2]) and torch.equal(g_one[0], g1[2])
+    # The Gram pass of the fused op is the gram kernel on the f32 Y'.
+    assert torch.equal(gram_mod.gram(y1, mu=1.0), g1)
+
+
+@pytest.mark.cuda
+def test_gram_wrappers_reject_what_kernels_cannot_take(cuda):
+    y = torch.zeros((2, 4, 3), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gram_mod.gram_cuda(y.half(), mu=1.0)
+    with pytest.raises(ValueError, match=r"\(M, n, J\)"):
+        gram_mod.gram_cuda(y[0], mu=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_mod.gram_cuda(y.mT, mu=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_mod.gram_cuda(y.cpu(), mu=1.0)
+    w = torch.zeros((5, 4), device=cuda)
+    with pytest.raises(ValueError, match="n_prev"):
+        pg_mod.propagate_gram_cuda(w, torch.zeros((2, 3, 3), device=cuda), mu=1.0)
+    with pytest.raises(TypeError, match=r"one\s+dtype"):
+        pg_mod.propagate_gram_cuda(w, y.to(torch.bfloat16), mu=1.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pg_mod.propagate_gram_cuda(w, y.cpu(), mu=1.0)
+
+
+# ---------------------------------------------------------------------------
+# The training slice on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_inputs(device):
+    """test_torch_train.py's geometry: P=32, Q=4, n=128, L=3, M=4, J=1024,
+    K=30, mu0 = mul = 1e-1, from numpy so both devices get the same data
+    and the same R."""
+    rng = np.random.default_rng(9)
+    p, q, n, layers, m, j = 32, 4, 128, 3, 4, 1024
+    x = rng.standard_normal((p, j)).astype(np.float32)
+    labels = rng.integers(0, q, j)
+    t = np.eye(q, dtype=np.float32)[labels].T.copy()
+    r = [(rng.standard_normal((n - 2 * q, p if l == 0 else n)) / np.sqrt(p if l == 0 else n))
+         .astype(np.float32) for l in range(layers)]
+    cfg = ssfn.SSFNConfig(input_dim=p, num_classes=q, num_layers=layers, hidden=n,
+                          mu0=1e-1, mul=1e-1, admm_iters=30)
+    xw = torch.from_numpy(x.reshape(p, m, j // m).transpose(1, 0, 2).copy()).to(device)
+    tw = torch.from_numpy(t.reshape(q, m, j // m).transpose(1, 0, 2).copy()).to(device)
+    return cfg, xw, tw, [torch.from_numpy(a).to(device) for a in r], torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+def test_card_training_run_equals_cpu_run(cuda):
+    """Within test_torch_train.py's tolerances: readouts and predictions
+    within a relative gap of 1e-4, argmax agreement >= 0.99; the train
+    launches gram once and propagate_gram once per propagated layer."""
+    from repro_torch.core import layerwise
+
+    cfg, xw, tw, r, x = _train_inputs(cuda)
+    g0, p0 = gram_mod.launch_count(), pg_mod.launch_count()
+    card, card_log = layerwise.train_decentralized_ssfn(xw, tw, cfg, r=r)
+    assert gram_mod.launch_count() == g0 + 1
+    assert pg_mod.launch_count() == p0 + cfg.num_layers
+    cfg_c, xw_c, tw_c, r_c, x_c = _train_inputs("cpu")
+    cpu, cpu_log = layerwise.train_decentralized_ssfn(xw_c, tw_c, cfg_c, r=r_c)
+    for a, b in zip(card.o, cpu.o):
+        a, b = a.cpu().double(), b.double()
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+    got, want = ssfn.predict(card, x, 4).cpu(), ssfn.predict(cpu, x_c, 4)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+    assert (got.argmax(0) == want.argmax(0)).float().mean() >= 0.99
+    assert card_log.comm_scalars == cpu_log.comm_scalars
+    assert np.array_equal(card_log.jitter_levels, cpu_log.jitter_levels)

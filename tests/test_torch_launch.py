@@ -1,9 +1,13 @@
-"""repro_torch.launch.serve_dssfn and the port's hygiene rules.
+"""repro_torch's launchers and the port's hygiene rules.
 
-- The launcher serves a ``repro``-exported artifact end to end with
+- ``serve_dssfn`` serves a ``repro``-exported artifact end to end with
   ``--device cpu``, reports ``repro``'s result keys plus ``device`` and
   ``kernel_launches``, and its saved logits equal the engine's.
-- Without ``--device`` it needs CUDA and says how to get the CPU.
+- ``train_dssfn`` trains with ``--device cpu``, reports ``repro``'s
+  result keys plus ``device`` and per-kernel ``kernel_launches``, and its
+  ``--export-artifact`` serves through the port's ``serve_dssfn`` and
+  loads in ``repro``.
+- Without ``--device`` both need CUDA and say how to get the CPU.
 - No module of the port, nor ``chip_smoke.py``, imports JAX or ``repro``.
 - ``chip_smoke.py`` exits non-zero with no result line without CUDA.
 """
@@ -20,7 +24,8 @@ import torch
 
 from repro.core import ssfn as jssfn
 from repro.serve import export_artifact as j_export
-from repro_torch.launch import serve_dssfn
+from repro.serve import load_artifact as j_load
+from repro_torch.launch import serve_dssfn, train_dssfn
 from repro_torch.serve import ServeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +93,71 @@ def test_cli_defaults_to_cuda(artifact, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# train_dssfn
+# ---------------------------------------------------------------------------
+
+# The keys of repro.launch.train_dssfn.train_one's run dict (params aside).
+REPRO_RUN_KEYS = {
+    "backend", "kind", "policy", "wire_bits", "trace_every", "wall_time_s",
+    "test_accuracy", "final_objective", "comm_scalars", "jitter_events",
+    "rollbacks", "executable_cache",
+}
+TRAIN_ARGS = ["--device", "cpu", "--workers", "4", "--layers", "2", "--hidden", "40",
+              "--admm-iters", "20", "--train", "480", "--test", "120"]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ttrain")
+    path, out = str(tmp / "stack"), str(tmp / "res.json")
+    res = train_dssfn.main(TRAIN_ARGS + ["--export-artifact", path, "--out", out])
+    return res, path, out
+
+
+def test_train_cli_reports_reference_keys_on_cpu(trained):
+    res, path, out = trained
+    assert {"config", "runs", "export"} <= set(res) and res["device"] == "cpu"
+    (run,) = res["runs"]
+    assert REPRO_RUN_KEYS <= set(run)
+    assert run["device"] == "cpu"
+    assert run["kernel_launches"] == {"gram": 0, "propagate_gram": 0, "matmul_relu": 0}
+    assert run["executable_cache"]["lowerings"] == 3      # l=0, l=1, l>=2
+    assert run["jitter_events"] == 0 and run["rollbacks"] == 0
+    assert run["comm_scalars"] == 6 * (16 + 40 + 40) * 20
+    assert 0.0 <= run["test_accuracy"] <= 1.0 and run["final_objective"] > 0
+    assert res["export"] == {"path": path, "source_kind": "simulated", "num_layers": 2}
+    with open(out) as f:
+        assert json.load(f)["runs"][0]["comm_scalars"] == run["comm_scalars"]
+
+
+def test_trained_artifact_serves_in_the_port_and_loads_in_repro(trained, tmp_path):
+    _, path, _ = trained
+    logits = str(tmp_path / "logits.npz")
+    res = serve_dssfn.main(["--artifact", path, "--device", "cpu", "--requests", "6",
+                            "--batch-bucket", "1,4", "--save-logits", logits])
+    assert res["completed"] == 6
+    art = j_load(path)
+    assert art.num_classes == 6 and art.input_dim == 16 and art.num_layers == 2
+    assert art.manifest["source"]["trained_by"] == "repro_torch.launch.train_dssfn"
+    with np.load(logits) as z:
+        want = np.asarray(jssfn.predict(art.params, jnp.asarray(z["requests"]), 6))
+        np.testing.assert_allclose(z["logits"], want, rtol=1e-5, atol=1e-5)
+
+
+def test_train_cli_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_dssfn.main(["--workers", "2"])
+
+
+@pytest.mark.parametrize("flag", [["--backend", "mesh"], ["--backend", "both"],
+                                  ["--consensus", "gossip:4:2"]])
+def test_train_cli_refuses_unported_modes(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        train_dssfn.main(TRAIN_ARGS + flag)
+
+
+# ---------------------------------------------------------------------------
 # Hygiene
 # ---------------------------------------------------------------------------
 
@@ -105,6 +175,7 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels._build" in mods
+    assert "repro_torch.launch.train_dssfn" in mods and "repro_torch.core.admm" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

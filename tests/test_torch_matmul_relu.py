@@ -107,13 +107,15 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
                CUDA_HOME=str(tmp_path / "no-cuda"))
     code = (
         "import repro_torch.kernels._build as b, "
-        "repro_torch.kernels.matmul_relu.kernel as k; "
-        "print(b.kernel_names(), k.launch_count())"
+        "repro_torch.kernels.matmul_relu.kernel as k, "
+        "repro_torch.kernels.gram.kernel as g, "
+        "repro_torch.kernels.propagate_gram.kernel as p; "
+        "print(b.kernel_names(), k.launch_count(), g.launch_count(), p.launch_count())"
     )
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "['matmul_relu'] 0"
+    assert out.stdout.strip() == "['gram', 'matmul_relu', 'propagate_gram'] 0 0 0"
 
 
 def test_build_without_nvcc_raises_and_builds_nothing(tmp_path, monkeypatch):
