@@ -34,7 +34,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the reference's centralized-equivalence bars, and that the exported
    stack serves through ``ServeEngine`` bit for bit like
    ``ssfn.predict``.  It prints where a layer's time goes.
-6. The card line, one ``{"kernels": [...]}`` line, and as the last line
+6. Kernel vs plain: ``flash_attention`` at the full-width H2O-Danube3-4B
+   shapes — (1, 32, 8192, 120) and (1, 32, 4096, 120) with the 4096
+   window, in bf16 and f32 — plus a ragged (1, 32, 4100, 120) and a
+   (2, 8, 77, 80), each timed beside its plain version, beside
+   ``scaled_dot_product_attention`` and beside its bound.
+7. The inference slice at full width: H2O-Danube3-4B, all 24 layers, with
+   seeded weights and tokens from the port's ``TokenStream``.  (a) A bf16
+   scoring forward through ``make_loss_fn`` at B=1, S=8192 with the
+   kernel on: 24 launches and a finite loss, and where the forward's time
+   goes (CUDA events around the whole forward and around each kernel call
+   in it).  (b) The same forward in f32, kernel route against the plain
+   chunked route.  (c) ``repro_torch.launch.serve.serve`` at batch 2, a
+   4608-token prompt (past the window, so the ring cache wraps) and 16
+   generated tokens, in bf16.  (d) In f32, prefill + greedy decode
+   logits at each generated position against the f32 forward's, and
+   where a decode step's time goes (the host's enqueue against the
+   synchronized step).
+8. The card line, one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -663,6 +680,308 @@ def train_slice(torch, card: str) -> dict:
     return launches
 
 
+# flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
+# 120, KV repeated to 32, window 4096): (B, H, S, hd, window, dtype).
+FLASH_CASES = [(1, 32, 8192, 120, 4096, "bfloat16"), (1, 32, 4096, 120, 4096, "bfloat16"),
+               (1, 32, 8192, 120, 4096, "float32"), (1, 32, 4096, 120, 4096, "float32"),
+               (1, 32, 4100, 120, 4096, "bfloat16"), (2, 8, 77, 80, None, "float32")]
+FLASH_HEADLINE = (1, 32, 8192, 120, 4096, "bfloat16")
+# flash_attention tolerance, per element: |kernel - plain| <= rel |plain|
+# + 1e-5 max|plain|.  The second term is f32's (KERNEL_TOL: sums in other
+# orders).  bf16 adds rel = 2**-7: both versions round one f32 result to
+# bf16, so an element whose f32 values straddle a rounding boundary may
+# differ by one bf16 ulp, at most 2**-7 of its size.  Held per element,
+# not against max|plain|: past the first rows an output averages over
+# thousands of keys and is some 100x smaller than max|plain|, so a global
+# bf16 limit would pass a dropped or mis-weighted KV tile there.
+FLASH_REL = {"float32": 0.0, "bfloat16": 2.0**-7}
+
+
+def flash_excess(got, want, dtype: str) -> tuple[float, float, float]:
+    """(max|got - want|, its floor 1e-5 max|want|, max over elements of
+    |got - want| - allowed): the last is <= 0 when every element passes."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    floor = KERNEL_TOL["float32"] * want.abs().max().item()
+    excess = (diff - FLASH_REL[dtype] * want.abs()).max().item() - floor
+    return diff.max().item(), floor, excess
+
+
+def attended_pairs(s: int, window: int | None) -> int:
+    """(query, key) pairs a causal (sliding-window) attention computes:
+    query q sees min(q + 1, window) keys."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_bound(b: int, h: int, s: int, hd: int, window, dtype: str) -> tuple[float, str]:
+    """q, k, v read once and the output written once; 4 hd operations per
+    attended pair (2 hd for q.k, 2 hd for p v), at the peak rate of the
+    inputs' type (bf16: tensor cores)."""
+    return roofline(4.0 * hd * b * h * attended_pairs(s, window),
+                    4 * b * h * s * hd * elem_bytes(dtype), dtype)
+
+
+def time_calls(torch, fn, iters: int) -> float:
+    """Device ms per call: CUDA events around ``iters`` back-to-back calls
+    after one warm-up call.  For calls of a millisecond or more the host's
+    launch cost hides behind the queued work."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def flash_kernel_cases(torch):
+    """flash_attention at the inference slice's shapes, each held against
+    its plain version and timed beside it, beside one library call
+    (``scaled_dot_product_attention``) and beside its bound."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for b, h, s, hd, window, dt in FLASH_CASES:
+        q, k, v = (torch.randn((b, h, s, hd), generator=gen, device="cuda").to(dtypes[dt])
+                   for _ in range(3))
+        got = flash_attention_cuda(q, k, v, window=window)
+        want = flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err, floor, excess = flash_excess(got, want, dt)
+        tol = f"{FLASH_REL[dt]:.3e} |plain| + {floor:.3e}"
+        if got.shape != q.shape or got.dtype != q.dtype or not excess <= 0.0:
+            raise AssertionError(
+                f"flash_attention ({b},{h},{s},{hd}) window {window} {dt}: an element "
+                f"exceeds |kernel - plain| <= {tol} by {excess:.3e}"
+            )
+        del got, want
+        if window is None or window >= s:   # the window masks nothing
+            def library(q=q, k=k, v=v):
+                return sdpa(q, k, v, is_causal=True)
+        else:
+            pos = torch.arange(s, device="cuda")
+            allowed = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+
+            def library(q=q, k=k, v=v, allowed=allowed):
+                return sdpa(q, k, v, attn_mask=allowed)
+        big = s >= 4096
+        ms = time_calls(torch, lambda: flash_attention_cuda(q, k, v, window=window),
+                        5 if big else 50)
+        plain_ms = time_calls(torch, lambda: flash_attention_ref(q, k, v, window=window),
+                              2 if big else 50)
+        library_ms = time_calls(torch, library, 5 if big else 50)
+        bound_ms, bound_by = flash_bound(b, h, s, hd, window, dt)
+        f32_ms, _ = flash_bound(b, h, s, hd, window, "float32")
+        cases.append({
+            "shape": f"({b},{h},{s},{hd}) window {window} {dt}",
+            "key": (b, h, s, hd, window, dt), "max_abs_err": err, "tolerance": tol,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "f32_simt_bound_ms": f32_ms,
+            "attended_pairs_per_head": attended_pairs(s, window),
+        })
+        print(
+            f"flash_attention {cases[-1]['shape']}: err {err:.3e} (tol {tol} per element) "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library (SDPA) {library_ms:.3f} ms "
+            f"bound {bound_ms:.3f} ms ({bound_by}, {dt} peak; {f32_ms:.3f} ms at the f32 "
+            f"CUDA-core peak)",
+            flush=True,
+        )
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    return cases
+
+
+# The inference slice: H2O-Danube3-4B (arXiv:2401.16818) at its published
+# widths and all 24 layers; only the number of requests and the generated
+# length are cut.
+INFER = {"arch": "h2o_danube3_4b", "score_seq": 8192, "serve_batch": 2,
+         "prompt": 4608, "gen": 16, "seed": 0}
+# (b) f32 logits, kernel route vs the plain chunked route: each of the 24
+# layers' attention sums up to 4096 terms in another order (a disagreement
+# of order sqrt(4096) 2**-24 ~ 4e-6 of its output), and the residual
+# stream carries it through the later layers; 1e-3 x max|logits| leaves a
+# wide margin over that and still fails any masking or indexing fault,
+# which moves logits by O(1).
+ROUTE_TOL = 1e-3
+# (d) f32 prefill (chunked attention) and decode (dense attention over the
+# ring cache) against the forward through the kernel: three summation
+# orders of the same f32 math, as (b); test_arch_smoke.py holds the reduced
+# model to 1e-3 on logits of the same O(1-5) size.
+DECODE_TOL = 1e-3
+
+
+def timed_forward(torch, model, params, batch) -> float:
+    """ms of one forward on the card's timeline (CUDA events)."""
+    with torch.no_grad():
+        _, ms = timed(torch, lambda: model.forward(params, batch))
+    return ms
+
+
+def attention_share(torch, model, params, batch) -> tuple[float, float, int]:
+    """(forward ms, flash_attention ms inside it, its calls): one forward
+    on the card's timeline, with CUDA events around the whole and around
+    each call of the ``flash_attention`` op the layers make in it."""
+    from repro_torch.models import blocks
+
+    op, spans = blocks.flash_attention, []
+
+    def timed_op(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = op(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    blocks.flash_attention = timed_op
+    try:
+        fwd_ms = timed_forward(torch, model, params, batch)
+    finally:
+        blocks.flash_attention = op
+    return fwd_ms, sum(start.elapsed_time(end) for start, end in spans), len(spans)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def inference_slice(torch, np, card: str) -> int:
+    """Score, serve and check the full-width model; returns the scoring
+    forward's flash_attention launch count (the main path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.steps import make_loss_fn, make_serve_step
+
+    cfg = dataclasses.replace(get_config(INFER["arch"]), use_pallas_kernels=True)
+    s = INFER["score_seq"]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(INFER["seed"]))
+    stream = iter(TokenStream(cfg.vocab_size, s, 1, seed=INFER["seed"]))
+    host = next(stream)
+    batch = {k: torch.as_tensor(a, device="cuda") for k, a in host.items()}
+    print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV heads of "
+          f"{cfg.hd}, window {cfg.window}, {cfg.dtype}", flush=True)
+
+    # (a) The main path: the scoring forward through the kernel.
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    with torch.no_grad():
+        loss = make_loss_fn(model)(params, batch)
+    torch.cuda.synchronize()
+    main_launches = fa.launch_count()
+    loss = float(loss)
+    if main_launches != cfg.num_layers or not np.isfinite(loss):
+        raise AssertionError(f"scoring forward: {main_launches} flash_attention launches "
+                             f"(expected {cfg.num_layers}), loss {loss}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms, attn_ms, calls = attention_share(torch, model, params, batch)
+    plain_model = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
+    plain_fwd_ms = timed_forward(torch, plain_model, params, batch)
+    print(
+        f"(a) scoring forward B=1 S={s} bf16: loss {loss:.4f}, {main_launches} flash_attention "
+        f"launches, peak {peak_gb:.2f} GB; {fwd_ms:.3f} ms (CUDA events) = "
+        f"flash_attention {attn_ms:.3f} ms over {calls} calls ({attn_ms / fwd_ms:.1%}, CUDA "
+        f"events around each call in this forward) + the rest {fwd_ms - attn_ms:.3f} ms; "
+        f"through the plain chunked attention {plain_fwd_ms:.3f} ms",
+        flush=True,
+    )
+
+    # (c) Serving through the launcher's entry point: prefill and decode
+    # take the plain attention, as in the reference, so no kernel launches.
+    fa.reset_launch_count()
+    res = serve.serve(INFER["arch"], batch=INFER["serve_batch"], prompt_len=INFER["prompt"],
+                      gen_len=INFER["gen"], reduced=False, seed=INFER["seed"])
+    toks = res["tokens"]
+    if res["device"] != "cuda" or toks.shape != (INFER["serve_batch"], INFER["gen"]) \
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serve: tokens {toks.shape} on {res['device']}")
+    print(f"(c) serve B={INFER['serve_batch']} prompt {INFER['prompt']} (window {cfg.window}: "
+          f"the ring wraps) gen {INFER['gen']} bf16: prefill {res['prefill_s']:.3f} s, decode "
+          f"{res['decode_tokens_per_s']:.1f} tok/s ({res['decode_s']:.3f} s), "
+          f"{fa.launch_count()} flash_attention launches", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) f32: the kernel route against the plain chunked route.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(INFER["seed"]))
+    plain32 = build_model(dataclasses.replace(cfg32, use_pallas_kernels=False))
+    with torch.no_grad():
+        routed, _ = model32.forward(params32, {"tokens": batch["tokens"]})
+        plain, _ = plain32.forward(params32, {"tokens": batch["tokens"]})
+    err, scale = max_err(routed, plain)
+    del routed, plain
+    if not err <= ROUTE_TOL * scale:
+        raise AssertionError(f"(b) f32 logits, kernel vs plain route: {err:.3e} > "
+                             f"{ROUTE_TOL} x {scale:.3e}")
+    print(f"(b) f32 forward S={s}: logits kernel route vs plain chunked route max abs err "
+          f"{err:.3e} (max|logits| {scale:.3e}, tol {ROUTE_TOL} x max)", flush=True)
+
+    # (d) f32 prefill + greedy decode against the f32 forward through the
+    # kernel over the prompt and the generated tokens.
+    bsz, n0, gen = INFER["serve_batch"], INFER["prompt"], INFER["gen"]
+    prompt = torch.as_tensor(
+        np.random.default_rng(INFER["seed"]).integers(0, cfg.vocab_size, (bsz, n0)),
+        device="cuda")
+    step = make_serve_step(model32)
+    enqueue, total = [], []      # host ms until a step returns / until the card ran it
+    with torch.no_grad():
+        logits, cache = model32.prefill(params32, {"tokens": prompt}, max_len=n0 + gen)
+        steps = [logits[:, -1]]
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        seq = [tok]
+        for _ in range(gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, cache = step(params32, {"tokens": tok.reshape(bsz, 1)}, cache)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits[:, -1])
+            seq.append(tok)
+        del cache
+        full_toks = torch.cat([prompt, torch.stack(seq[:-1], dim=1)], dim=1)
+        fa.reset_launch_count()
+        full, _ = model32.forward(params32, {"tokens": full_toks})
+    got = torch.stack(steps, dim=1)                     # positions n0-1 .. n0+gen-1
+    want = full[:, n0 - 1:n0 + gen]
+    err, scale = max_err(got, want)
+    if fa.launch_count() != cfg.num_layers or not err <= DECODE_TOL * scale:
+        raise AssertionError(f"(d) f32 prefill+decode vs forward: {err:.3e} > "
+                             f"{DECODE_TOL} x {scale:.3e}, or {fa.launch_count()} launches")
+    print(f"(d) f32 prefill {n0} + {gen} decode steps vs the forward over {full_toks.shape[1]} "
+          f"tokens (ragged S, kernel route): max abs err {err:.3e} over {gen + 1} positions "
+          f"(max|logits| {scale:.3e}, tol {DECODE_TOL} x max) on {card}", flush=True)
+    # Where a decode step's time goes: an enqueue time close to the step
+    # time means the host, not the card, sets the pace.  The first step
+    # warms up.
+    enqueue, total = sorted(enqueue[1:]), sorted(total[1:])
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params32))
+    print(f"(d) decode step B={bsz} f32 (median of {len(total)}): {total[len(total) // 2]:.3f} ms "
+          f"synchronized, of which {enqueue[len(enqueue) // 2]:.3f} ms for the host to enqueue "
+          f"it; reading the f32 weights once takes "
+          f"{weight_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at HBM rate", flush=True)
+    del params32, full, got, want
+    torch.cuda.empty_cache()
+    return main_launches
+
+
 def main() -> int:
     import torch
 
@@ -688,6 +1007,8 @@ def main() -> int:
     gram_cases, prop_cases = gram_kernel_cases(torch)
     launches = serve_slice(torch, np, card)
     train_launches = train_slice(torch, card)
+    flash_cases = flash_kernel_cases(torch)
+    flash_launches = inference_slice(torch, np, card)
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)
@@ -717,6 +1038,9 @@ def main() -> int:
         entry("propagate_gram", f"{csrc}/propagate_gram.cu",
               "src/repro/kernels/propagate_gram/kernel.py:55",
               train_launches["propagate_gram"], prop_cases, PROPAGATE_HEADLINE),
+        entry("flash_attention", f"{csrc}/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:75", flash_launches,
+              flash_cases, FLASH_HEADLINE),
     ]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

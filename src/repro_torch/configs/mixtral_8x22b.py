@@ -1,0 +1,20 @@
+"""Mixtral-8x22B: 8 experts top-2, sliding-window attention
+[arXiv:2401.04088]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b",
+    family="moe",
+    num_layers=56,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=32768,
+    num_experts=8,
+    top_k=2,
+    attention="swa",
+    window=4096,
+    rope_theta=1e6,
+    source="arXiv:2401.04088",
+)

@@ -1,5 +1,5 @@
-"""Carry SSFN parameters, random matrices and datasets between ``repro``
-(as numpy arrays) and the port.
+"""Carry SSFN parameters, random matrices, datasets and transformer
+parameters between ``repro`` (as numpy arrays) and the port.
 
 ``repro``'s arrays are JAX arrays; ``np.asarray`` on each gives what
 these functions take and return, so neither package imports the other.
@@ -8,7 +8,7 @@ R matrices and data across is how the same training problem reaches both.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +16,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.ssfn import SSFNParams
 from repro_torch.data.synthetic import Dataset
+from repro_torch.models.config import ModelConfig
 
 
 def params_from_numpy(
@@ -82,3 +83,67 @@ def dataset_from_numpy(data, *, device: str | torch.device | None = None) -> Dat
         t_test=conv("t_test", torch.float32),
         y_test=conv("y_test", torch.int64),
     )
+
+
+def transformer_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
+    """The shape of every parameter of a dense transformer, as a tree with
+    the reference's names: per-layer weights stacked on a leading L axis."""
+    L, d, f, v, hd = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.hd
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return {
+        "layers": {
+            "ln1": (L, d),
+            "ln2": (L, d),
+            "attn": {"wq": (L, d, q), "wk": (L, d, kv), "wv": (L, d, kv), "wo": (L, q, d)},
+            "ffn": {"wg": (L, d, f), "wu": (L, d, f), "wd": (L, f, d)},
+        },
+        "ln_f": (d,),
+        "embed": (v, d),
+        "head": (d, v),
+    }
+
+
+def transformer_params_from_numpy(
+    tree: dict[str, Any],
+    cfg: ModelConfig,
+    *,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+) -> dict[str, Any]:
+    """The port's parameters (tensors on ``device``, ``None`` meaning
+    ``cuda``; in ``dtype``, by default ``cfg.torch_dtype``) from
+    ``jax.tree.map(np.asarray, params)`` of ``repro``'s
+    ``TransformerModel.init``.  Names and layouts are the same; a tree
+    whose keys or shapes do not match ``cfg`` raises ``ValueError``.
+    bf16 arrays (numpy has no bf16 of its own) go through f32, which holds
+    every bf16 value exactly."""
+    dev = resolve_device(device)
+    dt = cfg.torch_dtype if dtype is None else dtype
+
+    def conv(node, shape, path):
+        if isinstance(shape, dict):
+            if not isinstance(node, dict) or set(node) != set(shape):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"params{path}: expected keys {sorted(shape)}, got {got}")
+            return {k: conv(node[k], shape[k], f"{path}[{k!r}]") for k in shape}
+        a = np.asarray(node)
+        if a.shape != shape:
+            raise ValueError(f"params{path}: expected shape {shape}, got {a.shape}")
+        if a.dtype.kind != "f" or a.dtype.itemsize < 4:   # bf16 and f16
+            a = a.astype(np.float32)
+        return torch.tensor(a, dtype=dt, device=dev)   # a copy, never a view of `tree`
+
+    return conv(tree, transformer_param_shapes(cfg), "")
+
+
+def transformer_params_to_numpy(params: dict[str, Any]) -> dict[str, Any]:
+    """The inverse of :func:`transformer_params_from_numpy`: the same tree
+    of host numpy arrays; bf16 comes back as f32."""
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return conv(params)

@@ -8,6 +8,9 @@ version:
                                                      Gram; training)
 - propagate_gram:  Y'_m = relu(W @ Y_m), G_m = Y'_m Y'_m^T + I/mu
                                                     (every training layer l >= 1)
+- flash_attention: causal (sliding-window) attention of q, k, v
+                   (B, H, S, hd)                    (the model zoo's scoring
+                                                     forward)
 
 ``csrc/gram.cuh`` holds the Gram tiles that ``gram.cu`` and
 ``propagate_gram.cu`` share.

@@ -1,0 +1,110 @@
+"""ctypes wrapper of the hand-written CUDA kernel ``csrc/flash_attention.cu``.
+
+Port of ``repro/kernels/flash_attention/kernel.py``
+(``flash_attention_pallas``).  Unlike the TPU kernel, which needs S to be
+a multiple of its blocks, this one takes any S >= 1.  It takes a head_dim
+up to 128 whose rows are whole 16-byte chunks (a multiple of 4 in f32, of
+8 in bf16; every config's 64, 80, 120 and 128 are), on 16-byte aligned
+operands.  The wrapper checks what the kernel takes and raises on anything
+else, allocates the output, launches on the current CUDA stream without
+synchronising, and counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+_INT_MAX = 2**31 - 1
+_MAX_SLICES = 65535  # B * H, the grid's y dimension
+
+#: Launches of the kernel in this process; raised by one at each launch
+#: and nowhere else.  Read with :func:`launch_count`.
+_launches = 0
+
+
+def launch_count() -> int:
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(
+            f"flash_attention kernel needs q, k and v on one CUDA device, got "
+            f"{q.device}, {k.device} and {v.device}"
+        )
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention kernel takes float32 or bfloat16 operands of one "
+            f"dtype, got {q.dtype}, {k.dtype} and {v.dtype}"
+        )
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_attention needs q, k, v of one shape (B, H, S, hd), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)} and {tuple(v.shape)}"
+        )
+    b, h, s, hd = q.shape
+    if not (1 <= b * h <= _MAX_SLICES and 1 <= s and 1 <= hd <= MAX_HEAD_DIM
+            and q.numel() <= _INT_MAX):
+        raise ValueError(
+            f"flash_attention kernel takes 1 <= B*H <= {_MAX_SLICES}, S >= 1, "
+            f"1 <= hd <= {MAX_HEAD_DIM} and < 2**31 elements, got "
+            f"B={b} H={h} S={s} hd={hd}"
+        )
+    if window is not None and not (isinstance(window, int) and window >= 1):
+        raise ValueError(f"window must be None or a positive int, got {window!r}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous (B, H, S, hd) operands")
+    if (hd * q.element_size()) % 16 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(
+            f"flash_attention kernel loads rows in 16-byte chunks: it needs hd a "
+            f"multiple of {16 // q.element_size()} for {q.dtype} (got {hd}) and "
+            f"16-byte aligned q, k and v"
+        )
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int | None = None
+) -> torch.Tensor:
+    """Causal (sliding-window) attention on the card: q, k, v (B, H, S, hd)
+    -> (B, H, S, hd) in q's dtype."""
+    global _launches
+    _check(q, k, v, window)
+    lib = _lib()
+    fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
+    b, h, s, hd = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b * h, s, hd, window or 0, 1.0 / hd**0.5, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed with cudaError_t {err} "
+            f"(B={b} H={h} S={s} hd={hd} window={window}, {q.dtype})"
+        )
+    _launches += 1
+    return out

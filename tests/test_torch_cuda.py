@@ -331,3 +331,151 @@ def test_card_training_run_equals_cpu_run(cuda):
     assert (got.argmax(0) == want.argmax(0)).float().mean() >= 0.99
     assert card_log.comm_scalars == cpu_log.comm_scalars
     assert np.array_equal(card_log.jitter_levels, cpu_log.jitter_levels)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# Tolerances, per element: |kernel - plain| <= rel |plain| + 1e-5 max|plain|.
+# The second term is f32's (both sum in f32, a dot of hd <= 128 terms and
+# a softmax over <= S keys, in different orders: a few ulps of the largest
+# output).  bf16 adds rel = 2**-7: both round one f32 result to bf16, so
+# an element whose f32 values straddle a rounding boundary may differ by
+# one bf16 ulp, at most 2**-7 of its size.  Held per element, not against
+# max|plain|: a long row averages over thousands of keys and is some 100x
+# smaller than the first rows, so a global bf16 limit would let a dropped
+# or mis-weighted KV tile there pass.
+FLASH_REL = {torch.float32: 0.0, torch.bfloat16: 2**-7}
+
+
+def _close_flash(got, want, dtype):
+    got, want = got.float(), want.float()
+    allowed = FLASH_REL[dtype] * want.abs() + 1e-5 * want.abs().max()
+    excess = ((got - want).abs() - allowed).max().item()
+    assert excess <= 0.0, excess
+
+
+def _qkv(b, h, s, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(np.float32))
+            .to(device, dtype) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 96, 4096])
+@pytest.mark.parametrize("s", [1, 77, 128, 4100])
+@pytest.mark.parametrize("hd", [64, 80, 120, 128])
+def test_flash_attention_matches_plain(cuda, hd, s, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h = (2, 3) if s <= 128 else (1, 2)
+    q, k, v = _qkv(b, h, s, hd, dtype, cuda, seed=hd + s)
+    before = fa.launch_count()
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launch_count() == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    _close_flash(got, fa.flash_attention_ref(q, k, v, window=window), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bit_identical_across_launches(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(1, 4, 1000, 120, dtype, cuda, seed=3)
+        first = fa.flash_attention_cuda(q, k, v, window=300)
+        second = fa.flash_attention_cuda(q, k, v, window=300)
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_kernel_cannot_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(1, 2, 8, 16, torch.float32, cuda)
+    big = torch.zeros((1, 2, 8, 129), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        fa.flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="one\\s+dtype"):
+        fa.flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_cuda(q, k, v, window=0)
+    for hd, dtype in ((33, torch.float32), (100, torch.bfloat16)):  # rows off 16 bytes
+        odd = torch.zeros((1, 2, 8, hd), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_cuda(odd, odd, odd)
+    buf = torch.zeros(q.numel() + 1, device=cuda)
+    shifted = buf[1:].view(q.shape)             # contiguous, 4 bytes off alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_cuda(shifted, k, v)
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 128, 200])
+def test_transformer_forward_on_card_launches_kernel_per_layer(cuda, s):
+    """A reduced H2O-Danube3-4B (GQA, window 64) forward on the card: one
+    kernel launch per layer at every S, and the same logits as the plain
+    chunked route and as the CPU (``test_kernel_integration.py``'s 5e-3;
+    both f32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("h2o_danube3_4b").reduced(), num_kv_heads=2,
+                              use_pallas_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(s).integers(0, 512, (2, s))).to(cuda)
+    before = fa.launch_count()
+    with torch.no_grad():
+        got, _ = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert fa.launch_count() == before + cfg.num_layers
+        plain, _ = build_model(dataclasses.replace(cfg, use_pallas_kernels=False)).forward(
+            params, {"tokens": toks})
+        cpu, _ = model.forward(_tree_to(params, "cpu"), {"tokens": toks.cpu()})
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_prefill_and_decode_step_never_wait_for_the_card(cuda):
+    """No host synchronisation inside prefill or a decode step (a device
+    tensor built from a host value, ``.item()``, a pageable copy): the host
+    can enqueue the next step while the card runs this one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("h2o_danube3_4b").reduced(), num_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 80))).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks}, max_len=84)
+            for t in range(3):
+                _, cache = model.decode_step(params, {"tokens": toks[:, t:t + 1]}, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cache.index.tolist() == [83] * cfg.num_layers

@@ -7,7 +7,11 @@
   result keys plus ``device`` and per-kernel ``kernel_launches``, and its
   ``--export-artifact`` serves through the port's ``serve_dssfn`` and
   loads in ``repro``.
-- Without ``--device`` both need CUDA and say how to get the CPU.
+- ``serve`` (the model-zoo launcher) with ``device="cpu"`` and
+  ``repro``'s weights gives the greedy tokens of ``repro``'s own prefill
+  and decode steps.
+- Without ``--device`` every launcher needs CUDA and says how to get the
+  CPU.
 - No module of the port, nor ``chip_smoke.py``, imports JAX or ``repro``.
 - ``chip_smoke.py`` exits non-zero with no result line without CUDA.
 """
@@ -25,7 +29,7 @@ import torch
 from repro.core import ssfn as jssfn
 from repro.serve import export_artifact as j_export
 from repro.serve import load_artifact as j_load
-from repro_torch.launch import serve_dssfn, train_dssfn
+from repro_torch.launch import serve, serve_dssfn, train_dssfn
 from repro_torch.serve import ServeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,6 +162,74 @@ def test_train_cli_refuses_unported_modes(flag):
 
 
 # ---------------------------------------------------------------------------
+# serve (model zoo)
+# ---------------------------------------------------------------------------
+
+
+def _reference_greedy(arch, batch, prompt_len, gen_len, seed):
+    """Greedy tokens from ``repro``'s prefill and decode steps on its
+    seeded weights, with the prompt ``repro.launch.serve`` draws."""
+    import jax
+
+    from repro.configs import get_config as j_get_config
+    from repro.models import build_model as j_build_model
+    from repro.models.steps import make_serve_step as j_make_serve_step
+
+    cfg = j_get_config(arch).reduced()
+    model = j_build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    prompt = jnp.asarray(rng.integers(0, cfg.vocab_size, (batch, prompt_len)), jnp.int32)
+    logits, cache = model.prefill(params, {"tokens": prompt}, max_len=prompt_len + gen_len)
+    step = jax.jit(j_make_serve_step(model))
+    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+    out = []
+    for _ in range(gen_len):
+        tok, _, cache = step(params, {"tokens": tok.reshape(batch, 1)}, cache)
+        out.append(np.asarray(tok))
+    return params, np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("h2o_danube3_4b", 70), ("stablelm_3b", 20)])
+def test_serve_gives_the_reference_greedy_tokens(arch, prompt_len):
+    """70 prompt tokens past the reduced window of 64: the ring wraps."""
+    import jax
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_from_numpy
+
+    jparams, want = _reference_greedy(arch, 2, prompt_len, 6, seed=3)
+    params = transformer_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), get_config(arch).reduced(), device="cpu")
+    res = serve.serve(arch, batch=2, prompt_len=prompt_len, gen_len=6, seed=3,
+                      device="cpu", params=params)
+    assert res["device"] == "cpu" and res["tokens"].shape == (2, 6)
+    assert np.array_equal(res["tokens"], want)
+    assert res["prefill_s"] > 0 and res["decode_tokens_per_s"] > 0
+
+
+def test_serve_cli_on_cpu(capsys):
+    res = serve.main(["--arch", "h2o_danube3_4b", "--device", "cpu", "--batch", "1",
+                      "--prompt-len", "9", "--gen-len", "3", "--seed", "1"])
+    assert res["tokens"].shape == (1, 3) and res["tokens"].dtype == np.int64
+    out = capsys.readouterr().out
+    assert "prefill 9 tok" in out and "tok/s" in out and "sample tokens" in out
+    again = serve.serve("h2o_danube3_4b", batch=1, prompt_len=9, gen_len=3, seed=1, device="cpu")
+    assert np.array_equal(again["tokens"], res["tokens"])     # seeded weights and prompt
+
+
+def test_serve_cli_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "h2o_danube3_4b", "--gen-len", "1"])
+
+
+def test_serve_refuses_unported_families():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        serve.serve("zamba2_2_7b", device="cpu", gen_len=1)
+
+
+# ---------------------------------------------------------------------------
 # Hygiene
 # ---------------------------------------------------------------------------
 
@@ -176,6 +248,8 @@ def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels._build" in mods
     assert "repro_torch.launch.train_dssfn" in mods and "repro_torch.core.admm" in mods
+    assert "repro_torch.launch.serve" in mods and "repro_torch.models.transformer" in mods
+    assert "repro_torch.kernels.flash_attention.kernel" in mods and "repro_torch.configs" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

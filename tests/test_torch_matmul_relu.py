@@ -109,13 +109,16 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         "import repro_torch.kernels._build as b, "
         "repro_torch.kernels.matmul_relu.kernel as k, "
         "repro_torch.kernels.gram.kernel as g, "
-        "repro_torch.kernels.propagate_gram.kernel as p; "
-        "print(b.kernel_names(), k.launch_count(), g.launch_count(), p.launch_count())"
+        "repro_torch.kernels.propagate_gram.kernel as p, "
+        "repro_torch.kernels.flash_attention.kernel as f; "
+        "print(b.kernel_names(), k.launch_count(), g.launch_count(), p.launch_count(), "
+        "f.launch_count())"
     )
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "['gram', 'matmul_relu', 'propagate_gram'] 0 0 0"
+    assert out.stdout.strip() == (
+        "['flash_attention', 'gram', 'matmul_relu', 'propagate_gram'] 0 0 0 0")
 
 
 def test_build_without_nvcc_raises_and_builds_nothing(tmp_path, monkeypatch):
