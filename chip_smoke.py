@@ -51,8 +51,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    logits at each generated position against the f32 forward's, and
    where a decode step's time goes (the host's enqueue against the
    synchronized step).
-8. The card line, one ``{"kernels": [...]}`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. Kernel vs plain: ``ssm_scan`` at the full-width Zamba2-2.7B Mamba2
+   shapes — (1, 8192, 32, 160), state 64, chunk 256, in bf16 and f32, at
+   B=2, and at S=4352 (4100 padded to whole chunks) — plus chunk 64 and
+   chunk 16 at the reduced width and an odd dh of 80, each held per element
+   against its plain version (and launched twice, bit for bit), timed
+   beside it and beside its bound.
+9. The hybrid slice at full width: Zamba2-2.7B, all 54 Mamba2 layers and
+   9 calls of its shared attention block, seeded weights.  (a) A bf16
+   scoring forward at B=1, S=8192 with the kernels on: 54 ``ssm_scan``
+   and 9 ``flash_attention`` launches, a finite loss, and each kernel's
+   share of the forward.  (b) In f32, every Mamba2 layer's kernel call
+   against the plain scan on the same input, and the kernel route's
+   logits against the plain route's, beside the model's response to one
+   ulp of noise.  (c) ``launch.serve.serve`` at batch 2, a 4608-token
+   prompt and 16 generated tokens, in bf16.  (d) In f32, prefill + greedy
+   decode logits against the forward's.
+10. The card line, one ``{"kernels": [...]}`` line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
@@ -681,10 +697,12 @@ def train_slice(torch, card: str) -> dict:
 
 
 # flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
-# 120, KV repeated to 32, window 4096): (B, H, S, hd, window, dtype).
+# 120, KV repeated to 32, window 4096) and Zamba2-2.7B's shared attention
+# (32 heads of 80): (B, H, S, hd, window, dtype).
 FLASH_CASES = [(1, 32, 8192, 120, 4096, "bfloat16"), (1, 32, 4096, 120, 4096, "bfloat16"),
                (1, 32, 8192, 120, 4096, "float32"), (1, 32, 4096, 120, 4096, "float32"),
-               (1, 32, 4100, 120, 4096, "bfloat16"), (2, 8, 77, 80, None, "float32")]
+               (1, 32, 4100, 120, 4096, "bfloat16"), (2, 8, 77, 80, None, "float32"),
+               (1, 32, 8192, 80, 4096, "bfloat16")]   # Zamba2-2.7B's shared attention
 FLASH_HEADLINE = (1, 32, 8192, 120, 4096, "bfloat16")
 # flash_attention tolerance, per element: |kernel - plain| <= rel |plain|
 # + 1e-5 max|plain|.  The second term is f32's (KERNEL_TOL: sums in other
@@ -824,29 +842,35 @@ def timed_forward(torch, model, params, batch) -> float:
     return ms
 
 
-def attention_share(torch, model, params, batch) -> tuple[float, float, int]:
-    """(forward ms, flash_attention ms inside it, its calls): one forward
-    on the card's timeline, with CUDA events around the whole and around
-    each call of the ``flash_attention`` op the layers make in it."""
+def op_shares(torch, model, params, batch, names) -> tuple[float, dict]:
+    """(forward ms, {op: (ms inside it, calls)}): one forward on the card's
+    timeline, with CUDA events around the whole and around each call of
+    each op in ``names`` that ``models.blocks`` makes in it."""
     from repro_torch.models import blocks
 
-    op, spans = blocks.flash_attention, []
+    ops = {name: getattr(blocks, name) for name in names}
+    spans = {name: [] for name in names}
 
-    def timed_op(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = op(*args, **kwargs)
-        end.record()
-        spans.append((start, end))
-        return out
+    def timed_op(name):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = ops[name](*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
 
-    blocks.flash_attention = timed_op
+    for name in names:
+        setattr(blocks, name, timed_op(name))
     try:
         fwd_ms = timed_forward(torch, model, params, batch)
     finally:
-        blocks.flash_attention = op
-    return fwd_ms, sum(start.elapsed_time(end) for start, end in spans), len(spans)
+        for name, op in ops.items():
+            setattr(blocks, name, op)
+    return fwd_ms, {name: (sum(a.elapsed_time(b) for a, b in spans[name]), len(spans[name]))
+                    for name in names}
 
 
 def _leaves(tree):
@@ -889,7 +913,8 @@ def inference_slice(torch, np, card: str) -> int:
         raise AssertionError(f"scoring forward: {main_launches} flash_attention launches "
                              f"(expected {cfg.num_layers}), loss {loss}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fwd_ms, attn_ms, calls = attention_share(torch, model, params, batch)
+    fwd_ms, shares = op_shares(torch, model, params, batch, ("flash_attention",))
+    attn_ms, calls = shares["flash_attention"]
     plain_model = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
     plain_fwd_ms = timed_forward(torch, plain_model, params, batch)
     print(
@@ -982,6 +1007,324 @@ def inference_slice(torch, np, card: str) -> int:
     return main_launches
 
 
+# ssm_scan at the full-width Zamba2-2.7B Mamba2 layer (32 heads of dh =
+# 5120 / 32 = 160, state 64, chunk 256): (B, S, H, dh, ds, chunk, valid
+# steps, dtype).  4352 is the scoring forward's padding of S = 4100 to
+# whole chunks (the steps past 4100 zero, dt = 0); chunk 64 is
+# test_kernel_integration.py's and chunk 16 the reduced configs', at the
+# reduced width (4 heads of 128, state 16); dh 80 leaves a partial tile.
+SSM_CASES = [(1, 8192, 32, 160, 64, 256, None, "bfloat16"),
+             (1, 8192, 32, 160, 64, 256, None, "float32"),
+             (2, 8192, 32, 160, 64, 256, None, "bfloat16"),
+             (1, 4352, 32, 160, 64, 256, 4100, "bfloat16"),
+             (2, 512, 4, 128, 16, 64, None, "float32"),
+             (2, 256, 4, 128, 16, 16, None, "float32"),
+             (1, 2048, 32, 80, 64, 256, None, "bfloat16")]
+SSM_HEADLINE = SSM_CASES[0]
+# ssm_scan tolerance, per element: |kernel - plain| <= rel |plain| + eps
+# y_abs, where y_abs (h_abs for the final state) is the plain scan of |x|,
+# |B| and |C|: the sum of the magnitudes of every term that forms the
+# element.  eps = 2**-20 max|la| + (chunk + ds) 2**-24.  The first term is
+# la's: the kernel forms the in-chunk cumulative sum la = cumsum(a dt) in
+# another order than torch.cumsum, and a term's decay exp(la_t - la_s)
+# takes the rounding of the difference as a relative error.  la reaches
+# about -870 at the headline (a = -16 over 256 steps), where an f32 ulp is
+# 6.1e-5, and the run prints the largest |kernel - plain| / |terms| it
+# meets (about one such ulp); 2**-20 max|la| is 8 ulps.  The second is an
+# f32 sum of chunk + ds terms in another order.  bf16 adds rel = 2**-7: both versions round one f32
+# result to bf16 (one bf16 ulp apart at a rounding boundary).
+SSM_REL = {"float32": 0.0, "bfloat16": 2.0**-7}
+
+
+def ssm_inputs(torch, b, s, h, dh, ds, valid, dtype, seed):
+    """The layer's distributions: x, B, C ~ N(0, 1) in ``dtype``, dt =
+    softplus(N(0, 1) - 2) and a = -linspace(1, 16, H) (the init's
+    dt_bias and a_log) in f32; steps past ``valid`` zero, dt = 0."""
+    dt_ = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, dh), generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda") - 2.0)
+    bm = torch.randn((b, s, ds), generator=gen, device="cuda")
+    cm = torch.randn((b, s, ds), generator=gen, device="cuda")
+    if valid is not None:
+        for t in (x, dt, bm, cm):
+            t[:, valid:] = 0.0
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    return x.to(dt_), dt, a, bm.to(dt_), cm.to(dt_)
+
+
+def ssm_excess(torch, got, want, inputs, chunk: int, dtype: str) -> dict:
+    """Max |kernel - plain| and, for y and h, the max over elements of the
+    error less its allowance (<= 0 when every element passes)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+
+    x, dt, a, bm, cm = inputs
+    b, s, h, _ = x.shape
+    y_abs, h_abs = ssm_scan_ref(x.abs().float(), dt, a, bm.abs().float(), cm.abs().float(),
+                                chunk=chunk)
+    la_max = (a * dt).reshape(b, s // chunk, chunk, h).sum(2).abs().max().item()
+    eps = 2.0**-20 * la_max + (chunk + bm.shape[-1]) * 2.0**-24
+    (gy, gh), (wy, wh) = got, want
+    dy = (gy.float() - wy.float()).abs()
+    dh = (gh - wh).abs()
+    rel = (dh / h_abs.clamp_min(1e-30)).max().item()
+    if gy.dtype == torch.float32:   # bf16's own rounding would dominate y's ratio
+        rel = max(rel, (dy / y_abs.clamp_min(1e-30)).max().item())
+    return {"err_y": dy.max().item(), "err_h": dh.max().item(), "eps": eps, "la_max": la_max,
+            "rel_terms": rel,
+            "excess_y": (dy - SSM_REL[dtype] * wy.float().abs() - eps * y_abs).max().item(),
+            "excess_h": (dh - eps * h_abs).max().item()}
+
+
+def ssm_bound(b, s, h, dh, ds, chunk, dtype) -> tuple[float, str]:
+    """x, dt, a, B, C read once, y and the f32 h written once; operations:
+    the causal half of C B^T once per (b, chunk), and per (b, h, chunk)
+    the causal half of the scores' product with x, the inter-chunk C h^T
+    and the state update x^T B, at the peak rate of the inputs' type."""
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    ops = 2.0 * b * nc * tri * ds + 2.0 * b * h * nc * (tri * dh + 2 * chunk * ds * dh)
+    nbytes = ((2 * b * s * h * dh + 2 * b * s * ds) * elem_bytes(dtype)
+              + 4 * (b * s * h + h + b * h * dh * ds))
+    return roofline(ops, nbytes, dtype)
+
+
+def ssm_kernel_cases(torch):
+    """ssm_scan at the hybrid's shapes, each held against its plain
+    version and timed beside it and beside its bound; no single library
+    call computes it."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
+
+    cases = []
+    for n, (b, s, h, dh, ds, chunk, valid, dt) in enumerate(SSM_CASES):
+        inputs = ssm_inputs(torch, b, s, h, dh, ds, valid, dt, seed=4 + n)
+        got = ssm_scan_cuda(*inputs, chunk=chunk)
+        want = ssm_scan_ref(*inputs, chunk=chunk)
+        again = ssm_scan_cuda(*inputs, chunk=chunk)
+        torch.cuda.synchronize()
+        ex = ssm_excess(torch, got, want, inputs, chunk, dt)
+        shape = f"({b},{s},{h},{dh}) ds {ds} chunk {chunk} {dt}"
+        if not (ex["excess_y"] <= 0.0 and ex["excess_h"] <= 0.0 and got[0].dtype == inputs[0].dtype
+                and torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(
+                f"ssm_scan {shape}: an element of y or h exceeds |kernel - plain| <= "
+                f"{SSM_REL[dt]:.3e} |plain| + {ex['eps']:.3e} |terms| by {ex['excess_y']:.3e} "
+                f"/ {ex['excess_h']:.3e}, or two launches differ"
+            )
+        del got, want, again
+        big = s >= 4096
+        ms = time_calls(torch, lambda: ssm_scan_cuda(*inputs, chunk=chunk), 10 if big else 50)
+        plain_ms = time_calls(torch, lambda: ssm_scan_ref(*inputs, chunk=chunk), 2 if big else 20)
+        bound_ms, bound_by = ssm_bound(b, s, h, dh, ds, chunk, dt)
+        f32_ms, _ = ssm_bound(b, s, h, dh, ds, chunk, "float32")
+        cases.append({
+            "shape": shape, "key": SSM_CASES[n], "max_abs_err": ex["err_y"],
+            "max_abs_err_h": ex["err_h"], "max_err_over_terms": ex["rel_terms"],
+            "tolerance": f"{SSM_REL[dt]:.3e} |plain| + "
+            f"{ex['eps']:.3e} |terms|", "la_max": ex["la_max"], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "f32_simt_bound_ms": f32_ms, "blocks": -(-dh // 32) * h * b * (s // chunk),
+        })
+        print(
+            f"ssm_scan {shape}: err y {ex['err_y']:.3e} h {ex['err_h']:.3e}, at most "
+            f"{ex['rel_terms']:.3e} of |terms| (tol {cases[-1]['tolerance']} per element, "
+            f"max|la| {ex['la_max']:.1f}; bit-identical "
+            f"across launches) kernel {ms:.3f} ms ({cases[-1]['blocks']} blocks) plain "
+            f"{plain_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by}, {dt} peak; {f32_ms:.3f} ms "
+            f"at the f32 CUDA-core peak)",
+            flush=True,
+        )
+        del inputs
+        torch.cuda.empty_cache()
+    return cases
+
+
+# The hybrid slice: Zamba2-2.7B (arXiv:2411.15242) at its published widths
+# and all 54 layers (9 periods of 6 Mamba2 layers and the shared attention
+# block); only the number of requests and the generated length are cut.
+HYBRID = {"arch": "zamba2_2_7b", "score_seq": 8192, "serve_batch": 2,
+          "prompt": 4608, "gen": 16, "seed": 0}
+# This random-weight model amplifies rounding: one ulp of relative noise
+# on its embeddings moves its f32 logits by about 1% of max|logits| ((b)
+# prints it), so whole-model logits separate only faults that move them by
+# O(1).  (b) holds each of the 54 kernel calls, on the plain route's own
+# input, to 1e-3 of its layer's update (la's rounding, see SSM_REL, keeps
+# it far below that), and the logits of the two routes, and (d)
+# those of prefill + decode against the forward, to 0.1 x max|logits|,
+# which a dropped tile, a wrong mask or a stale state exceeds.
+HYBRID_LAYER_TOL = 1e-3
+HYBRID_LOGITS_TOL = 0.1
+
+
+def hybrid_slice(torch, np, card: str) -> tuple[int, dict]:
+    """Score, serve and check the full-width hybrid; returns the scoring
+    forward's ssm_scan launch count (the main path) and where its time
+    goes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.steps import make_loss_fn, make_serve_step
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.nn.layers import embed_lookup
+
+    cfg = dataclasses.replace(get_config(HYBRID["arch"]), use_pallas_kernels=True)
+    s, seed = HYBRID["score_seq"], HYBRID["seed"]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    host = next(iter(TokenStream(cfg.vocab_size, s, 1, seed=seed)))
+    batch = {k: torch.as_tensor(a, device="cuda") for k, a in host.items()}
+    mamba_layers = cfg.num_layers
+    attn_calls = model.num_periods
+    print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters, {mamba_layers} Mamba2 "
+          f"layers (d_inner {cfg.d_inner_eff}, {cfg.ssm_heads} heads of "
+          f"{cfg.d_inner_eff // cfg.ssm_heads}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}) "
+          f"and {attn_calls} calls of one shared attention block ({cfg.num_heads} heads of "
+          f"{cfg.hd}, window {cfg.window}), d_model {cfg.d_model}, {cfg.dtype}", flush=True)
+
+    # (a) The main path: the scoring forward through both kernels.
+    torch.cuda.reset_peak_memory_stats()
+    ss.reset_launch_count()
+    fa.reset_launch_count()
+    with torch.no_grad():
+        loss = make_loss_fn(model)(params, batch)
+    torch.cuda.synchronize()
+    main_launches, attn_launches = ss.launch_count(), fa.launch_count()
+    loss = float(loss)
+    if main_launches != mamba_layers or attn_launches != attn_calls or not np.isfinite(loss):
+        raise AssertionError(f"hybrid scoring forward: {main_launches} ssm_scan and "
+                             f"{attn_launches} flash_attention launches (expected "
+                             f"{mamba_layers} and {attn_calls}), loss {loss}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms, shares = op_shares(torch, model, params, batch, ("ssm_scan", "flash_attention"))
+    (ssm_ms, ssm_calls), (attn_ms, a_calls) = shares["ssm_scan"], shares["flash_attention"]
+    plain_fwd_ms = timed_forward(
+        torch, build_model(dataclasses.replace(cfg, use_pallas_kernels=False)), params, batch)
+    rest = fwd_ms - ssm_ms - attn_ms
+    print(
+        f"(a) hybrid scoring forward B=1 S={s} bf16: loss {loss:.4f}, {main_launches} ssm_scan "
+        f"and {attn_launches} flash_attention launches, peak {peak_gb:.2f} GB; "
+        f"{fwd_ms:.3f} ms (CUDA events) = ssm_scan {ssm_ms:.3f} ms over {ssm_calls} calls "
+        f"({ssm_ms / fwd_ms:.1%}) + flash_attention {attn_ms:.3f} ms over {a_calls} calls "
+        f"({attn_ms / fwd_ms:.1%}; CUDA events around each call in this forward) + the rest "
+        f"{rest:.3f} ms; through the plain scan and attention {plain_fwd_ms:.3f} ms",
+        flush=True,
+    )
+    split = {"forward_ms": fwd_ms, "ssm_scan_ms": ssm_ms, "ssm_scan_calls": ssm_calls,
+             "flash_attention_ms": attn_ms, "flash_attention_calls": a_calls, "rest_ms": rest,
+             "plain_forward_ms": plain_fwd_ms, "peak_gb": peak_gb}
+
+    # (c) Serving through the launcher's entry point: prefill and decode
+    # take the plain scan, recurrence and attention, as in the reference.
+    ss.reset_launch_count()
+    fa.reset_launch_count()
+    res = serve.serve(HYBRID["arch"], batch=HYBRID["serve_batch"], prompt_len=HYBRID["prompt"],
+                      gen_len=HYBRID["gen"], reduced=False, seed=seed)
+    toks = res["tokens"]
+    if res["device"] != "cuda" or toks.shape != (HYBRID["serve_batch"], HYBRID["gen"]) \
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"hybrid serve: tokens {toks.shape} on {res['device']}")
+    print(f"(c) hybrid serve B={HYBRID['serve_batch']} prompt {HYBRID['prompt']} (window "
+          f"{cfg.window}: the ring wraps) gen {HYBRID['gen']} bf16: prefill "
+          f"{res['prefill_s']:.3f} s, decode {res['decode_tokens_per_s']:.1f} tok/s "
+          f"({res['decode_s']:.3f} s), {ss.launch_count()} ssm_scan and {fa.launch_count()} "
+          f"flash_attention launches", flush=True)
+    split.update(prefill_s=res["prefill_s"], decode_tokens_per_s=res["decode_tokens_per_s"])
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) f32: each kernel call against the plain scan on the same input,
+    # then the kernel route's logits against the plain route's.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(seed))
+    plain_cfg = dataclasses.replace(cfg32, use_pallas_kernels=False)
+    plain32 = build_model(plain_cfg)
+    layer_gap = 0.0
+    with torch.no_grad():
+        x = embed_lookup(params32["embed"], batch["tokens"])
+        positions = torch.arange(s, device="cuda")
+        for i in range(model32.num_periods):
+            for j in range(model32.per_period):
+                mp = layer_params(layer_params(params32["mamba"], i), j)
+                plain_x, _ = blocks.apply_mamba_layer(mp, x, plain_cfg, None)
+                routed_x, _ = blocks.apply_mamba_layer(mp, x, cfg32, None)
+                gap = ((routed_x - plain_x).abs().max() / (plain_x - x).abs().max()).item()
+                layer_gap = max(layer_gap, gap)
+                x = plain_x
+            x, _, _ = blocks.apply_transformer_layer(params32["shared_attn"], x, positions,
+                                                     plain_cfg, None)
+        del x, plain_x, routed_x
+        routed, _ = model32.forward(params32, {"tokens": batch["tokens"]})
+        plain, _ = plain32.forward(params32, {"tokens": batch["tokens"]})
+        err, scale = max_err(routed, plain)
+        del routed
+        noise = torch.randn(params32["embed"].shape, generator=torch.Generator(
+            device="cuda").manual_seed(1), device="cuda")
+        nudged, _ = plain32.forward(dict(params32, embed=params32["embed"] * (1 + 2**-24 * noise)),
+                                    {"tokens": batch["tokens"]})
+        ulp_gap, _ = max_err(nudged, plain)
+        del plain, nudged, noise
+    if not (layer_gap <= HYBRID_LAYER_TOL and err <= HYBRID_LOGITS_TOL * scale):
+        raise AssertionError(f"(b) f32 kernel vs plain route: a layer's update differs by "
+                             f"{layer_gap:.3e} (tol {HYBRID_LAYER_TOL}), logits by {err:.3e} "
+                             f"(tol {HYBRID_LOGITS_TOL} x {scale:.3e})")
+    print(f"(b) f32 forward S={s}: each of the {mamba_layers} Mamba2 layers, kernel vs plain scan "
+          f"on the same input, within {layer_gap:.3e} of the layer's update (tol "
+          f"{HYBRID_LAYER_TOL}); logits kernel route vs plain route max abs err {err:.3e} "
+          f"(max|logits| {scale:.3e}, tol {HYBRID_LOGITS_TOL} x max); one ulp of noise on the "
+          f"embeddings moves the plain route's logits by {ulp_gap:.3e}", flush=True)
+    split.update(layer_gap=layer_gap, route_err=err / scale, ulp_gap=ulp_gap / scale)
+
+    # (d) f32 prefill + greedy decode against the f32 forward through the
+    # kernels over the prompt and the generated tokens.
+    bsz, n0, gen = HYBRID["serve_batch"], HYBRID["prompt"], HYBRID["gen"]
+    prompt = torch.as_tensor(
+        np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, n0)), device="cuda")
+    step = make_serve_step(model32)
+    enqueue, total = [], []
+    with torch.no_grad():
+        logits, cache = model32.prefill(params32, {"tokens": prompt}, max_len=n0 + gen)
+        steps = [logits[:, -1]]
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        seq = [tok]
+        for _ in range(gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, cache = step(params32, {"tokens": tok.reshape(bsz, 1)}, cache)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits[:, -1])
+            seq.append(tok)
+        del cache
+        full_toks = torch.cat([prompt, torch.stack(seq[:-1], dim=1)], dim=1)
+        ss.reset_launch_count()
+        full, _ = model32.forward(params32, {"tokens": full_toks})
+    got = torch.stack(steps, dim=1)
+    want = full[:, n0 - 1:n0 + gen]
+    err, scale = max_err(got, want)
+    if ss.launch_count() != mamba_layers or not err <= HYBRID_LOGITS_TOL * scale:
+        raise AssertionError(f"(d) hybrid f32 prefill+decode vs forward: {err:.3e} > "
+                             f"{HYBRID_LOGITS_TOL} x {scale:.3e}, or {ss.launch_count()} "
+                             f"ssm_scan launches")
+    enqueue, total = sorted(enqueue[1:]), sorted(total[1:])
+    print(f"(d) f32 prefill {n0} + {gen} decode steps vs the forward over {full_toks.shape[1]} "
+          f"tokens (padded scan, kernel route): max abs err {err:.3e} over {gen + 1} positions "
+          f"(max|logits| {scale:.3e}, tol {HYBRID_LOGITS_TOL} x max); a decode step B={bsz} "
+          f"(median of {len(total)}) {total[len(total) // 2]:.3f} ms synchronized, of which "
+          f"{enqueue[len(enqueue) // 2]:.3f} ms for the host to enqueue it, on {card}",
+          flush=True)
+    split.update(decode_err=err / scale, decode_step_ms=total[len(total) // 2],
+                 decode_enqueue_ms=enqueue[len(enqueue) // 2])
+    del params32, full, got, want
+    torch.cuda.empty_cache()
+    return main_launches, split
+
+
 def main() -> int:
     import torch
 
@@ -1009,6 +1352,9 @@ def main() -> int:
     train_launches = train_slice(torch, card)
     flash_cases = flash_kernel_cases(torch)
     flash_launches = inference_slice(torch, np, card)
+    torch.cuda.empty_cache()
+    ssm_cases = ssm_kernel_cases(torch)
+    ssm_launches, split = hybrid_slice(torch, np, card)
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)
@@ -1041,7 +1387,10 @@ def main() -> int:
         entry("flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:75", flash_launches,
               flash_cases, FLASH_HEADLINE),
+        entry("ssm_scan", f"{csrc}/ssm_scan.cu", "src/repro/kernels/ssm_scan/kernel.py:69",
+              ssm_launches, ssm_cases, SSM_HEADLINE),
     ]
+    kernels[-1]["hybrid_forward"] = split
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Carry SSFN parameters, random matrices, datasets and transformer
-parameters between ``repro`` (as numpy arrays) and the port.
+"""Carry SSFN parameters, random matrices, datasets and model-zoo
+(transformer and hybrid) parameters between ``repro`` (as numpy arrays)
+and the port.
 
 ``repro``'s arrays are JAX arrays; ``np.asarray`` on each gives what
 these functions take and return, so neither package imports the other.
@@ -85,22 +86,81 @@ def dataset_from_numpy(data, *, device: str | torch.device | None = None) -> Dat
     )
 
 
+def _layer_shapes(cfg: ModelConfig, stack: tuple[int, ...]) -> dict[str, Any]:
+    """One transformer layer's parameter shapes, with leading ``stack`` axes."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return {
+        "ln1": stack + (d,),
+        "ln2": stack + (d,),
+        "attn": {"wq": stack + (d, q), "wk": stack + (d, kv), "wv": stack + (d, kv),
+                 "wo": stack + (q, d)},
+        "ffn": {"wg": stack + (d, f), "wu": stack + (d, f), "wd": stack + (f, d)},
+    }
+
+
 def transformer_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     """The shape of every parameter of a dense transformer, as a tree with
     the reference's names: per-layer weights stacked on a leading L axis."""
-    L, d, f, v, hd = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.hd
-    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    d, v = cfg.d_model, cfg.padded_vocab
     return {
-        "layers": {
-            "ln1": (L, d),
-            "ln2": (L, d),
-            "attn": {"wq": (L, d, q), "wk": (L, d, kv), "wv": (L, d, kv), "wo": (L, q, d)},
-            "ffn": {"wg": (L, d, f), "wu": (L, d, f), "wd": (L, f, d)},
-        },
+        "layers": _layer_shapes(cfg, (cfg.num_layers,)),
         "ln_f": (d,),
         "embed": (v, d),
         "head": (d, v),
     }
+
+
+def hybrid_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
+    """The shape of every parameter of a hybrid (Mamba2 + shared attention)
+    model, with the reference's names: the Mamba weights stacked on leading
+    (num_periods, per_period) axes and one shared transformer layer."""
+    d, v, di = cfg.d_model, cfg.padded_vocab, cfg.d_inner_eff
+    ds, h = cfg.ssm_state, cfg.ssm_heads
+    pm = (cfg.num_layers // cfg.shared_attn_period, cfg.shared_attn_period)
+    return {
+        "embed": (v, d),
+        "mamba": {
+            "ln": pm + (d,), "in_x": pm + (d, di), "in_z": pm + (d, di),
+            "in_b": pm + (d, ds), "in_c": pm + (d, ds), "in_dt": pm + (d, h),
+            "conv_w": pm + (cfg.conv_kernel, di), "conv_b": pm + (di,),
+            "a_log": pm + (h,), "dt_bias": pm + (h,), "gn": pm + (di,),
+            "out": pm + (di, d),
+        },
+        "shared_attn": _layer_shapes(cfg, ()),
+        "ln_f": (d,),
+        "head": (d, v),
+    }
+
+
+#: Hybrid parameters that ``repro`` keeps in f32 whatever the model's dtype.
+_HYBRID_F32 = {("mamba", "a_log"), ("mamba", "dt_bias")}
+
+
+def _tree_from_numpy(tree, shapes, dev: torch.device, dt: torch.dtype, keep_f32=frozenset()):
+    """Tensors on ``dev`` from a tree of numpy arrays matching ``shapes``:
+    in ``dt``, except the leaves whose key path is in ``keep_f32``.  A
+    tree whose keys or shapes differ raises ``ValueError``.  bf16 arrays
+    (numpy has no bf16 of its own) go through f32, which holds every bf16
+    value exactly."""
+
+    def conv(node, shape, path):
+        if isinstance(shape, dict):
+            if not isinstance(node, dict) or set(node) != set(shape):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                where = "".join(f"[{k!r}]" for k in path)
+                raise ValueError(f"params{where}: expected keys {sorted(shape)}, got {got}")
+            return {k: conv(node[k], shape[k], path + (k,)) for k in shape}
+        a = np.asarray(node)
+        if a.shape != shape:
+            where = "".join(f"[{k!r}]" for k in path)
+            raise ValueError(f"params{where}: expected shape {shape}, got {a.shape}")
+        if a.dtype.kind != "f" or a.dtype.itemsize < 4:   # bf16 and f16
+            a = a.astype(np.float32)
+        leaf_dt = torch.float32 if path in keep_f32 else dt
+        return torch.tensor(a, dtype=leaf_dt, device=dev)  # a copy, never a view of `tree`
+
+    return conv(tree, shapes, ())
 
 
 def transformer_params_from_numpy(
@@ -114,31 +174,32 @@ def transformer_params_from_numpy(
     ``cuda``; in ``dtype``, by default ``cfg.torch_dtype``) from
     ``jax.tree.map(np.asarray, params)`` of ``repro``'s
     ``TransformerModel.init``.  Names and layouts are the same; a tree
-    whose keys or shapes do not match ``cfg`` raises ``ValueError``.
-    bf16 arrays (numpy has no bf16 of its own) go through f32, which holds
-    every bf16 value exactly."""
-    dev = resolve_device(device)
+    whose keys or shapes do not match ``cfg`` raises ``ValueError``."""
     dt = cfg.torch_dtype if dtype is None else dtype
+    return _tree_from_numpy(tree, transformer_param_shapes(cfg), resolve_device(device), dt)
 
-    def conv(node, shape, path):
-        if isinstance(shape, dict):
-            if not isinstance(node, dict) or set(node) != set(shape):
-                got = sorted(node) if isinstance(node, dict) else type(node).__name__
-                raise ValueError(f"params{path}: expected keys {sorted(shape)}, got {got}")
-            return {k: conv(node[k], shape[k], f"{path}[{k!r}]") for k in shape}
-        a = np.asarray(node)
-        if a.shape != shape:
-            raise ValueError(f"params{path}: expected shape {shape}, got {a.shape}")
-        if a.dtype.kind != "f" or a.dtype.itemsize < 4:   # bf16 and f16
-            a = a.astype(np.float32)
-        return torch.tensor(a, dtype=dt, device=dev)   # a copy, never a view of `tree`
 
-    return conv(tree, transformer_param_shapes(cfg), "")
+def hybrid_params_from_numpy(
+    tree: dict[str, Any],
+    cfg: ModelConfig,
+    *,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+) -> dict[str, Any]:
+    """The port's hybrid parameters from ``jax.tree.map(np.asarray,
+    params)`` of ``repro``'s ``HybridModel.init``, as
+    :func:`transformer_params_from_numpy` carries a transformer's, except
+    that ``mamba.a_log`` and ``mamba.dt_bias`` stay f32 whatever ``dtype``
+    is, as ``repro`` keeps them."""
+    dt = cfg.torch_dtype if dtype is None else dtype
+    return _tree_from_numpy(tree, hybrid_param_shapes(cfg), resolve_device(device), dt,
+                            _HYBRID_F32)
 
 
 def transformer_params_to_numpy(params: dict[str, Any]) -> dict[str, Any]:
-    """The inverse of :func:`transformer_params_from_numpy`: the same tree
-    of host numpy arrays; bf16 comes back as f32."""
+    """The inverse of :func:`transformer_params_from_numpy` (and of
+    :func:`hybrid_params_from_numpy`): the same tree of host numpy arrays;
+    bf16 comes back as f32."""
 
     def conv(node):
         if isinstance(node, dict):
@@ -147,3 +208,6 @@ def transformer_params_to_numpy(params: dict[str, Any]) -> dict[str, Any]:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return conv(params)
+
+
+hybrid_params_to_numpy = transformer_params_to_numpy

@@ -11,6 +11,10 @@ version:
 - flash_attention: causal (sliding-window) attention of q, k, v
                    (B, H, S, hd)                    (the model zoo's scoring
                                                      forward)
+- ssm_scan:        the Mamba2 chunked scan of x (B, S, H, dh) from a zero
+                   state, returning y and the final (B, H, dh, ds) state
+                                                    (the hybrid's scoring
+                                                     forward)
 
 ``csrc/gram.cuh`` holds the Gram tiles that ``gram.cu`` and
 ``propagate_gram.cu`` share.

@@ -1,11 +1,11 @@
 """Parameter init and application of the per-layer blocks.
 
-Port of the attention, FFN and transformer-layer part of
+Port of the attention, FFN, transformer-layer and Mamba2-layer part of
 ``repro/models/blocks.py``.  Parameters are plain dicts of tensors with
 the reference's names; an init function given ``stack=(L,)`` draws L
-layers at once, stacked on a leading axis as the reference's vmapped init
-stacks them.  The MoE FFN and the Mamba2, mLSTM and sLSTM layers are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+layers at once, stacked on leading axes as the reference's vmapped init
+stacks them.  The MoE FFN and the mLSTM and sLSTM layers are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -14,9 +14,11 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.layers import dense_init, rms_norm
+from repro_torch.nn import ssm as ssm_lib
+from repro_torch.nn.layers import dense_init, rms_norm, round_up
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
 
@@ -143,15 +145,92 @@ def apply_transformer_layer(
     return x, new_cache, aux
 
 
+# ------------------------------------------------------------ mamba2 layer
+
+def init_mamba_layer(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
+    """A Mamba2 layer's parameters in ``cfg.torch_dtype``, except ``a_log``
+    and ``dt_bias``, which are f32 whatever the model's dtype, as in the
+    reference."""
+    d, di = cfg.d_model, cfg.d_inner_eff
+    ds, h = cfg.ssm_state, cfg.ssm_heads
+    dt, dev = cfg.torch_dtype, gen.device
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32, device=dev))
+    return {
+        "ln": torch.ones(stack + (d,), dtype=dt, device=dev),
+        "in_x": dense_init(gen, stack + (d, di), dt),
+        "in_z": dense_init(gen, stack + (d, di), dt),
+        "in_b": dense_init(gen, stack + (d, ds), dt),
+        "in_c": dense_init(gen, stack + (d, ds), dt),
+        "in_dt": dense_init(gen, stack + (d, h), dt),
+        "conv_w": dense_init(gen, stack + (cfg.conv_kernel, di), dt, scale=0.5),
+        "conv_b": torch.zeros(stack + (di,), dtype=dt, device=dev),
+        "a_log": a_log.expand(stack + (h,)).clone(),     # A = -exp(a_log)
+        "dt_bias": torch.full(stack + (h,), -2.0, dtype=torch.float32, device=dev),
+        "gn": torch.ones(stack + (di,), dtype=dt, device=dev),
+        "out": dense_init(gen, stack + (di, d), dt),
+    }
+
+
+def apply_mamba_layer(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: ssm_lib.SSMState | None,
+) -> tuple[torch.Tensor, ssm_lib.SSMState | None]:
+    """A Mamba2 layer on x (B, S, d), routed as the reference routes it:
+    with no state (the full-sequence scoring forward) the scan goes through
+    the ``ssm_scan`` op when ``cfg.use_pallas_kernels`` (the CUDA kernel on
+    the card, its plain version on the CPU), else through the plain chunked
+    scan; with a state and S > 1 (prefill) through the plain chunked scan
+    from a zero state; with a state and S = 1 (decode) one recurrence step
+    on the carried state and the rolling conv inputs.  Returns (x + the
+    layer's output, the new state or None).
+
+    The sequence is padded with dt = 0 steps (no decay, no input) to whole
+    chunks of min(cfg.ssm_chunk, S rounded up to 16); the reference's
+    chunk is min(cfg.ssm_chunk, S).  The two give the same function, and
+    the kernel takes only chunks that are multiples of 16."""
+    b, s, _ = x.shape
+    di = cfg.d_inner_eff
+    h_heads = cfg.ssm_heads
+    dh = di // h_heads
+    res = x
+    xn = rms_norm(x, p["ln"])
+    xs = xn @ p["in_x"]
+    z = xn @ p["in_z"]
+    bm = xn @ p["in_b"]
+    cm = xn @ p["in_c"]
+    dt = torch.nn.functional.softplus((xn @ p["in_dt"]).float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+
+    if state is not None and s == 1:
+        xs, conv_new = ssm_lib.causal_conv1d(xs, p["conv_w"], p["conv_b"], state.conv)
+        y, h_new = ssm_lib.ssm_decode_step(
+            xs.reshape(b, h_heads, dh), dt[:, 0], a, bm[:, 0], cm[:, 0], state.h
+        )
+        y = y.reshape(b, 1, di)
+        new_state = ssm_lib.SSMState(h=h_new, conv=conv_new)
+    else:
+        xs, conv_new = ssm_lib.causal_conv1d(xs, p["conv_w"], p["conv_b"])
+        chunk = min(cfg.ssm_chunk, round_up(s, 16))
+        pad = (-s) % chunk
+        if pad:
+            # dt = 0 on padded steps: no decay (a = 1), no input contribution.
+            xs, dt, bm, cm = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (xs, dt, bm, cm))
+        x4 = xs.reshape(b, s + pad, h_heads, dh)
+        if cfg.use_pallas_kernels and state is None:
+            y, h_new = ssm_scan(x4, dt, a, bm, cm, chunk=chunk)
+        else:
+            h0 = torch.zeros((b, h_heads, dh, cfg.ssm_state), dtype=torch.float32,
+                             device=x.device)
+            y, h_new = ssm_lib.chunked_ssm_scan(x4, dt, a, bm, cm, h0, chunk=chunk)
+        y = y[:, :s].reshape(b, s, di)
+        new_state = ssm_lib.SSMState(h=h_new, conv=conv_new) if state is not None else None
+    y = rms_norm(y * torch.nn.functional.silu(z), p["gn"])
+    return res + y @ p["out"], new_state
+
+
 # ------------------------------------------------- layers not ported yet
-
-def init_mamba_layer(gen, cfg):
-    raise unported("the Mamba2 layer", "item 10")
-
-
-def apply_mamba_layer(p, x, cfg, state):
-    raise unported("the Mamba2 layer", "item 10")
-
 
 def init_mlstm_layer(gen, cfg):
     raise unported("the mLSTM layer", "item 11")

@@ -479,3 +479,177 @@ def test_prefill_and_decode_step_never_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert cache.index.tolist() == [83] * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan
+# ---------------------------------------------------------------------------
+
+# Tolerance, per element: |kernel - plain| <= rel |plain| + eps y_abs, where
+# y_abs (and h_abs) is the plain scan of |x|, |B|, |C|: the sum of the
+# magnitudes of every term that forms the element.  eps = 2**-20 max|la|
+# + (chunk + ds) 2**-24.  The first term: the two versions form the
+# in-chunk cumulative sum la in other orders, and a term's decay
+# exp(la_t - la_s) takes the difference's rounding as a relative error;
+# 2**-20 max|la| is 8 ulps of the largest |la| (``chip_smoke.py`` prints
+# the gap it meets, about one ulp).  The second: an f32 sum of chunk + ds terms in another
+# order.  bf16 adds rel = 2**-7: both round one f32 result to bf16.
+SSM_REL = {torch.float32: 0.0, torch.bfloat16: 2**-7}
+
+
+def _ssm_inputs(b, s, h, dh, ds, dtype, device, seed=0, valid=None):
+    """The model's distributions: x, B, C ~ N(0, 1), dt = softplus(N(0, 1)
+    - 2), a = -linspace(1, 16, H) (its init); steps past ``valid`` are the
+    caller's padding (zeros, dt = 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, dh)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)) - 2.0, 0.0).astype(np.float32)
+    bm = rng.standard_normal((b, s, ds)).astype(np.float32)
+    cm = rng.standard_normal((b, s, ds)).astype(np.float32)
+    if valid is not None:
+        for t in (x, dt, bm, cm):
+            t[:, valid:] = 0.0
+    a = -np.linspace(1.0, 16.0, h, dtype=np.float32)
+    return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(dt).to(device),
+            torch.from_numpy(a).to(device), torch.from_numpy(bm).to(device, dtype),
+            torch.from_numpy(cm).to(device, dtype))
+
+
+def _close_ssm(got, want, inputs, chunk):
+    from repro_torch.kernels import ssm_scan as ss
+
+    x, dt, a, bm, cm = inputs
+    b, s, h, _ = x.shape
+    y_abs, h_abs = ss.ssm_scan_ref(x.abs().float(), dt, a, bm.abs().float(), cm.abs().float(),
+                                   chunk=chunk)
+    la_max = (a * dt).reshape(b, s // chunk, chunk, h).sum(2).abs().max().item()
+    eps = 2**-20 * la_max + (chunk + bm.shape[-1]) * 2**-24
+    (gy, gh), (wy, wh) = got, want
+    gy, wy = gy.float(), wy.float()
+    assert ((gy - wy).abs() - SSM_REL[x.dtype] * wy.abs() - eps * y_abs).max().item() <= 0.0
+    assert ((gh - wh).abs() - eps * h_abs).max().item() <= 0.0
+
+
+# (B, S, H, dh, ds, chunk, valid): Zamba2-2.7B's head (dh 160, ds 64, chunk
+# 256) at a short S and a padded one (4100 -> 4352), the reduced configs'
+# (dh 128, ds 16, chunk 16) and the integration test's chunk 64, an odd
+# dh, a chunk of 48 and one step.
+SSM_SHAPES = [(1, 512, 4, 160, 64, 256, None), (1, 4352, 2, 160, 64, 256, 4100),
+              (2, 96, 4, 128, 16, 16, None), (2, 256, 3, 64, 16, 64, None),
+              (2, 128, 3, 33, 64, 32, None), (1, 192, 2, 80, 64, 48, None),
+              (1, 16, 1, 1, 1, 16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh,ds,chunk,valid", SSM_SHAPES)
+def test_ssm_scan_matches_plain(cuda, b, s, h, dh, ds, chunk, valid, dtype):
+    from repro_torch.kernels import ssm_scan as ss
+
+    inputs = _ssm_inputs(b, s, h, dh, ds, dtype, cuda, seed=dh + s, valid=valid)
+    before = ss.launch_count()
+    y, hf = ss.ssm_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.launch_count() == before + 1
+    assert y.shape == (b, s, h, dh) and y.dtype == dtype
+    assert hf.shape == (b, h, dh, ds) and hf.dtype == torch.float32
+    _close_ssm((y, hf), ss.ssm_scan_ref(*inputs, chunk=chunk), inputs, chunk)
+    if valid is not None:
+        assert not y[:, valid:].any()
+
+
+@pytest.mark.cuda
+def test_ssm_scan_bit_identical_across_launches(cuda):
+    from repro_torch.kernels import ssm_scan as ss
+
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = _ssm_inputs(2, 1024, 3, 160, 64, dtype, cuda, seed=5)
+        (y1, h1), (y2, h2) = ss.ssm_scan_cuda(*inputs), ss.ssm_scan_cuda(*inputs)
+        assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_rejects_what_kernel_cannot_take(cuda):
+    from repro_torch.kernels import ssm_scan as ss
+
+    x, dt, a, bm, cm = _ssm_inputs(1, 64, 2, 16, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ss.ssm_scan_cuda(x, dt.cpu(), a, bm, cm, chunk=16)
+    with pytest.raises(TypeError, match="one dtype"):
+        ss.ssm_scan_cuda(x, dt, a, bm.to(torch.bfloat16), cm, chunk=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ss.ssm_scan_cuda(x.half(), dt, a, bm.half(), cm.half(), chunk=16)
+    with pytest.raises(TypeError, match="dt and a in float32"):
+        ss.ssm_scan_cuda(x, dt.to(torch.bfloat16), a, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ss.ssm_scan_cuda(x, dt, a, bm, cm, chunk=48)
+    for chunk in (8, 24, 272):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            ss.ssm_scan_cuda(x, dt, a, bm, cm, chunk=chunk)
+    wide = torch.zeros((1, 64, 65), device=cuda)
+    with pytest.raises(ValueError, match="ds <= 64"):
+        ss.ssm_scan_cuda(x, dt, a, wide, wide, chunk=16)
+    with pytest.raises(ValueError, match=r"dt \(B, S, H\)"):
+        ss.ssm_scan_cuda(x, dt[:, :32], a, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ss.ssm_scan(x.cpu(), dt, a, bm, cm, chunk=16)   # mixed devices reach the kernel
+
+
+def _hybrid(cuda, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("zamba2_2_7b").reduced(layers=12), **over)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator(device=cuda).manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 128])
+def test_hybrid_forward_on_card_launches_both_kernels_per_layer(cuda, s):
+    """A reduced Zamba2 (12 layers, two periods) forward on the card: one
+    ssm_scan launch per Mamba layer and one flash_attention launch per
+    shared-attention call, and the logits of the plain route and of the
+    CPU within 2e-3 x max|logits| (``test_torch_hybrid.py``'s whole-model
+    bar: this random-weight model turns one ulp of noise into 1.6e-4)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.models import build_model
+
+    cfg, model, params = _hybrid(cuda, use_pallas_kernels=True)
+    toks = torch.from_numpy(np.random.default_rng(s).integers(0, 512, (2, s))).to(cuda)
+    before = (ss.launch_count(), fa.launch_count())
+    with torch.no_grad():
+        got, _ = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert (ss.launch_count(), fa.launch_count()) == (before[0] + 12, before[1] + 2)
+        plain, _ = build_model(dataclasses.replace(cfg, use_pallas_kernels=False)).forward(
+            params, {"tokens": toks})
+        cpu, _ = model.forward(_tree_to(params, "cpu"), {"tokens": toks.cpu()})
+    _close_scaled(got, plain, 2e-3)
+    _close_scaled(got.cpu(), cpu, 2e-3)
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_and_decode_never_wait_for_the_card(cuda):
+    """As the dense model: no host synchronisation inside the hybrid's
+    prefill or decode step, with the ring of the shared attention wrapping."""
+    cfg, model, params = _hybrid(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, 80))).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks}, max_len=84)
+            for t in range(3):
+                _, cache = model.decode_step(params, {"tokens": toks[:, t:t + 1]}, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cache.attn.index.tolist() == [83, 83]

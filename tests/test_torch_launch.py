@@ -190,17 +190,20 @@ def _reference_greedy(arch, batch, prompt_len, gen_len, seed):
     return params, np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("arch,prompt_len", [("h2o_danube3_4b", 70), ("stablelm_3b", 20)])
+@pytest.mark.parametrize("arch,prompt_len", [("h2o_danube3_4b", 70), ("stablelm_3b", 20),
+                                             ("zamba2_2_7b", 70)])
 def test_serve_gives_the_reference_greedy_tokens(arch, prompt_len):
-    """70 prompt tokens past the reduced window of 64: the ring wraps."""
+    """70 prompt tokens past the reduced window of 64: the ring wraps (for
+    Zamba2, in its shared attention's KV cache)."""
     import jax
 
     from repro_torch.configs import get_config
-    from repro_torch.convert import transformer_params_from_numpy
+    from repro_torch.convert import hybrid_params_from_numpy, transformer_params_from_numpy
 
     jparams, want = _reference_greedy(arch, 2, prompt_len, 6, seed=3)
-    params = transformer_params_from_numpy(
-        jax.tree.map(np.asarray, jparams), get_config(arch).reduced(), device="cpu")
+    cfg = get_config(arch).reduced()
+    convert = hybrid_params_from_numpy if cfg.family == "hybrid" else transformer_params_from_numpy
+    params = convert(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     res = serve.serve(arch, batch=2, prompt_len=prompt_len, gen_len=6, seed=3,
                       device="cpu", params=params)
     assert res["device"] == "cpu" and res["tokens"].shape == (2, 6)
@@ -208,13 +211,14 @@ def test_serve_gives_the_reference_greedy_tokens(arch, prompt_len):
     assert res["prefill_s"] > 0 and res["decode_tokens_per_s"] > 0
 
 
-def test_serve_cli_on_cpu(capsys):
-    res = serve.main(["--arch", "h2o_danube3_4b", "--device", "cpu", "--batch", "1",
+@pytest.mark.parametrize("arch", ["h2o_danube3_4b", "zamba2_2_7b"])
+def test_serve_cli_on_cpu(capsys, arch):
+    res = serve.main(["--arch", arch, "--device", "cpu", "--batch", "1",
                       "--prompt-len", "9", "--gen-len", "3", "--seed", "1"])
     assert res["tokens"].shape == (1, 3) and res["tokens"].dtype == np.int64
     out = capsys.readouterr().out
     assert "prefill 9 tok" in out and "tok/s" in out and "sample tokens" in out
-    again = serve.serve("h2o_danube3_4b", batch=1, prompt_len=9, gen_len=3, seed=1, device="cpu")
+    again = serve.serve(arch, batch=1, prompt_len=9, gen_len=3, seed=1, device="cpu")
     assert np.array_equal(again["tokens"], res["tokens"])     # seeded weights and prompt
 
 
@@ -225,8 +229,8 @@ def test_serve_cli_defaults_to_cuda(monkeypatch):
 
 
 def test_serve_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        serve.serve("zamba2_2_7b", device="cpu", gen_len=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        serve.serve("xlstm_350m", device="cpu", gen_len=1)
 
 
 # ---------------------------------------------------------------------------
