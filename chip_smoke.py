@@ -67,7 +67,25 @@ Phases, each of which raises (non-zero exit) on any failed check:
    ulp of noise.  (c) ``launch.serve.serve`` at batch 2, a 4608-token
    prompt and 16 generated tokens, in bf16.  (d) In f32, prefill + greedy
    decode logits against the forward's.
-10. The card line, one ``{"kernels": [...]}`` line, and as the last line
+10. Kernel vs plain: ``mlstm_scan`` at the full-width xLSTM-350M mLSTM
+    shapes — (1, 8192, 4, 256), chunk 256, in bf16 and f32, at B=2 and
+    S=4608, and at S=4352 (4100 padded with the model's padding) — plus
+    the reduced (2, 128, 4, 64) at chunk 16 and dk 64 != dv 128 at chunk
+    64, each held per element against its plain version (y and the final
+    C, n, m; launched twice, bit for bit), timed beside it and beside its
+    bound.
+11. The xLSTM slice at full width: xLSTM-350M, all 24 layers (20 mLSTM, 4
+    sLSTM), seeded weights.  (a) A bf16 scoring forward at B=1, S=8192
+    with the kernel on: 20 ``mlstm_scan`` launches, a finite loss, and
+    the kernel's and the sLSTM layers' shares of the forward.  (b) In
+    f32, every mLSTM layer's kernel call against the plain scan on the
+    same input, and the kernel route's logits against the plain route's,
+    beside the model's response to one ulp of noise.  (c)
+    ``launch.serve.serve`` at batch 2, a 4608-token prompt and 16
+    generated tokens, in bf16.  (d) In f32, prefill + greedy decode logits
+    against the forward's, and a decode step's host enqueue against the
+    synchronized step.
+12. The card line, one ``{"kernels": [...]}`` line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -1325,6 +1343,338 @@ def hybrid_slice(torch, np, card: str) -> tuple[int, dict]:
     return main_launches, split
 
 
+# mlstm_scan at the full-width xLSTM-350M mLSTM layer (4 heads of dk = dv
+# = 1024 / 4 = 256, chunk 256): (B, S, H, dk, dv, chunk, valid steps,
+# dtype).  4608 is the served prompt; 4352 the scoring forward's padding
+# of S = 4100 to whole chunks (steps past 4100: q, k, v = 0, i_pre = -1e9,
+# f_pre = +1e9); chunk 16 is the reduced config's (4 heads of 64); the
+# last case has dk != dv.
+MLSTM_CASES = [(1, 8192, 4, 256, 256, 256, None, "bfloat16"),
+               (1, 8192, 4, 256, 256, 256, None, "float32"),
+               (2, 4608, 4, 256, 256, 256, None, "bfloat16"),
+               (1, 4352, 4, 256, 256, 256, 4100, "bfloat16"),
+               (2, 128, 4, 64, 64, 16, None, "float32"),
+               (1, 512, 2, 64, 128, 64, None, "float32")]
+MLSTM_HEADLINE = MLSTM_CASES[0]
+# mlstm_scan tolerance, per element: |kernel - plain| <= rel |plain| + eps
+# (num_abs + |plain| (den_abs + D)) / D for y, where num_abs and den_abs
+# are the plain numerator and denominator computed on |q|, |k|, |v| (the
+# sum of the magnitudes of every term that forms them) and D = max(|den|,
+# e^{-m_t}) the plain version's floored denominator: y = num / D, so an
+# error of eps num_abs in num and eps den_abs in den moves y by eps
+# (num_abs + |y| den_abs) / D, and an error of eps in m_t moves the floor
+# by eps D.  For the state, eps times the plain state of |k|, |v| (C, n)
+# and eps (max|F| + |m|) for m.  eps = 2**-20 max|F| + (2 chunk + dk)
+# 2**-24.  The first term is F's: the kernel forms F = cumsum(logsigmoid(
+# f_pre)) in another order than torch.cumsum, and each weight e^{F_t - F_s
+# + i_s - m_t} takes the rounding of F as a relative error; 2**-20 max|F|
+# is 16 ulps of the largest |F| (about 20 at chunk 256).  The second is an
+# f32 sum of up to 2 chunk + dk terms in another order (the scores' dk,
+# the chunk's keys and the carried state's chunk).  bf16 adds rel =
+# 2**-7: both versions round one f32 result to bf16.
+MLSTM_REL = {"float32": 0.0, "bfloat16": 2.0**-7}
+
+
+def mlstm_inputs(torch, b, s, h, dk, dv, valid, dtype, seed):
+    """The layer's distributions: q, k, v ~ N(0, 1) in ``dtype`` (rms-normed
+    activations through 1/sqrt(d)-scaled weights), i_pre ~ N(0, 1) and
+    f_pre ~ N(3, 1) (the +3 forget bias) in f32; steps past ``valid`` are
+    the model's padding."""
+    dt_ = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn((b, s, h, dk), generator=gen, device="cuda") for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen, device="cuda")
+    i_pre = torch.randn((b, s, h), generator=gen, device="cuda")
+    f_pre = torch.randn((b, s, h), generator=gen, device="cuda") + 3.0
+    if valid is not None:
+        for t in (q, k, v):
+            t[:, valid:] = 0.0
+        i_pre[:, valid:] = -1e9
+        f_pre[:, valid:] = 1e9
+    return q.to(dt_), k.to(dt_), v.to(dt_), i_pre, f_pre
+
+
+def mlstm_excess(torch, got, want, inputs, chunk: int, dtype: str) -> dict:
+    """Max |kernel - plain| and, for y and the state, the max over elements
+    of the error less its allowance (<= 0 when every element passes)."""
+    from repro_torch.nn.xlstm import init_mlstm_state, mlstm_terms
+
+    q, k, v, i_pre, f_pre = inputs
+    b, s, h, dk = q.shape
+    zero = init_mlstm_state(b, h, dk, v.shape[-1], device=q.device)
+    _, den, floor, _ = mlstm_terms(q, k, v, i_pre, f_pre, zero, chunk=chunk)
+    num_a, den_a, _, st_a = mlstm_terms(q.abs(), k.abs(), v.abs(), i_pre, f_pre, zero,
+                                        chunk=chunk)
+    d = torch.maximum(den.abs(), floor)
+    f_max = (torch.nn.functional.logsigmoid(f_pre).reshape(b, s // chunk, chunk, h)
+             .cumsum(2).abs().max().item())
+    eps = 2.0**-20 * f_max + (2 * chunk + dk) * 2.0**-24
+    (gy, (gc, gn, gm)), (wy, (wc, wn, wm)) = got, want
+    wy = wy.float()
+    terms_y = num_a / d[..., None] + wy.abs() * ((den_a + d) / d)[..., None]
+    dy = (gy.float() - wy).abs()
+    diffs = ((gc - wc).abs(), (gn - wn).abs(), (gm - wm).abs())
+    terms_state = (st_a.c, st_a.n, f_max + wm.abs())
+    rel = max((dd / t.clamp_min(1e-30)).max().item() for dd, t in zip(diffs, terms_state))
+    if gy.dtype == torch.float32:   # bf16's own rounding would dominate y's ratio
+        rel = max(rel, (dy / terms_y.clamp_min(1e-30)).max().item())
+    return {"err_y": dy.max().item(), "err_state": max(dd.max().item() for dd in diffs),
+            "eps": eps, "f_max": f_max, "rel_terms": rel,
+            "excess_y": (dy - MLSTM_REL[dtype] * wy.abs() - eps * terms_y).max().item(),
+            "excess_state": max((dd - eps * t).max().item()
+                                for dd, t in zip(diffs, terms_state))}
+
+
+def mlstm_bound(b, s, h, dk, dv, chunk, dtype) -> tuple[float, str]:
+    """q, k, v, i_pre, f_pre read once, y and the f32 (C, n, m) written
+    once; operations per (b, h, chunk): the causal half of q k^T and of the
+    scores' product with v, q C_prev and q . n_prev, and the state update
+    k^T v and its n, at the peak rate of the inputs' type."""
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    ops = 2.0 * b * h * nc * (tri * (dk + dv) + 2 * chunk * dk * dv + 2 * chunk * dk)
+    nbytes = ((2 * b * s * h * dk + 2 * b * s * h * dv) * elem_bytes(dtype)
+              + 4 * (2 * b * s * h + b * h * (dk * dv + dk + 1)))
+    return roofline(ops, nbytes, dtype)
+
+
+def mlstm_kernel_cases(torch):
+    """mlstm_scan at xLSTM's shapes, each held against its plain version and
+    timed beside it and beside its bound; no single library call computes
+    it."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_cuda, mlstm_scan_ref
+
+    cases = []
+    for n, (b, s, h, dk, dv, chunk, valid, dt) in enumerate(MLSTM_CASES):
+        inputs = mlstm_inputs(torch, b, s, h, dk, dv, valid, dt, seed=20 + n)
+        got = mlstm_scan_cuda(*inputs, chunk=chunk)
+        want = mlstm_scan_ref(*inputs, chunk=chunk)
+        again = mlstm_scan_cuda(*inputs, chunk=chunk)
+        torch.cuda.synchronize()
+        ex = mlstm_excess(torch, got, want, inputs, chunk, dt)
+        shape = f"({b},{s},{h},{dk}->{dv}) chunk {chunk} {dt}" + (
+            f" valid {valid}" if valid is not None else "")
+        same = torch.equal(got[0], again[0]) and all(
+            torch.equal(x, y) for x, y in zip(got[1], again[1]))
+        if not (ex["excess_y"] <= 0.0 and ex["excess_state"] <= 0.0 and same
+                and got[0].dtype == inputs[0].dtype):
+            raise AssertionError(
+                f"mlstm_scan {shape}: an element of y or (C, n, m) exceeds its allowance "
+                f"({MLSTM_REL[dt]:.3e} |plain| + {ex['eps']:.3e} |terms|) by "
+                f"{ex['excess_y']:.3e} / {ex['excess_state']:.3e}, or two launches differ"
+            )
+        if valid is not None and got[0][:, valid:].any():
+            raise AssertionError(f"mlstm_scan {shape}: padded rows are not 0")
+        del got, want, again
+        big = s >= 4096
+        ms = time_calls(torch, lambda: mlstm_scan_cuda(*inputs, chunk=chunk), 10 if big else 50)
+        plain_ms = time_calls(torch, lambda: mlstm_scan_ref(*inputs, chunk=chunk),
+                              2 if big else 20)
+        bound_ms, bound_by = mlstm_bound(b, s, h, dk, dv, chunk, dt)
+        f32_ms, _ = mlstm_bound(b, s, h, dk, dv, chunk, "float32")
+        nc = s // chunk
+        cases.append({
+            "shape": shape, "key": MLSTM_CASES[n], "max_abs_err": ex["err_y"],
+            "max_abs_err_state": ex["err_state"], "max_err_over_terms": ex["rel_terms"],
+            "tolerance": f"{MLSTM_REL[dt]:.3e} |plain| + {ex['eps']:.3e} |terms|",
+            "f_max": ex["f_max"], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "f32_simt_bound_ms": f32_ms,
+            "blocks": -(-chunk // 64) * b * h * nc * -(-dv // 64),
+        })
+        print(
+            f"mlstm_scan {shape}: err y {ex['err_y']:.3e} state {ex['err_state']:.3e}, at most "
+            f"{ex['rel_terms']:.3e} of |terms| (tol {cases[-1]['tolerance']} per element, "
+            f"max|F| {ex['f_max']:.1f}; bit-identical across launches) kernel {ms:.3f} ms "
+            f"({cases[-1]['blocks']} output blocks) plain {plain_ms:.3f} ms bound "
+            f"{bound_ms:.3f} ms ({bound_by}, {dt} peak; {f32_ms:.3f} ms at the f32 CUDA-core "
+            f"peak)",
+            flush=True,
+        )
+        del inputs
+        torch.cuda.empty_cache()
+    return cases
+
+
+# The xLSTM slice: xLSTM-350M (arXiv:2405.04517) at its published widths
+# and all 24 layers (4 periods of 5 mLSTM layers and one sLSTM layer);
+# only the number of requests and the generated length are cut.
+XLSTM = {"arch": "xlstm_350m", "score_seq": 8192, "serve_batch": 2,
+         "prompt": 4608, "gen": 16, "seed": 0}
+# (b) holds each of the 20 kernel calls, on the plain route's own input, to
+# 1e-3 of its layer's update (F's rounding, see MLSTM_REL, keeps it far
+# below that), and the logits of the two routes, and (d) those of prefill
+# + decode against the forward, to 0.1 x max|logits|, as the hybrid's: a
+# random-weight model may amplify rounding ((b) prints its response to
+# one ulp of noise on the embeddings), and a dropped tile, a wrong mask or
+# a stale state moves the logits by O(1).
+XLSTM_LAYER_TOL = 1e-3
+XLSTM_LOGITS_TOL = 0.1
+
+
+def xlstm_slice(torch, np, card: str) -> tuple[int, dict]:
+    """Score, serve and check the full-width xLSTM; returns the scoring
+    forward's mlstm_scan launch count (the main path) and where its time
+    goes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.launch import serve
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.steps import make_loss_fn, make_serve_step
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.nn.layers import embed_lookup
+
+    cfg = dataclasses.replace(get_config(XLSTM["arch"]), use_pallas_kernels=True)
+    s, seed = XLSTM["score_seq"], XLSTM["seed"]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    host = next(iter(TokenStream(cfg.vocab_size, s, 1, seed=seed)))
+    batch = {k: torch.as_tensor(a, device="cuda") for k, a in host.items()}
+    mlstm_layers = model.num_periods * model.mlstm_per_period
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{cfg.name}: {n_params / 1e6:.3f} M parameters, {mlstm_layers} mLSTM layers "
+          f"({cfg.num_heads} heads of dk = dv = {cfg.hd}, chunk {cfg.ssm_chunk}) and "
+          f"{model.num_periods} sLSTM layers ({cfg.num_heads} heads of "
+          f"{cfg.d_model // cfg.num_heads}), d_model {cfg.d_model}, vocab {cfg.padded_vocab}, "
+          f"{cfg.dtype}", flush=True)
+
+    # (a) The main path: the scoring forward through the kernel.
+    torch.cuda.reset_peak_memory_stats()
+    ms.reset_launch_count()
+    with torch.no_grad():
+        loss = make_loss_fn(model)(params, batch)
+    torch.cuda.synchronize()
+    main_launches = ms.launch_count()
+    loss = float(loss)
+    if main_launches != mlstm_layers or not np.isfinite(loss):
+        raise AssertionError(f"xlstm scoring forward: {main_launches} mlstm_scan launches "
+                             f"(expected {mlstm_layers}), loss {loss}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms, shares = op_shares(torch, model, params, batch, ("mlstm_scan", "apply_slstm_layer"))
+    (scan_ms, scan_calls), (slstm_ms, slstm_calls) = (shares["mlstm_scan"],
+                                                      shares["apply_slstm_layer"])
+    plain_fwd_ms = timed_forward(
+        torch, build_model(dataclasses.replace(cfg, use_pallas_kernels=False)), params, batch)
+    rest = fwd_ms - scan_ms - slstm_ms
+    print(
+        f"(a) xlstm scoring forward B=1 S={s} bf16: loss {loss:.4f}, {main_launches} mlstm_scan "
+        f"launches, peak {peak_gb:.2f} GB; {fwd_ms:.3f} ms (CUDA events) = mlstm_scan "
+        f"{scan_ms:.3f} ms over {scan_calls} calls ({scan_ms / fwd_ms:.1%}) + sLSTM layers "
+        f"{slstm_ms:.3f} ms over {slstm_calls} calls ({slstm_ms / fwd_ms:.1%}; CUDA events "
+        f"around each call in this forward) + the rest {rest:.3f} ms; through the plain scan "
+        f"{plain_fwd_ms:.3f} ms",
+        flush=True,
+    )
+    split = {"forward_ms": fwd_ms, "mlstm_scan_ms": scan_ms, "mlstm_scan_calls": scan_calls,
+             "slstm_ms": slstm_ms, "slstm_calls": slstm_calls, "rest_ms": rest,
+             "plain_forward_ms": plain_fwd_ms, "peak_gb": peak_gb, "loss": loss}
+
+    # (c) Serving through the launcher's entry point: prefill and decode
+    # take the plain scan and the recurrences, as in the reference.
+    ms.reset_launch_count()
+    res = serve.serve(XLSTM["arch"], batch=XLSTM["serve_batch"], prompt_len=XLSTM["prompt"],
+                      gen_len=XLSTM["gen"], reduced=False, seed=seed)
+    toks = res["tokens"]
+    if res["device"] != "cuda" or toks.shape != (XLSTM["serve_batch"], XLSTM["gen"]) \
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"xlstm serve: tokens {toks.shape} on {res['device']}")
+    print(f"(c) xlstm serve B={XLSTM['serve_batch']} prompt {XLSTM['prompt']} gen "
+          f"{XLSTM['gen']} bf16: prefill {res['prefill_s']:.3f} s, decode "
+          f"{res['decode_tokens_per_s']:.1f} tok/s ({res['decode_s']:.3f} s), "
+          f"{ms.launch_count()} mlstm_scan launches", flush=True)
+    split.update(prefill_s=res["prefill_s"], decode_tokens_per_s=res["decode_tokens_per_s"])
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) f32: each kernel call against the plain scan on the same input,
+    # then the kernel route's logits against the plain route's.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(seed))
+    plain_cfg = dataclasses.replace(cfg32, use_pallas_kernels=False)
+    plain32 = build_model(plain_cfg)
+    layer_gap = 0.0
+    with torch.no_grad():
+        x = embed_lookup(params32["embed"], batch["tokens"])
+        for i in range(model32.num_periods):
+            for j in range(model32.mlstm_per_period):
+                mp = layer_params(layer_params(params32["mlstm"], i), j)
+                plain_x, _ = blocks.apply_mlstm_layer(mp, x, plain_cfg, None)
+                routed_x, _ = blocks.apply_mlstm_layer(mp, x, cfg32, None)
+                gap = ((routed_x - plain_x).abs().max() / (plain_x - x).abs().max()).item()
+                layer_gap = max(layer_gap, gap)
+                x = plain_x
+            x, _ = blocks.apply_slstm_layer(layer_params(params32["slstm"], i), x, plain_cfg,
+                                            None)
+        del x, plain_x, routed_x
+        routed, _ = model32.forward(params32, {"tokens": batch["tokens"]})
+        plain, _ = plain32.forward(params32, {"tokens": batch["tokens"]})
+        err, scale = max_err(routed, plain)
+        del routed
+        noise = torch.randn(params32["embed"].shape, generator=torch.Generator(
+            device="cuda").manual_seed(1), device="cuda")
+        nudged, _ = plain32.forward(dict(params32, embed=params32["embed"] * (1 + 2**-24 * noise)),
+                                    {"tokens": batch["tokens"]})
+        ulp_gap, _ = max_err(nudged, plain)
+        del plain, nudged, noise
+    if not (layer_gap <= XLSTM_LAYER_TOL and err <= XLSTM_LOGITS_TOL * scale):
+        raise AssertionError(f"(b) f32 kernel vs plain route: a layer's update differs by "
+                             f"{layer_gap:.3e} (tol {XLSTM_LAYER_TOL}), logits by {err:.3e} "
+                             f"(tol {XLSTM_LOGITS_TOL} x {scale:.3e})")
+    print(f"(b) f32 forward S={s}: each of the {mlstm_layers} mLSTM layers, kernel vs plain scan "
+          f"on the same input, within {layer_gap:.3e} of the layer's update (tol "
+          f"{XLSTM_LAYER_TOL}); logits kernel route vs plain route max abs err {err:.3e} "
+          f"(max|logits| {scale:.3e}, tol {XLSTM_LOGITS_TOL} x max); one ulp of noise on the "
+          f"embeddings moves the plain route's logits by {ulp_gap:.3e}", flush=True)
+    split.update(layer_gap=layer_gap, route_err=err / scale, ulp_gap=ulp_gap / scale)
+
+    # (d) f32 prefill + greedy decode against the f32 forward through the
+    # kernel over the prompt and the generated tokens.
+    bsz, n0, gen = XLSTM["serve_batch"], XLSTM["prompt"], XLSTM["gen"]
+    prompt = torch.as_tensor(
+        np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, n0)), device="cuda")
+    step = make_serve_step(model32)
+    enqueue, total = [], []
+    with torch.no_grad():
+        logits, cache = model32.prefill(params32, {"tokens": prompt}, max_len=n0 + gen)
+        steps = [logits[:, -1]]
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        seq = [tok]
+        for _ in range(gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, cache = step(params32, {"tokens": tok.reshape(bsz, 1)}, cache)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits[:, -1])
+            seq.append(tok)
+        del cache
+        full_toks = torch.cat([prompt, torch.stack(seq[:-1], dim=1)], dim=1)
+        ms.reset_launch_count()
+        full, _ = model32.forward(params32, {"tokens": full_toks})
+    got = torch.stack(steps, dim=1)
+    want = full[:, n0 - 1:n0 + gen]
+    err, scale = max_err(got, want)
+    if ms.launch_count() != mlstm_layers or not err <= XLSTM_LOGITS_TOL * scale:
+        raise AssertionError(f"(d) xlstm f32 prefill+decode vs forward: {err:.3e} > "
+                             f"{XLSTM_LOGITS_TOL} x {scale:.3e}, or {ms.launch_count()} "
+                             f"mlstm_scan launches")
+    enqueue, total = sorted(enqueue[1:]), sorted(total[1:])
+    print(f"(d) f32 prefill {n0} + {gen} decode steps vs the forward over {full_toks.shape[1]} "
+          f"tokens (padded scan, kernel route): max abs err {err:.3e} over {gen + 1} positions "
+          f"(max|logits| {scale:.3e}, tol {XLSTM_LOGITS_TOL} x max); a decode step B={bsz} "
+          f"(median of {len(total)}) {total[len(total) // 2]:.3f} ms synchronized, of which "
+          f"{enqueue[len(enqueue) // 2]:.3f} ms for the host to enqueue it, on {card}",
+          flush=True)
+    split.update(decode_err=err / scale, decode_step_ms=total[len(total) // 2],
+                 decode_enqueue_ms=enqueue[len(enqueue) // 2])
+    del params32, full, got, want
+    torch.cuda.empty_cache()
+    return main_launches, split
+
+
 def main() -> int:
     import torch
 
@@ -1355,6 +1705,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_cases = ssm_kernel_cases(torch)
     ssm_launches, split = hybrid_slice(torch, np, card)
+    mlstm_cases = mlstm_kernel_cases(torch)
+    mlstm_launches, xlstm_split = xlstm_slice(torch, np, card)
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)
@@ -1389,8 +1741,12 @@ def main() -> int:
               flash_cases, FLASH_HEADLINE),
         entry("ssm_scan", f"{csrc}/ssm_scan.cu", "src/repro/kernels/ssm_scan/kernel.py:69",
               ssm_launches, ssm_cases, SSM_HEADLINE),
+        entry("mlstm_scan", f"{csrc}/mlstm_scan.cu",
+              "src/repro/kernels/mlstm_scan/kernel.py:87", mlstm_launches, mlstm_cases,
+              MLSTM_HEADLINE),
     ]
-    kernels[-1]["hybrid_forward"] = split
+    kernels[-2]["hybrid_forward"] = split
+    kernels[-1]["xlstm_forward"] = xlstm_split
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

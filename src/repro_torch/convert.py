@@ -1,5 +1,5 @@
 """Carry SSFN parameters, random matrices, datasets and model-zoo
-(transformer and hybrid) parameters between ``repro`` (as numpy arrays)
+(transformer, hybrid and xLSTM) parameters between ``repro`` (as numpy arrays)
 and the port.
 
 ``repro``'s arrays are JAX arrays; ``np.asarray`` on each gives what
@@ -133,8 +133,37 @@ def hybrid_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     }
 
 
+def xlstm_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
+    """The shape of every parameter of an xLSTM model, with the reference's
+    names: the mLSTM weights stacked on leading (num_periods,
+    mlstm_per_period) axes, the sLSTM weights on a leading num_periods
+    axis (allocated whether or not the config applies them)."""
+    d, v, h, hd = cfg.d_model, cfg.padded_vocab, cfg.num_heads, cfg.hd
+    period = cfg.slstm_period or 1
+    periods = cfg.num_layers // period
+    pm = (periods, period - 1 if cfg.slstm_period > 1 else 1)
+    p, dh = (periods,), d // h
+    return {
+        "embed": (v, d),
+        "mlstm": {
+            "ln": pm + (d,), "wq": pm + (d, h * hd), "wk": pm + (d, h * hd),
+            "wv": pm + (d, h * hd), "wi": pm + (d, h), "wf": pm + (d, h),
+            "gn": pm + (h * hd,), "out": pm + (h * hd, d),
+        },
+        "slstm": {
+            "ln": p + (d,), "wx": p + (d, 4 * d), "rw": p + (4, h, dh, dh), "gn": p + (d,),
+            "out": p + (d, d),
+        },
+        "ln_f": (d,),
+        "head": (d, v),
+    }
+
+
 #: Hybrid parameters that ``repro`` keeps in f32 whatever the model's dtype.
 _HYBRID_F32 = {("mamba", "a_log"), ("mamba", "dt_bias")}
+#: xLSTM parameters that ``repro`` keeps in f32 whatever the model's dtype:
+#: the mLSTM gate projections and the sLSTM recurrent weights.
+_XLSTM_F32 = {("mlstm", "wi"), ("mlstm", "wf"), ("slstm", "rw")}
 
 
 def _tree_from_numpy(tree, shapes, dev: torch.device, dt: torch.dtype, keep_f32=frozenset()):
@@ -196,10 +225,27 @@ def hybrid_params_from_numpy(
                             _HYBRID_F32)
 
 
+def xlstm_params_from_numpy(
+    tree: dict[str, Any],
+    cfg: ModelConfig,
+    *,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+) -> dict[str, Any]:
+    """The port's xLSTM parameters from ``jax.tree.map(np.asarray,
+    params)`` of ``repro``'s ``XLSTMModel.init``, as
+    :func:`transformer_params_from_numpy` carries a transformer's, except
+    that ``mlstm.wi``, ``mlstm.wf`` and ``slstm.rw`` stay f32 whatever
+    ``dtype`` is, as ``repro`` keeps them."""
+    dt = cfg.torch_dtype if dtype is None else dtype
+    return _tree_from_numpy(tree, xlstm_param_shapes(cfg), resolve_device(device), dt,
+                            _XLSTM_F32)
+
+
 def transformer_params_to_numpy(params: dict[str, Any]) -> dict[str, Any]:
     """The inverse of :func:`transformer_params_from_numpy` (and of
-    :func:`hybrid_params_from_numpy`): the same tree of host numpy arrays;
-    bf16 comes back as f32."""
+    :func:`hybrid_params_from_numpy` and :func:`xlstm_params_from_numpy`):
+    the same tree of host numpy arrays; bf16 comes back as f32."""
 
     def conv(node):
         if isinstance(node, dict):
@@ -211,3 +257,4 @@ def transformer_params_to_numpy(params: dict[str, Any]) -> dict[str, Any]:
 
 
 hybrid_params_to_numpy = transformer_params_to_numpy
+xlstm_params_to_numpy = transformer_params_to_numpy

@@ -15,6 +15,10 @@ version:
                    state, returning y and the final (B, H, dh, ds) state
                                                     (the hybrid's scoring
                                                      forward)
+- mlstm_scan:      the chunked stabilized mLSTM of q, k (B, S, H, dk) and
+                   v (B, S, H, dv) from the zero state, returning y and
+                   the final (C, n, m)              (xLSTM's scoring
+                                                     forward)
 
 ``csrc/gram.cuh`` holds the Gram tiles that ``gram.cu`` and
 ``propagate_gram.cu`` share.

@@ -3,14 +3,15 @@
     python -m repro_torch.launch.serve --arch h2o_danube3_4b --full \
         --batch 2 --prompt-len 4608 --gen-len 16
 
-Port of ``repro/launch/serve.py`` for the dense transformers and the
-hybrid (``--arch zamba2_2_7b``): seeded random weights (``--full`` for
-the published widths, else the reduced smoke config), a seeded random
-prompt, prefill with room for ``prompt_len + gen_len`` positions, then
-``gen_len`` greedy decode steps.  It prints the prefill time and the
-decode rate.  Prefill and decode take the plain attention and the plain
-chunked scan or decode recurrence, as in the reference, so no kernel
-launches here.  It runs on ``cuda`` unless ``--device cpu`` is given;
+Port of ``repro/launch/serve.py`` for the dense transformers, the
+hybrid (``--arch zamba2_2_7b``) and xLSTM (``--arch xlstm_350m``): seeded
+random weights (``--full`` for the published widths, else the reduced
+smoke config), a seeded random prompt, prefill with room for
+``prompt_len + gen_len`` positions (xLSTM's cache is recurrent state, so
+it ignores that size), then ``gen_len`` greedy decode steps.  It prints
+the prefill time and the decode rate.  Prefill and decode take the plain
+attention and the plain chunked scans or decode recurrences, as in the
+reference, so no kernel launches here.  It runs on ``cuda`` unless ``--device cpu`` is given;
 there is one card, so the reference's ``--model-parallel`` is left out.
 """
 from __future__ import annotations
@@ -42,8 +43,9 @@ def serve(
     ``{"tokens": (batch, gen_len) int64 numpy, "prefill_s", "decode_s",
     "decode_tokens_per_s", "device"}``.  ``params`` replaces the seeded
     init (for example ``repro``'s weights, carried across with
-    ``convert.transformer_params_from_numpy`` or
-    ``convert.hybrid_params_from_numpy``); the prompt is always drawn
+    ``convert.transformer_params_from_numpy``,
+    ``convert.hybrid_params_from_numpy`` or
+    ``convert.xlstm_params_from_numpy``); the prompt is always drawn
     from ``numpy.random.default_rng(seed)`` as the reference draws it."""
     dev = resolve_device(device)
     cfg = get_config(arch)

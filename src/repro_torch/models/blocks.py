@@ -1,23 +1,26 @@
 """Parameter init and application of the per-layer blocks.
 
-Port of the attention, FFN, transformer-layer and Mamba2-layer part of
-``repro/models/blocks.py``.  Parameters are plain dicts of tensors with
-the reference's names; an init function given ``stack=(L,)`` draws L
-layers at once, stacked on leading axes as the reference's vmapped init
-stacks them.  The MoE FFN and the mLSTM and sLSTM layers are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+Port of ``repro/models/blocks.py``: attention, the FFN, the transformer
+layer, the Mamba2 layer and the mLSTM and sLSTM layers.  Parameters are
+plain dicts of tensors with the reference's names; an init function
+given ``stack=(L,)`` draws L layers at once, stacked on leading axes as
+the reference's vmapped init stacks them.  The MoE FFN is not ported
+yet and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mlstm_scan import mlstm_scan
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm as ssm_lib
+from repro_torch.nn import xlstm as xlstm_lib
 from repro_torch.nn.layers import dense_init, rms_norm, round_up
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
@@ -230,19 +233,112 @@ def apply_mamba_layer(
     return res + y @ p["out"], new_state
 
 
-# ------------------------------------------------- layers not ported yet
+# ------------------------------------------------------------ xlstm layers
 
-def init_mlstm_layer(gen, cfg):
-    raise unported("the mLSTM layer", "item 11")
+def init_mlstm_layer(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
+    """An mLSTM layer's parameters in ``cfg.torch_dtype``, except the gate
+    projections ``wi`` and ``wf``, which are f32 whatever the model's
+    dtype, as in the reference."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.hd
+    dt, dev = cfg.torch_dtype, gen.device
+    return {
+        "ln": torch.ones(stack + (d,), dtype=dt, device=dev),
+        "wq": dense_init(gen, stack + (d, h * hd), dt),
+        "wk": dense_init(gen, stack + (d, h * hd), dt),
+        "wv": dense_init(gen, stack + (d, h * hd), dt),
+        "wi": dense_init(gen, stack + (d, h), torch.float32),
+        "wf": dense_init(gen, stack + (d, h), torch.float32),
+        "gn": torch.ones(stack + (h * hd,), dtype=dt, device=dev),
+        "out": dense_init(gen, stack + (h * hd, d), dt),
+    }
 
 
-def apply_mlstm_layer(p, x, cfg, state):
-    raise unported("the mLSTM layer", "item 11")
+def apply_mlstm_layer(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: xlstm_lib.MLSTMState | None,
+) -> tuple[torch.Tensor, xlstm_lib.MLSTMState | None]:
+    """An mLSTM layer on x (B, S, d), routed as the reference routes it:
+    with no state (the full-sequence scoring forward) the scan goes through
+    the ``mlstm_scan`` op when ``cfg.use_pallas_kernels`` (the CUDA kernel
+    on the card, its plain version on the CPU), else through the plain
+    chunked scan; with a state and S > 1 (prefill) through the plain
+    chunked scan from that state; with a state and S = 1 (decode) one
+    recurrence step.  Returns (x + the layer's output, the new state or
+    None).
+
+    The sequence is padded with steps of input gate -1e9 and forget gate
+    +1e9 (nothing enters, nothing decays) to whole chunks of
+    min(cfg.ssm_chunk, S rounded up to 16); the reference's chunk is
+    min(cfg.ssm_chunk, S).  The two give the same function, and the kernel
+    takes only chunks that are multiples of 16."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.hd
+    res = x
+    xn = rms_norm(x, p["ln"])
+    q = (xn @ p["wq"]).reshape(b, s, h, hd)
+    k = (xn @ p["wk"]).reshape(b, s, h, hd)
+    v = (xn @ p["wv"]).reshape(b, s, h, hd)
+    i_pre = xn.float() @ p["wi"]
+    f_pre = xn.float() @ p["wf"] + 3.0
+
+    if state is not None and s == 1:
+        y, new_state = xlstm_lib.mlstm_decode_step(
+            q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0], state
+        )
+        y = y.reshape(b, 1, h * hd)
+    else:
+        chunk = min(cfg.ssm_chunk, round_up(s, 16))
+        pad = (-s) % chunk
+        if pad:
+            q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+            i_pre = torch.nn.functional.pad(i_pre, (0, 0, 0, pad), value=-1e9)
+            f_pre = torch.nn.functional.pad(f_pre, (0, 0, 0, pad), value=1e9)
+        if cfg.use_pallas_kernels and state is None:
+            y, _ = mlstm_scan(q, k, v, i_pre, f_pre, chunk=chunk)
+            new_state = None
+        else:
+            st0 = state if state is not None else xlstm_lib.init_mlstm_state(
+                b, h, hd, hd, device=x.device)
+            y, new_state = xlstm_lib.chunked_mlstm(q, k, v, i_pre, f_pre, st0, chunk=chunk)
+            if state is None:
+                new_state = None
+        y = y[:, :s].reshape(b, s, h * hd)
+    y = rms_norm(y, p["gn"])
+    return res + y @ p["out"], new_state
 
 
-def init_slstm_layer(gen, cfg):
-    raise unported("the sLSTM layer", "item 11")
+def init_slstm_layer(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
+    """An sLSTM layer's parameters in ``cfg.torch_dtype``, except the
+    block-diagonal recurrent weights ``rw`` (4, H, dh, dh), which are f32
+    whatever the model's dtype, as in the reference."""
+    d, h = cfg.d_model, cfg.num_heads
+    dh = d // h
+    dt, dev = cfg.torch_dtype, gen.device
+    return {
+        "ln": torch.ones(stack + (d,), dtype=dt, device=dev),
+        "wx": dense_init(gen, stack + (d, 4 * d), dt),
+        "rw": dense_init(gen, stack + (4, h, dh, dh), torch.float32, scale=1.0 / math.sqrt(dh)),
+        "gn": torch.ones(stack + (d,), dtype=dt, device=dev),
+        "out": dense_init(gen, stack + (d, d), dt),
+    }
 
 
-def apply_slstm_layer(p, x, cfg, state):
-    raise unported("the sLSTM layer", "item 11")
+def apply_slstm_layer(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: xlstm_lib.SLSTMState | None,
+) -> tuple[torch.Tensor, xlstm_lib.SLSTMState | None]:
+    """An sLSTM layer on x (B, S, d): the step-by-step recurrence from
+    ``state`` (or the zero state), which has no kernel in the reference
+    either.  Returns (x + the layer's output, the new state, or None when
+    no state was given)."""
+    b, _, d = x.shape
+    res = x
+    x_gates = rms_norm(x, p["ln"]) @ p["wx"]
+    st0 = state if state is not None else xlstm_lib.init_slstm_state(b, d, device=x.device)
+    hs, new_state = xlstm_lib.slstm_scan(x_gates, p["rw"], st0, cfg.num_heads)
+    y = rms_norm(hs.to(x.dtype), p["gn"]) @ p["out"]
+    return res + y, new_state if state is not None else None

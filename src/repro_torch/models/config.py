@@ -51,12 +51,12 @@ class ModelConfig:
     # Block (sqrt-L) rematerialization: checkpoint only every k-th layer
     # boundary, recomputing k layers per backward group.  0 = per-layer.
     remat_block: int = 0
-    # Route the full-sequence, cache-free attention and Mamba2 scan through
-    # the port's flash_attention and ssm_scan ops: the hand-written CUDA
-    # kernels for CUDA tensors (at every sequence length), their plain
-    # versions for CPU tensors.  Off, the chunked online-softmax attention
-    # and the plain chunked scan run.  Prefill and decode never take them,
-    # as in the reference.  The mLSTM scan is not ported yet.
+    # Route the full-sequence, cache-free attention, Mamba2 scan and mLSTM
+    # scan through the port's flash_attention, ssm_scan and mlstm_scan ops:
+    # the hand-written CUDA kernels for CUDA tensors (at every sequence
+    # length), their plain versions for CPU tensors.  Off, the chunked
+    # online-softmax attention and the plain chunked scans run.  Prefill
+    # and decode never take them, as in the reference.
     use_pallas_kernels: bool = False
     tie_embeddings: bool = False
     source: str = ""

@@ -22,7 +22,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_loss_fn(model):
     """(params, batch) -> loss: the full-sequence forward scored against
     batch['labels'].  The reference's VLM and MoE terms do not arise: only
-    dense and hybrid models are built."""
+    dense, hybrid and xLSTM models are built."""
 
     def loss_fn(params, batch):
         logits, _ = model.forward(params, batch)

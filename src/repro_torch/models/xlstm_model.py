@@ -1,0 +1,144 @@
+"""xLSTM language model: periods of (slstm_period - 1) mLSTM layers
+followed by one sLSTM layer (arXiv:2405.04517).
+
+Port of ``repro/models/xlstm_model.py``.  Parameters keep the reference's
+names and layout: the mLSTM weights stacked on leading (num_periods,
+mlstm_per_period) axes, the sLSTM weights on a leading num_periods axis
+(always allocated, applied only when the config has sLSTM layers), so
+``convert.xlstm_params_from_numpy`` carries ``repro``'s params across
+unchanged.  The two ``lax.scan``s (periods, mLSTM layers within a period)
+become Python loops.  ``forward`` is the full-sequence scoring pass, every
+layer from the zero state (through the ``mlstm_scan`` op when
+``cfg.use_pallas_kernels``); ``prefill`` and ``decode_step`` take the plain
+chunked scan and the decode recurrences, as the reference routes them.
+The cache is recurrent state only: nothing in it grows with the sequence.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import layer_params
+from repro_torch.nn import xlstm as xlstm_lib
+from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm
+
+Params = dict[str, Any]
+
+
+class XLSTMCache(NamedTuple):
+    mlstm: xlstm_lib.MLSTMState   # leading dims (P, mlstm_per_period)
+    slstm: xlstm_lib.SLSTMState   # leading dim (P,)
+
+
+class XLSTMModel:
+    def __init__(self, cfg: ModelConfig):
+        period = cfg.slstm_period or 1
+        if cfg.family != "ssm" or cfg.num_layers % period:
+            raise ValueError(
+                f"XLSTMModel needs family 'ssm' and num_layers a multiple of slstm_period, "
+                f"got {cfg.family!r}, {cfg.num_layers} and {cfg.slstm_period}"
+            )
+        self.cfg = cfg
+        self.num_periods = cfg.num_layers // period
+        self.has_slstm = cfg.slstm_period > 1
+        self.mlstm_per_period = period - 1 if self.has_slstm else 1
+
+    # ------------------------------------------------------------- params
+    def init(self, gen: torch.Generator) -> Params:
+        """Seeded random parameters on the generator's device."""
+        cfg = self.cfg
+        v, d = cfg.padded_vocab, cfg.d_model
+        return {
+            "embed": embed_init(gen, v, d, cfg.torch_dtype),
+            "mlstm": blocks.init_mlstm_layer(
+                gen, cfg, stack=(self.num_periods, self.mlstm_per_period)),
+            "slstm": blocks.init_slstm_layer(gen, cfg, stack=(self.num_periods,)),
+            "ln_f": torch.ones((d,), dtype=cfg.torch_dtype, device=gen.device),
+            "head": dense_init(gen, (d, v), cfg.torch_dtype),
+        }
+
+    def _mlstm(self, params: Params, i: int, j: int) -> Params:
+        return layer_params(layer_params(params["mlstm"], i), j)
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, params["ln_f"]) @ params["head"]
+
+    # ------------------------------------------------------------ forward
+    def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward.  Returns (logits, 0): no MoE term."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"])
+        for i in range(self.num_periods):
+            for j in range(self.mlstm_per_period):
+                x, _ = blocks.apply_mlstm_layer(self._mlstm(params, i, j), x, cfg, None)
+            if self.has_slstm:
+                x, _ = blocks.apply_slstm_layer(layer_params(params["slstm"], i), x, cfg, None)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------ prefill
+    def init_cache(self, batch_size: int, max_len: int, device=None) -> XLSTMCache:
+        """The zero state of every layer (m at -1e30); ``max_len`` is
+        ignored, as a recurrent state has no per-position slots."""
+        del max_len
+        cfg = self.cfg
+        dev = resolve_device(device)
+        h, hd = cfg.num_heads, cfg.hd
+        pm = (self.num_periods, self.mlstm_per_period)
+        m_one = xlstm_lib.init_mlstm_state(batch_size, h, hd, hd, device=dev)
+        s_one = xlstm_lib.init_slstm_state(batch_size, cfg.d_model, device=dev)
+        return XLSTMCache(
+            mlstm=xlstm_lib.MLSTMState(*(t.expand(pm + t.shape).clone() for t in m_one)),
+            slstm=xlstm_lib.SLSTMState(
+                *(t.expand((self.num_periods,) + t.shape).clone() for t in s_one)),
+        )
+
+    def prefill(self, params: Params, batch: dict, max_len: int | None = None):
+        """The stateful full-sequence pass: every layer runs from the zero
+        state and its final state is collected into the decode cache
+        (``max_len`` is ignored: a recurrent state has no per-position
+        cache to size).  Returns (logits of the last position, cache)."""
+        del max_len
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"])
+        b = x.shape[0]
+        m_zero = xlstm_lib.init_mlstm_state(b, cfg.num_heads, cfg.hd, cfg.hd, device=x.device)
+        s_zero = xlstm_lib.init_slstm_state(b, cfg.d_model, device=x.device)
+        m_states, s_states = [], []
+        for i in range(self.num_periods):
+            for j in range(self.mlstm_per_period):
+                x, st = blocks.apply_mlstm_layer(self._mlstm(params, i, j), x, cfg, m_zero)
+                m_states.append(st)
+            if self.has_slstm:
+                x, st = blocks.apply_slstm_layer(layer_params(params["slstm"], i), x, cfg,
+                                                 s_zero)
+            else:
+                st = s_zero
+            s_states.append(st)
+        pm = (self.num_periods, self.mlstm_per_period)
+        mlstm = xlstm_lib.MLSTMState(
+            *(torch.stack(ts).reshape(pm + ts[0].shape) for ts in zip(*m_states)))
+        slstm = xlstm_lib.SLSTMState(*(torch.stack(ts) for ts in zip(*s_states)))
+        return self._logits(params, x[:, -1:]), XLSTMCache(mlstm=mlstm, slstm=slstm)
+
+    # ------------------------------------------------------------- decode
+    def decode_step(self, params: Params, batch: dict, cache: XLSTMCache):
+        """One-token step.  batch['tokens']: (B, 1).  Writes every layer's
+        new state into ``cache`` in place and returns (logits, cache)."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"])
+        for i in range(self.num_periods):
+            for j in range(self.mlstm_per_period):
+                st = xlstm_lib.MLSTMState(*(t[i, j] for t in cache.mlstm))
+                x, st = blocks.apply_mlstm_layer(self._mlstm(params, i, j), x, cfg, st)
+                for dst, src in zip(cache.mlstm, st):
+                    dst[i, j].copy_(src)
+            if self.has_slstm:
+                st = xlstm_lib.SLSTMState(*(t[i] for t in cache.slstm))
+                x, st = blocks.apply_slstm_layer(layer_params(params["slstm"], i), x, cfg, st)
+                for dst, src in zip(cache.slstm, st):
+                    dst[i].copy_(src)
+        return self._logits(params, x), cache

@@ -653,3 +653,187 @@ def test_hybrid_prefill_and_decode_never_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert cache.attn.index.tolist() == [83, 83]
+
+
+# ---------------------------------------------------------------------------
+# mlstm_scan
+# ---------------------------------------------------------------------------
+
+# Tolerance, per element: |kernel - plain| <= rel |plain| + eps (num_abs +
+# |plain| (den_abs + D)) / D for y, where num_abs and den_abs are the plain
+# numerator and denominator on |q|, |k|, |v| (the magnitudes of every term
+# that forms them) and D = max(|den|, e^{-m_t}), the plain floored
+# denominator; eps times the plain state of |k|, |v| for C and n, and eps
+# (max|F| + |m|) for m.  eps = 2**-20 max|F| + (2 chunk + dk) 2**-24: 16
+# ulps of the largest in-chunk cumulative sum F of logsigmoid(f_pre),
+# which the two versions form in other orders and each weight e^{F_t - F_s
+# + i_s - m_t} takes as a relative error, plus an f32 sum of up to 2 chunk
+# + dk terms in another order.  bf16 adds rel = 2**-7: both round one f32
+# result to bf16.  (``chip_smoke.py`` derives the same bar.)
+MLSTM_REL = {torch.float32: 0.0, torch.bfloat16: 2**-7}
+
+
+def _mlstm_inputs(b, s, h, dk, dv, dtype, device, seed=0, valid=None):
+    """The model's distributions: q, k, v ~ N(0, 1), i_pre ~ N(0, 1), f_pre
+    ~ N(3, 1); steps past ``valid`` are the model's padding (q, k, v = 0,
+    i_pre = -1e9, f_pre = +1e9)."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((b, s, h, dk)).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((b, s, h, dv)).astype(np.float32)
+    i_pre = rng.standard_normal((b, s, h)).astype(np.float32)
+    f_pre = (rng.standard_normal((b, s, h)) + 3.0).astype(np.float32)
+    if valid is not None:
+        for t in (q, k, v):
+            t[:, valid:] = 0.0
+        i_pre[:, valid:] = -1e9
+        f_pre[:, valid:] = 1e9
+    return (tuple(torch.from_numpy(t).to(device, dtype) for t in (q, k, v))
+            + (torch.from_numpy(i_pre).to(device), torch.from_numpy(f_pre).to(device)))
+
+
+def _close_mlstm(got, want, inputs, chunk):
+    from repro_torch.nn.xlstm import init_mlstm_state, mlstm_terms
+
+    q, k, v, i_pre, f_pre = inputs
+    b, s, h, dk = q.shape
+    zero = init_mlstm_state(b, h, dk, v.shape[-1], device=q.device)
+    _, den, floor, _ = mlstm_terms(q, k, v, i_pre, f_pre, zero, chunk=chunk)
+    num_a, den_a, _, st_a = mlstm_terms(q.abs(), k.abs(), v.abs(), i_pre, f_pre, zero,
+                                        chunk=chunk)
+    d = torch.maximum(den.abs(), floor)
+    f_max = (torch.nn.functional.logsigmoid(f_pre).reshape(b, s // chunk, chunk, h)
+             .cumsum(2).abs().max().item())
+    eps = 2**-20 * f_max + (2 * chunk + dk) * 2**-24
+    (gy, (gc, gn, gm)), (wy, (wc, wn, wm)) = got, want
+    gy, wy = gy.float(), wy.float()
+    terms_y = num_a / d[..., None] + wy.abs() * ((den_a + d) / d)[..., None]
+    assert ((gy - wy).abs() - MLSTM_REL[q.dtype] * wy.abs() - eps * terms_y).max().item() <= 0.0
+    assert ((gc - wc).abs() - eps * st_a.c).max().item() <= 0.0
+    assert ((gn - wn).abs() - eps * st_a.n).max().item() <= 0.0
+    assert ((gm - wm).abs() - eps * (f_max + wm.abs())).max().item() <= 0.0
+
+
+# (B, S, H, dk, dv, chunk, valid): xLSTM-350M's head (dk = dv = 256, chunk
+# 256) at a short S and a padded one (4100 -> 4352), the reduced config's
+# (64, chunk 16), dk != dv both ways, odd sizes at chunk 48 and one step.
+MLSTM_SHAPES = [(1, 512, 2, 256, 256, 256, None), (1, 4352, 1, 256, 256, 256, 4100),
+                (2, 96, 4, 64, 64, 16, 90), (2, 256, 3, 64, 128, 64, None),
+                (1, 192, 2, 128, 32, 64, None), (2, 144, 3, 33, 70, 48, None),
+                (1, 16, 1, 1, 1, 16, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,valid", MLSTM_SHAPES)
+def test_mlstm_scan_matches_plain(cuda, b, s, h, dk, dv, chunk, valid, dtype):
+    from repro_torch.kernels import mlstm_scan as ms
+
+    inputs = _mlstm_inputs(b, s, h, dk, dv, dtype, cuda, seed=dk + s, valid=valid)
+    before = ms.launch_count()
+    y, (c, n, m) = ms.mlstm_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ms.launch_count() == before + 1
+    assert y.shape == (b, s, h, dv) and y.dtype == dtype
+    assert (c.shape, n.shape, m.shape) == ((b, h, dk, dv), (b, h, dk), (b, h))
+    _close_mlstm((y, (c, n, m)), ms.mlstm_scan_ref(*inputs, chunk=chunk), inputs, chunk)
+    if valid is not None:
+        assert not y[:, valid:].any()
+
+
+@pytest.mark.cuda
+def test_mlstm_scan_bit_identical_across_launches(cuda):
+    from repro_torch.kernels import mlstm_scan as ms
+
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = _mlstm_inputs(2, 1024, 3, 256, 256, dtype, cuda, seed=5)
+        (y1, st1), (y2, st2) = ms.mlstm_scan_cuda(*inputs), ms.mlstm_scan_cuda(*inputs)
+        assert torch.equal(y1, y2) and all(torch.equal(a, b) for a, b in zip(st1, st2))
+
+
+@pytest.mark.cuda
+def test_mlstm_scan_rejects_what_kernel_cannot_take(cuda):
+    from repro_torch.kernels import mlstm_scan as ms
+
+    q, k, v, i_pre, f_pre = _mlstm_inputs(1, 64, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ms.mlstm_scan_cuda(q, k, v, i_pre.cpu(), f_pre, chunk=16)
+    with pytest.raises(TypeError, match="one dtype"):
+        ms.mlstm_scan_cuda(q, k.to(torch.bfloat16), v, i_pre, f_pre, chunk=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ms.mlstm_scan_cuda(q.half(), k.half(), v.half(), i_pre, f_pre, chunk=16)
+    with pytest.raises(TypeError, match="i_pre and f_pre in float32"):
+        ms.mlstm_scan_cuda(q, k, v, i_pre, f_pre.to(torch.bfloat16), chunk=16)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ms.mlstm_scan_cuda(q, k, v, i_pre, f_pre, chunk=48)
+    for chunk in (8, 24, 272):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            ms.mlstm_scan_cuda(q, k, v, i_pre, f_pre, chunk=chunk)
+    wide = torch.zeros((1, 64, 2, 257), device=cuda)
+    with pytest.raises(ValueError, match="dk and dv up to 256"):
+        ms.mlstm_scan_cuda(wide, wide, v, i_pre, f_pre, chunk=16)
+    with pytest.raises(ValueError, match="dk and dv up to 256"):
+        ms.mlstm_scan_cuda(q, k, wide, i_pre, f_pre, chunk=16)
+    with pytest.raises(ValueError, match=r"i_pre and f_pre \(B, S, H\)"):
+        ms.mlstm_scan_cuda(q, k, v, i_pre[:, :32], f_pre, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mlstm_scan_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, i_pre, f_pre,
+                           chunk=16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ms.mlstm_scan(q.cpu(), k, v, i_pre, f_pre, chunk=16)   # mixed devices reach the kernel
+
+
+def _xlstm(cuda, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("xlstm_350m").reduced(layers=12), **over)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator(device=cuda).manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 128])
+def test_xlstm_forward_on_card_launches_kernel_per_mlstm_layer(cuda, s):
+    """A reduced xLSTM (12 layers, two periods) forward on the card: one
+    mlstm_scan launch per mLSTM layer, and the logits of the plain route and
+    of the CPU within 2e-3 x max|logits| (``test_torch_xlstm.py``'s
+    whole-model bar: this random-weight model turns one ulp of noise into
+    2.5e-4)."""
+    import dataclasses
+
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.models import build_model
+
+    cfg, model, params = _xlstm(cuda, use_pallas_kernels=True)
+    toks = torch.from_numpy(np.random.default_rng(s).integers(0, 512, (2, s))).to(cuda)
+    before = ms.launch_count()
+    with torch.no_grad():
+        got, _ = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert ms.launch_count() == before + 10
+        plain, _ = build_model(dataclasses.replace(cfg, use_pallas_kernels=False)).forward(
+            params, {"tokens": toks})
+        cpu, _ = model.forward(_tree_to(params, "cpu"), {"tokens": toks.cpu()})
+    _close_scaled(got, plain, 2e-3)
+    _close_scaled(got.cpu(), cpu, 2e-3)
+
+
+@pytest.mark.cuda
+def test_xlstm_prefill_and_decode_never_wait_for_the_card(cuda):
+    """As the dense model: no host synchronisation inside xLSTM's prefill
+    or decode step (the sLSTM loop included)."""
+    cfg, model, params = _xlstm(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, 80))).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks}, max_len=84)
+            for t in range(3):
+                _, cache = model.decode_step(params, {"tokens": toks[:, t:t + 1]}, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(cache.mlstm.c).all()) and bool(torch.isfinite(cache.slstm.h).all())

@@ -191,18 +191,20 @@ def _reference_greedy(arch, batch, prompt_len, gen_len, seed):
 
 
 @pytest.mark.parametrize("arch,prompt_len", [("h2o_danube3_4b", 70), ("stablelm_3b", 20),
-                                             ("zamba2_2_7b", 70)])
+                                             ("zamba2_2_7b", 70), ("xlstm_350m", 70)])
 def test_serve_gives_the_reference_greedy_tokens(arch, prompt_len):
     """70 prompt tokens past the reduced window of 64: the ring wraps (for
-    Zamba2, in its shared attention's KV cache)."""
+    Zamba2, in its shared attention's KV cache; xLSTM carries only its
+    recurrent states, and its 70 tokens pad each mLSTM scan to 80)."""
     import jax
 
+    from repro_torch import convert as conv
     from repro_torch.configs import get_config
-    from repro_torch.convert import hybrid_params_from_numpy, transformer_params_from_numpy
 
     jparams, want = _reference_greedy(arch, 2, prompt_len, 6, seed=3)
     cfg = get_config(arch).reduced()
-    convert = hybrid_params_from_numpy if cfg.family == "hybrid" else transformer_params_from_numpy
+    convert = {"hybrid": conv.hybrid_params_from_numpy, "ssm": conv.xlstm_params_from_numpy}.get(
+        cfg.family, conv.transformer_params_from_numpy)
     params = convert(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     res = serve.serve(arch, batch=2, prompt_len=prompt_len, gen_len=6, seed=3,
                       device="cpu", params=params)
@@ -211,7 +213,7 @@ def test_serve_gives_the_reference_greedy_tokens(arch, prompt_len):
     assert res["prefill_s"] > 0 and res["decode_tokens_per_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ["h2o_danube3_4b", "zamba2_2_7b"])
+@pytest.mark.parametrize("arch", ["h2o_danube3_4b", "zamba2_2_7b", "xlstm_350m"])
 def test_serve_cli_on_cpu(capsys, arch):
     res = serve.main(["--arch", arch, "--device", "cpu", "--batch", "1",
                       "--prompt-len", "9", "--gen-len", "3", "--seed", "1"])
@@ -229,8 +231,8 @@ def test_serve_cli_defaults_to_cuda(monkeypatch):
 
 
 def test_serve_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        serve.serve("xlstm_350m", device="cpu", gen_len=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        serve.serve("mixtral_8x22b", device="cpu", gen_len=1)
 
 
 # ---------------------------------------------------------------------------

@@ -111,15 +111,17 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         "repro_torch.kernels.gram.kernel as g, "
         "repro_torch.kernels.propagate_gram.kernel as p, "
         "repro_torch.kernels.flash_attention.kernel as f, "
-        "repro_torch.kernels.ssm_scan.kernel as s; "
+        "repro_torch.kernels.ssm_scan.kernel as s, "
+        "repro_torch.kernels.mlstm_scan.kernel as m; "
         "print(b.kernel_names(), k.launch_count(), g.launch_count(), p.launch_count(), "
-        "f.launch_count(), s.launch_count())"
+        "f.launch_count(), s.launch_count(), m.launch_count())"
     )
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == (
-        "['flash_attention', 'gram', 'matmul_relu', 'propagate_gram', 'ssm_scan'] 0 0 0 0 0")
+        "['flash_attention', 'gram', 'matmul_relu', 'mlstm_scan', 'propagate_gram', 'ssm_scan'] "
+        "0 0 0 0 0 0")
 
 
 def test_build_without_nvcc_raises_and_builds_nothing(tmp_path, monkeypatch):
