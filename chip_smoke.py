@@ -36,9 +36,13 @@ Phases, each of which raises (non-zero exit) on any failed check:
    ``ssfn.predict``.  It prints where a layer's time goes.
 6. Kernel vs plain: ``flash_attention`` at the full-width H2O-Danube3-4B
    shapes — (1, 32, 8192, 120) and (1, 32, 4096, 120) with the 4096
-   window, in bf16 and f32 — plus a ragged (1, 32, 4100, 120) and a
-   (2, 8, 77, 80), each timed beside its plain version, beside
-   ``scaled_dot_product_attention`` and beside its bound.
+   window, in bf16 and f32, and (1, 32, 8192, 120) over KV at 8 heads, as
+   the model launches it (GQA read in place) — plus a ragged
+   (1, 32, 4100, 120), a (2, 8, 77, 80) and Zamba2-2.7B's (1, 32, 8192,
+   80), each held per element against its plain version (bf16 also
+   launched twice, bit for bit) and timed beside it, beside
+   ``scaled_dot_product_attention`` and beside its bound, with its
+   TFLOP/s and its share of the bound.
 7. The inference slice at full width: H2O-Danube3-4B, all 24 layers, with
    seeded weights and tokens from the port's ``TokenStream``.  (a) A bf16
    scoring forward through ``make_loss_fn`` at B=1, S=8192 with the
@@ -715,13 +719,16 @@ def train_slice(torch, card: str) -> dict:
 
 
 # flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
-# 120, KV repeated to 32, window 4096) and Zamba2-2.7B's shared attention
-# (32 heads of 80): (B, H, S, hd, window, dtype).
-FLASH_CASES = [(1, 32, 8192, 120, 4096, "bfloat16"), (1, 32, 4096, 120, 4096, "bfloat16"),
-               (1, 32, 8192, 120, 4096, "float32"), (1, 32, 4096, 120, 4096, "float32"),
-               (1, 32, 4100, 120, 4096, "bfloat16"), (2, 8, 77, 80, None, "float32"),
-               (1, 32, 8192, 80, 4096, "bfloat16")]   # Zamba2-2.7B's shared attention
-FLASH_HEADLINE = (1, 32, 8192, 120, 4096, "bfloat16")
+# 120 over 8 KV heads, window 4096; also with KV at 32 heads, the earlier
+# slices' headline) and Zamba2-2.7B's shared attention (32 heads of 80):
+# (B, H, H_kv, S, hd, window, dtype).
+FLASH_CASES = [(1, 32, 32, 8192, 120, 4096, "bfloat16"),
+               (1, 32, 8, 8192, 120, 4096, "bfloat16"),   # what the model launches
+               (1, 32, 32, 4096, 120, 4096, "bfloat16"),
+               (1, 32, 32, 8192, 120, 4096, "float32"), (1, 32, 32, 4096, 120, 4096, "float32"),
+               (1, 32, 32, 4100, 120, 4096, "bfloat16"), (2, 8, 8, 77, 80, None, "float32"),
+               (1, 32, 32, 8192, 80, 4096, "bfloat16")]   # Zamba2-2.7B's shared attention
+FLASH_HEADLINE = (1, 32, 32, 8192, 120, 4096, "bfloat16")
 # flash_attention tolerance, per element: |kernel - plain| <= rel |plain|
 # + 1e-5 max|plain|.  The second term is f32's (KERNEL_TOL: sums in other
 # orders).  bf16 adds rel = 2**-7: both versions round one f32 result to
@@ -750,12 +757,18 @@ def attended_pairs(s: int, window: int | None) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def flash_bound(b: int, h: int, s: int, hd: int, window, dtype: str) -> tuple[float, str]:
-    """q, k, v read once and the output written once; 4 hd operations per
-    attended pair (2 hd for q.k, 2 hd for p v), at the peak rate of the
-    inputs' type (bf16: tensor cores)."""
-    return roofline(4.0 * hd * b * h * attended_pairs(s, window),
-                    4 * b * h * s * hd * elem_bytes(dtype), dtype)
+def flash_ops(b: int, h: int, s: int, hd: int, window) -> float:
+    """4 hd operations per attended pair: 2 hd for q.k, 2 hd for p v."""
+    return 4.0 * hd * b * h * attended_pairs(s, window)
+
+
+def flash_bound(b: int, h: int, h_kv: int, s: int, hd: int, window,
+                dtype: str) -> tuple[float, str]:
+    """q and the H_kv heads of k and v read once, the output written once;
+    :func:`flash_ops` at the peak rate of the inputs' type (bf16: tensor
+    cores)."""
+    return roofline(flash_ops(b, h, s, hd, window),
+                    2 * b * (h + h_kv) * s * hd * elem_bytes(dtype), dtype)
 
 
 def time_calls(torch, fn, iters: int) -> float:
@@ -776,17 +789,21 @@ def time_calls(torch, fn, iters: int) -> float:
 
 def flash_kernel_cases(torch):
     """flash_attention at the inference slice's shapes, each held against
-    its plain version and timed beside it, beside one library call
-    (``scaled_dot_product_attention``) and beside its bound."""
+    its plain version, launched twice for bit-identity (bf16), and timed
+    beside its plain version, beside one library call
+    (``scaled_dot_product_attention``, with ``enable_gqa`` where KV has
+    fewer heads) and beside its bound."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = []
-    for b, h, s, hd, window, dt in FLASH_CASES:
-        q, k, v = (torch.randn((b, h, s, hd), generator=gen, device="cuda").to(dtypes[dt])
-                   for _ in range(3))
+    for b, h, h_kv, s, hd, window, dt in FLASH_CASES:
+        shape = f"({b},{h},{s},{hd}) KV heads {h_kv} window {window} {dt}"
+        q = torch.randn((b, h, s, hd), generator=gen, device="cuda").to(dtypes[dt])
+        k, v = (torch.randn((b, h_kv, s, hd), generator=gen, device="cuda").to(dtypes[dt])
+                for _ in range(2))
         got = flash_attention_cuda(q, k, v, window=window)
         want = flash_attention_ref(q, k, v, window=window)
         torch.cuda.synchronize()
@@ -794,39 +811,45 @@ def flash_kernel_cases(torch):
         tol = f"{FLASH_REL[dt]:.3e} |plain| + {floor:.3e}"
         if got.shape != q.shape or got.dtype != q.dtype or not excess <= 0.0:
             raise AssertionError(
-                f"flash_attention ({b},{h},{s},{hd}) window {window} {dt}: an element "
-                f"exceeds |kernel - plain| <= {tol} by {excess:.3e}"
+                f"flash_attention {shape}: an element exceeds |kernel - plain| <= {tol} by "
+                f"{excess:.3e}"
             )
+        if dt == "bfloat16" and not torch.equal(got, flash_attention_cuda(q, k, v,
+                                                                          window=window)):
+            raise AssertionError(f"flash_attention {shape}: two launches differ")
         del got, want
+        gqa = {"enable_gqa": True} if h_kv != h else {}
         if window is None or window >= s:   # the window masks nothing
-            def library(q=q, k=k, v=v):
-                return sdpa(q, k, v, is_causal=True)
+            def library(q=q, k=k, v=v, gqa=gqa):
+                return sdpa(q, k, v, is_causal=True, **gqa)
         else:
             pos = torch.arange(s, device="cuda")
             allowed = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
 
-            def library(q=q, k=k, v=v, allowed=allowed):
-                return sdpa(q, k, v, attn_mask=allowed)
+            def library(q=q, k=k, v=v, allowed=allowed, gqa=gqa):
+                return sdpa(q, k, v, attn_mask=allowed, **gqa)
         big = s >= 4096
         ms = time_calls(torch, lambda: flash_attention_cuda(q, k, v, window=window),
                         5 if big else 50)
         plain_ms = time_calls(torch, lambda: flash_attention_ref(q, k, v, window=window),
                               2 if big else 50)
         library_ms = time_calls(torch, library, 5 if big else 50)
-        bound_ms, bound_by = flash_bound(b, h, s, hd, window, dt)
-        f32_ms, _ = flash_bound(b, h, s, hd, window, "float32")
+        bound_ms, bound_by = flash_bound(b, h, h_kv, s, hd, window, dt)
+        f32_ms, _ = flash_bound(b, h, h_kv, s, hd, window, "float32")
+        tflops = flash_ops(b, h, s, hd, window) / ms / 1e9
         cases.append({
-            "shape": f"({b},{h},{s},{hd}) window {window} {dt}",
-            "key": (b, h, s, hd, window, dt), "max_abs_err": err, "tolerance": tol,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "f32_simt_bound_ms": f32_ms,
+            "shape": shape, "key": (b, h, h_kv, s, hd, window, dt), "max_abs_err": err,
+            "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "tflops": tflops, "f32_simt_bound_ms": f32_ms,
             "attended_pairs_per_head": attended_pairs(s, window),
         })
         print(
-            f"flash_attention {cases[-1]['shape']}: err {err:.3e} (tol {tol} per element) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library (SDPA) {library_ms:.3f} ms "
-            f"bound {bound_ms:.3f} ms ({bound_by}, {dt} peak; {f32_ms:.3f} ms at the f32 "
-            f"CUDA-core peak)",
+            f"flash_attention {shape}: err {err:.3e} (tol {tol} per element"
+            f"{', bit-identical on two launches' if dt == 'bfloat16' else ''}) kernel {ms:.3f} "
+            f"ms ({tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound) plain {plain_ms:.3f} "
+            f"ms library (SDPA) {library_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by}, {dt} "
+            f"peak; {f32_ms:.3f} ms at the f32 CUDA-core peak)",
             flush=True,
         )
         del q, k, v, library

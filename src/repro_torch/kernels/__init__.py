@@ -8,8 +8,8 @@ version:
                                                      Gram; training)
 - propagate_gram:  Y'_m = relu(W @ Y_m), G_m = Y'_m Y'_m^T + I/mu
                                                     (every training layer l >= 1)
-- flash_attention: causal (sliding-window) attention of q, k, v
-                   (B, H, S, hd)                    (the model zoo's scoring
+- flash_attention: causal (sliding-window) attention of q (B, H, S, hd)
+                   over k, v (B, H_kv, S, hd)       (the model zoo's scoring
                                                      forward)
 - ssm_scan:        the Mamba2 chunked scan of x (B, S, H, dh) from a zero
                    state, returning y and the final (B, H, dh, ds) state
@@ -21,5 +21,7 @@ version:
                                                      forward)
 
 ``csrc/gram.cuh`` holds the Gram tiles that ``gram.cu`` and
-``propagate_gram.cu`` share.
+``propagate_gram.cu`` share; ``csrc/tensor_core.cuh`` the ``mma.sync``,
+``ldmatrix`` and ``cp.async`` wrappers of ``flash_attention.cu``'s bf16
+instance.
 """

@@ -5,9 +5,11 @@ Port of ``repro/kernels/flash_attention/kernel.py``
 a multiple of its blocks, this one takes any S >= 1.  It takes a head_dim
 up to 128 whose rows are whole 16-byte chunks (a multiple of 4 in f32, of
 8 in bf16; every config's 64, 80, 120 and 128 are), on 16-byte aligned
-operands.  The wrapper checks what the kernel takes and raises on anything
-else, allocates the output, launches on the current CUDA stream without
-synchronising, and counts its launches.
+operands.  k and v may have fewer heads than q (GQA): query head h reads
+KV head h // (H / H_kv) in place, with no repeated copy.  bf16 runs on the
+tensor cores, f32 on the CUDA cores.  The wrapper checks what the kernel
+takes and raises on anything else, allocates the output, launches on the
+current CUDA stream without synchronising, and counts its launches.
 """
 from __future__ import annotations
 
@@ -43,11 +45,23 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_gqa_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q (B, H, S, hd) and k, v (B, H_kv, S, hd) of one shape, with H a
+    multiple of H_kv; raises ValueError naming the rule otherwise."""
+    if (q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or k.shape[0] != q.shape[0]
+            or k.shape[2:] != q.shape[2:] or k.shape[1] < 1 or q.shape[1] % k.shape[1]):
+        raise ValueError(
+            f"flash_attention needs q (B, H, S, hd) and k, v of one shape (B, H_kv, S, hd) "
+            f"with H % H_kv == 0, got {tuple(q.shape)}, {tuple(k.shape)} and "
+            f"{tuple(v.shape)}"
+        )
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
@@ -61,11 +75,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
             f"flash_attention kernel takes float32 or bfloat16 operands of one "
             f"dtype, got {q.dtype}, {k.dtype} and {v.dtype}"
         )
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_attention needs q, k, v of one shape (B, H, S, hd), got "
-            f"{tuple(q.shape)}, {tuple(k.shape)} and {tuple(v.shape)}"
-        )
+    check_gqa_shapes(q, k, v)
     b, h, s, hd = q.shape
     if not (1 <= b * h <= _MAX_SLICES and 1 <= s and 1 <= hd <= MAX_HEAD_DIM
             and q.numel() <= _INT_MAX):
@@ -89,8 +99,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int | None = None
 ) -> torch.Tensor:
-    """Causal (sliding-window) attention on the card: q, k, v (B, H, S, hd)
-    -> (B, H, S, hd) in q's dtype."""
+    """Causal (sliding-window) attention on the card: q (B, H, S, hd), k
+    and v (B, H_kv, S, hd) with H % H_kv == 0 -> (B, H, S, hd) in q's
+    dtype."""
     global _launches
     _check(q, k, v, window)
     lib = _lib()
@@ -100,11 +111,11 @@ def flash_attention_cuda(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, s, hd, window or 0, 1.0 / hd**0.5, stream)
+                 b * h, s, hd, h // k.shape[1], window or 0, 1.0 / hd**0.5, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed with cudaError_t {err} "
-            f"(B={b} H={h} S={s} hd={hd} window={window}, {q.dtype})"
+            f"(B={b} H={h} H_kv={k.shape[1]} S={s} hd={hd} window={window}, {q.dtype})"
         )
     _launches += 1
     return out

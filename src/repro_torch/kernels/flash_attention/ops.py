@@ -11,7 +11,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int | None = None
 ) -> torch.Tensor:
-    """Causal attention of q, k, v (B, H, S, hd), in q's dtype.  CPU
+    """Causal attention of q (B, H, S, hd) over k, v (B, H_kv, S, hd),
+    H % H_kv == 0 (GQA reads each KV head in place), in q's dtype.  CPU
     tensors take the plain version; every other tensor goes to the CUDA
     kernel, at any S, which launches or raises (see ``flash_attention_cuda``
     for the head_dims it takes)."""

@@ -61,7 +61,8 @@ def apply_attention(
     the ``flash_attention`` op: the hand-written CUDA kernel on the card,
     at every S (where the reference falls back to the chunked path unless
     S % 128 == 0), or its plain version on the CPU.  Both compute the same
-    exact causal (sliding-window) attention as the chunked path.  With a
+    exact causal (sliding-window) attention as the chunked path; the op
+    takes the KV heads unrepeated, the chunked path repeated.  With a
     cache, one token is written to it and attends to it."""
     b, s, _ = x.shape
     hd = cfg.hd
@@ -72,18 +73,17 @@ def apply_attention(
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        kr = attn_lib.repeat_kv(k, cfg.num_heads)
-        vr = attn_lib.repeat_kv(v, cfg.num_heads)
-        if cfg.use_pallas_kernels:
+        if cfg.use_pallas_kernels:  # the op reads each KV head in place (GQA)
             out = flash_attention(
                 q.transpose(1, 2).contiguous(),
-                kr.transpose(1, 2).contiguous(),
-                vr.transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(),
                 window=window,
             ).transpose(1, 2)
         else:
             out = attn_lib.chunked_causal_attention(
-                q, kr, vr, chunk_size=min(cfg.attn_chunk, s), window=window
+                q, attn_lib.repeat_kv(k, cfg.num_heads), attn_lib.repeat_kv(v, cfg.num_heads),
+                chunk_size=min(cfg.attn_chunk, s), window=window
             )
         new_cache = None
     else:

@@ -356,28 +356,60 @@ def _close_flash(got, want, dtype):
     assert excess <= 0.0, excess
 
 
-def _qkv(b, h, s, hd, dtype, device, seed=0):
+def _qkv(b, h, s, hd, dtype, device, seed=0, kv_heads=None):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(np.float32))
-            .to(device, dtype) for _ in range(3)]
+    shapes = [(b, h, s, hd)] + 2 * [(b, kv_heads or h, s, hd)]
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, dtype) for shape in shapes]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [None, (32, 8), (4, 1)])   # (H, H_kv): GQA in place
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 96, 4096])
-@pytest.mark.parametrize("s", [1, 77, 128, 4100])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 128, 4100])   # around the 64-key tiles
 @pytest.mark.parametrize("hd", [64, 80, 120, 128])
-def test_flash_attention_matches_plain(cuda, hd, s, window, dtype):
+def test_flash_attention_matches_plain(cuda, hd, s, window, dtype, heads):
     from repro_torch.kernels import flash_attention as fa
 
     b, h = (2, 3) if s <= 128 else (1, 2)
-    q, k, v = _qkv(b, h, s, hd, dtype, cuda, seed=hd + s)
+    if heads is not None:
+        b, h = 1, heads[0]
+    kv_heads = heads[1] if heads is not None else None
+    q, k, v = _qkv(b, h, s, hd, dtype, cuda, seed=hd + s, kv_heads=kv_heads)
     before = fa.launch_count()
     got = fa.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert fa.launch_count() == before + 1
     assert got.shape == q.shape and got.dtype == dtype
     _close_flash(got, fa.flash_attention_ref(q, k, v, window=window), dtype)
+    if heads is not None:   # the same as the heads repeated by hand
+        rep = [t.repeat_interleave(h // kv_heads, dim=1) for t in (k, v)]
+        assert torch.equal(got, fa.flash_attention(q, *rep, window=window))
+
+
+def _p_precision_case(device, s=2048, hd=120, seed=5):
+    """bf16 q, k with logits of standard deviation 3 (p far from uniform)
+    and V of +-(500..1500) on alternate keys, so that many outputs are a
+    small difference of large terms: rounding p to bf16 before P V moves
+    them by far more than the tolerance; p at f32 precision does not.
+    ``test_torch_flash_attention.py`` shows both on the CPU."""
+    rng = np.random.default_rng(seed)
+    q, k = (torch.from_numpy(3**0.5 * rng.standard_normal((1, 2, s, hd)).astype(np.float32))
+            for _ in range(2))
+    sign = torch.where(torch.arange(s) % 2 == 0, 1.0, -1.0)[:, None]
+    mag = torch.from_numpy(rng.uniform(500, 1500, (1, 2, 1, hd)).astype(np.float32))
+    v = sign * mag
+    return [t.to(device, torch.bfloat16) for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_keeps_p_precise(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _p_precision_case(cuda)
+    got = fa.flash_attention_cuda(q, k, v)
+    _close_flash(got, fa.flash_attention_ref(q, k, v), torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -385,10 +417,11 @@ def test_flash_attention_bit_identical_across_launches(cuda):
     from repro_torch.kernels import flash_attention as fa
 
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _qkv(1, 4, 1000, 120, dtype, cuda, seed=3)
-        first = fa.flash_attention_cuda(q, k, v, window=300)
-        second = fa.flash_attention_cuda(q, k, v, window=300)
-        assert torch.equal(first, second)
+        for kv_heads in (4, 2):
+            q, k, v = _qkv(1, 4, 1000, 120, dtype, cuda, seed=3, kv_heads=kv_heads)
+            first = fa.flash_attention_cuda(q, k, v, window=300)
+            second = fa.flash_attention_cuda(q, k, v, window=300)
+            assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -409,6 +442,11 @@ def test_flash_attention_rejects_what_kernel_cannot_take(cuda):
         fa.flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention_cuda(q, k, v, window=0)
+    three = torch.zeros((1, 3, 8, 16), device=cuda)   # 2 query heads over 3 KV heads
+    with pytest.raises(ValueError, match="H % H_kv == 0"):
+        fa.flash_attention_cuda(q, three, three)
+    with pytest.raises(ValueError, match="H % H_kv == 0"):
+        fa.flash_attention_cuda(q, k, v[:, :1])
     for hd, dtype in ((33, torch.float32), (100, torch.bfloat16)):  # rows off 16 bytes
         odd = torch.zeros((1, 2, 8, hd), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="16-byte"):
