@@ -18,7 +18,11 @@ Phases, each of which raises (non-zero exit) on any failed check:
    layers 1 and l >= 2 with W (1020, 784) and (1020, 1020) over M=20
    workers of 3000 samples and one of 60000 — plus ragged cases in f32
    and bf16, each timed beside its plain version, its library call
-   (``baddbmm``; ``relu(matmul)`` then ``baddbmm``) and its bound.
+   (``baddbmm``; ``relu(matmul)`` then ``baddbmm``) and two bounds, at the
+   f32 CUDA-core peak and at the tensor-core peak the kernels compute at
+   (three TF32 products per f32 product; bf16 at the bf16 peak), with its
+   TFLOP/s; the headline and centralized ``gram`` also held within 8 f32
+   ulps of max|G| of a float64 Gram.
 4. The serving slice at full width: a Table-I MNIST-geometry stack
    (P=784, Q=10, n=2Q+1000=1020, L=20) with seeded untrained weights is
    exported with the port's ``export_artifact`` and served through
@@ -111,6 +115,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # f32 on the CUDA cores, bf16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# TF32 on the tensor cores, the rate the Gram kernels compute f32 at:
+# three TF32 products per f32 product (3xTF32).
+PEAK_TF32 = 495e12
 
 # Tolerances, as a fraction of max|reference|.  f32: both versions sum
 # K <= 3000 products in f32 in different orders, an error of order
@@ -165,20 +172,64 @@ def bound(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
     return roofline(2.0 * m * n * k, (m * k + k * n + m * n) * elem_bytes(dtype), dtype)
 
 
+def gram_ops(m: int, n: int, j: int) -> float:
+    """A symmetric Gram: n(n+1)J operations per worker."""
+    return float(n) * (n + 1) * j * m
+
+
+def gram_bytes(m: int, n: int, j: int, dtype: str) -> float:
+    """Y read once, the f32 G written once."""
+    return m * n * j * elem_bytes(dtype) + m * n * n * 4
+
+
+def propagate_ops(n: int, n_prev: int, m: int, j: int) -> tuple[float, float]:
+    """(propagation, Gram) operations of propagate_gram: 2 n n_prev J M and
+    n(n+1) J M."""
+    return 2.0 * n * n_prev * j * m, gram_ops(m, n, j)
+
+
+def propagate_bytes(n: int, n_prev: int, m: int, j: int, dtype: str) -> float:
+    """W and Y read once, Y' and the f32 G written once."""
+    return (n * n_prev + m * n_prev * j + m * n * j) * elem_bytes(dtype) + m * n * n * 4
+
+
 def gram_bound(m: int, n: int, j: int, dtype: str) -> tuple[float, str]:
-    """G = Y Y^T + I/mu for M workers: a symmetric Gram is n(n+1)J
-    operations per worker; Y is read once and the f32 G written once."""
-    return roofline(
-        float(n) * (n + 1) * j * m, m * n * j * elem_bytes(dtype) + m * n * n * 4, dtype
-    )
+    """G = Y Y^T + I/mu for M workers at the f32 CUDA-core peak."""
+    return roofline(gram_ops(m, n, j), gram_bytes(m, n, j, dtype), dtype)
 
 
 def propagate_bound(n: int, n_prev: int, m: int, j: int, dtype: str) -> tuple[float, str]:
-    """Y' = relu(W @ Y_m), G = Y' Y'^T + I/mu: 2 n n_prev J M + n(n+1) J M
-    operations; W and Y read once, Y' and the f32 G written once."""
-    ops = 2.0 * n * n_prev * j * m + float(n) * (n + 1) * j * m
-    nbytes = (n * n_prev + m * n_prev * j + m * n * j) * elem_bytes(dtype) + m * n * n * 4
-    return roofline(ops, nbytes, dtype)
+    """Y' = relu(W @ Y_m), G = Y' Y'^T + I/mu at the f32 CUDA-core peak."""
+    return roofline(sum(propagate_ops(n, n_prev, m, j)), propagate_bytes(n, n_prev, m, j, dtype),
+                    dtype)
+
+
+def tensor_core_s(ops: float, dtype: str) -> float:
+    """Seconds for ``ops`` operations on ``dtype`` operands on the tensor
+    cores: f32 as three TF32 products each (3xTF32) at the TF32 peak,
+    bf16 at the bf16 peak."""
+    return 3 * ops / PEAK_TF32 if dtype == "float32" else ops / PEAK_FLOPS[dtype]
+
+
+def tensor_core_bound(t_ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms): ``t_ops`` seconds of tensor-core work or ``nbytes``
+    at HBM rate, whichever is larger, and which one it is."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gram_tensor_core_bound(m: int, n: int, j: int, dtype: str) -> tuple[float, str]:
+    """gram_bound's work on the tensor cores (3xTF32 for f32)."""
+    return tensor_core_bound(tensor_core_s(gram_ops(m, n, j), dtype), gram_bytes(m, n, j, dtype))
+
+
+def propagate_tensor_core_bound(n: int, n_prev: int, m: int, j: int,
+                                dtype: str) -> tuple[float, str]:
+    """propagate_bound's work on the tensor cores: the propagation in
+    ``dtype``, the Gram of the f32 Y' in 3xTF32."""
+    prop, gram = propagate_ops(n, n_prev, m, j)
+    return tensor_core_bound(tensor_core_s(prop, dtype) + tensor_core_s(gram, "float32"),
+                             propagate_bytes(n, n_prev, m, j, dtype))
 
 
 def time_ms(torch, fn, ws, x, iters: int = 60) -> float:
@@ -278,6 +329,11 @@ PROPAGATE_CASES = [(1020, 784, 20, 3000, "float32"), (1020, 1020, 20, 3000, "flo
                    (1020, 784, 1, 60000, "float32"), (1020, 1020, 1, 60000, "float32"),
                    (33, 257, 3, 65, "float32"), (33, 257, 3, 65, "bfloat16")]
 GRAM_HEADLINE = (20, 784, 3000, "float32")
+# gram cases also held against a float64 Gram, within GRAM_F64_ULPS f32
+# ulps of max|G| (the bar of test_gram_sums_are_compensated; a 1xTF32 Gram
+# misses it): the headline and the centralized layer.
+GRAM_F64_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32")]
+GRAM_F64_ULPS = 8
 PROPAGATE_HEADLINE = (1020, 1020, 20, 3000, "float32")
 GRAM_MU = 1e-3      # SSFNConfig.mu0, the layer-0 mu
 PROPAGATE_MU = 1.0  # SSFNConfig.mul
@@ -291,7 +347,11 @@ def max_err(got, want) -> tuple[float, float]:
 def gram_kernel_cases(torch):
     """gram and propagate_gram at the training slice's shapes, each held
     against its plain version and timed beside it, beside one library
-    call of the same function and beside its bound."""
+    call of the same function and beside two bounds: at the f32 CUDA-core
+    peak (``f32_bound_ms``, as before the kernels took the tensor cores)
+    and at the TF32 rate they compute at (``bound_ms``).  The headline and
+    centralized ``gram`` are also held against a float64 Gram (``ulps``,
+    in f32 ulps of max|G|)."""
     from repro_torch.kernels.gram import gram_cuda, gram_ref
     from repro_torch.kernels.propagate_gram import propagate_gram_cuda, propagate_gram_ref
 
@@ -316,16 +376,31 @@ def gram_kernel_cases(torch):
                 f"gram y({m},{n},{j}) {dt}: max|kernel - plain| = {err:.3e} > "
                 f"{tol:.3e}, or G not exactly symmetric"
             )
+        ulps = None
+        if (m, n, j, dt) in GRAM_F64_CASES:
+            y64 = y.double()
+            want64 = y64 @ y64.mT + torch.eye(n, dtype=torch.float64, device="cuda") / GRAM_MU
+            ulps = ((got.double() - want64).abs().max()
+                    / (2.0**-24 * want64.abs().max())).item()
+            del y64, want64
+            if not ulps <= GRAM_F64_ULPS:
+                raise AssertionError(
+                    f"gram y({m},{n},{j}) {dt}: {ulps:.2f} f32 ulps of max|G| from a "
+                    f"float64 Gram > {GRAM_F64_ULPS}"
+                )
         d = diag(n, GRAM_MU, y.dtype)
         iters = 10 if m * n * j > 1e7 else 60
         ms = time_ms(torch, lambda _w, a: gram_cuda(a, mu=GRAM_MU), [None], y, iters)
         plain_ms = time_ms(torch, lambda _w, a: gram_ref(a, mu=GRAM_MU), [None], y, iters)
         library_ms = time_ms(torch, lambda _w, a: torch.baddbmm(d, a, a.mT), [None], y, iters)
-        bound_ms, bound_by = gram_bound(m, n, j, dt)
+        f32_bound_ms, _ = gram_bound(m, n, j, dt)
+        bound_ms, bound_by = gram_tensor_core_bound(m, n, j, dt)
         gram_cases.append({
             "shape": f"y({m},{n},{j}) {dt}", "key": (m, n, j, dt),
-            "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "tolerance": tol, "ulps": ulps, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "tflops": gram_ops(m, n, j) / ms / 1e9, "bound_ms": bound_ms,
+            "bound_by": bound_by, "f32_bound_ms": f32_bound_ms,
         })
         del y, got, want
     for n, n_prev, m, j, dt in PROPAGATE_CASES:
@@ -356,21 +431,25 @@ def gram_kernel_cases(torch):
         ms = time_ms(torch, lambda ww, yy: propagate_gram_cuda(ww, yy, mu=PROPAGATE_MU), [w], y, iters)
         plain_ms = time_ms(torch, lambda ww, yy: propagate_gram_ref(ww, yy, mu=PROPAGATE_MU), [w], y, iters)
         library_ms = time_ms(torch, library, [w], y, iters)
-        bound_ms, bound_by = propagate_bound(n, n_prev, m, j, dt)
+        f32_bound_ms, _ = propagate_bound(n, n_prev, m, j, dt)
+        bound_ms, bound_by = propagate_tensor_core_bound(n, n_prev, m, j, dt)
         prop_cases.append({
             "shape": f"w({n},{n_prev}) y({m},{n_prev},{j}) {dt}", "key": (n, n_prev, m, j, dt),
             "max_abs_err": max(err_y, err_g), "max_abs_err_y": err_y, "max_abs_err_g": err_g,
-            "tolerance": tol_g, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tolerance": tol_g, "ulps": None, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "tflops": sum(propagate_ops(n, n_prev, m, j)) / ms / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by, "f32_bound_ms": f32_bound_ms,
         })
         del w, y, y_new, g, want_y, want_g
     for name, cases in (("gram", gram_cases), ("propagate_gram", prop_cases)):
         for c in cases:
+            ulps = "" if c["ulps"] is None else f", {c['ulps']:.2f} ulps of max|G| from float64"
             print(
-                f"{name} {c['shape']}: err {c['max_abs_err']:.3e} (tol {c['tolerance']:.3e}) "
-                f"kernel {c['ms']:.3f} ms plain {c['plain_ms']:.3f} ms "
-                f"library {c['library_ms']:.3f} ms bound {c['bound_ms']:.3f} ms "
-                f"({c['bound_by']})",
+                f"{name} {c['shape']}: err {c['max_abs_err']:.3e} (tol {c['tolerance']:.3e}"
+                f"{ulps}) kernel {c['ms']:.3f} ms = {c['tflops']:.1f} TFLOP/s, plain "
+                f"{c['plain_ms']:.3f} ms, library {c['library_ms']:.3f} ms, bound "
+                f"{c['f32_bound_ms']:.3f} ms at the f32 CUDA-core peak, {c['bound_ms']:.3f} ms "
+                f"at the tensor-core peak ({c['bound_by']})",
                 flush=True,
             )
     return gram_cases, prop_cases
@@ -1746,6 +1825,8 @@ def main() -> int:
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
+            **({"bound_rate": "3xTF32: 3 TF32 products per f32 product at 495 TFLOP/s",
+                "f32_bound_ms": head["f32_bound_ms"]} if "f32_bound_ms" in head else {}),
             "library_ms": head["library_ms"],
             "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
         }

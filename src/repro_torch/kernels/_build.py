@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on
-first use into ``_build/lib<name>-<hash>.so`` with ``nvcc`` for Hopper
-(``sm_90a``), then loaded with ``ctypes``.  The hash covers every source
-under ``csrc/`` and the flags, so an edited kernel is rebuilt and a
-stale library is never loaded.  Importing this module needs no ``nvcc``:
+first use into ``lib<name>-<hash>.so`` with ``nvcc`` for Hopper
+(``sm_90a``), then loaded with ``ctypes``.  The libraries go to
+``_build/`` beside this module, or, where the package directory cannot
+be written (an installed, read-only package), to the user's cache,
+``$XDG_CACHE_HOME/repro_torch/kernels`` (default ``~/.cache``).  The
+hash covers every source under ``csrc/`` and the flags, so an edited
+kernel is rebuilt and a stale library is never loaded.  Importing this module needs no ``nvcc``:
 nothing is compiled before the first CUDA launch (or an explicit
 :func:`build_all`).
 """
@@ -41,21 +44,40 @@ def _nvcc() -> str:
     )
 
 
+def _writable(directory: Path) -> bool:
+    """Whether ``directory`` exists or can be made, and can be written."""
+    try:
+        directory.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return False
+    return os.access(directory, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """Where the libraries go: :data:`BUILD_DIR` when it can be written,
+    else the per-user cache directory."""
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "repro_torch" / "kernels"
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by a hash of the sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
     """Compile every missing library, one ``nvcc`` per source, all at
     once.  Raises ``RuntimeError`` carrying nvcc's stderr on failure."""
     names = kernel_names() if names is None else names
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {name: library_path(name) for name in names}
+    for directory in {lib.parent for lib in libs.values()}:
+        directory.mkdir(parents=True, exist_ok=True)
     procs = {}
     nvcc = None
     for name, lib in libs.items():

@@ -3,8 +3,9 @@
 Port of ``repro/kernels/gram/kernel.py`` (``gram_pallas``), batched over
 the worker axis: the TPU kernel is vmapped over M workers, this one takes
 all of them in one launch.  The wrapper checks what the kernel takes and
-raises on anything else, allocates the output, launches on the current
-CUDA stream without synchronising, and counts its launches.
+raises on anything else, allocates the output (and the workspace of the
+J slices' partial sums, where J is sliced), launches on the current CUDA
+stream without synchronising, and counts its launches.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
-_MAX_WORKERS = 65535  # the grid's y dimension
+_MAX_WORKERS = 65535  # the grid's z dimension
+_MAX_J = 65535 * 4096  # J slices of 4096 on the grid's y dimension
 
 #: Launches of the kernel in this process; raised by one at each launch
 #: and nowhere else.  Read with :func:`launch_count`.
@@ -36,9 +38,11 @@ def reset_launch_count() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gram")
+    lib.gram_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.gram_workspace_floats.restype = ctypes.c_longlong
     for fn in (lib.gram_f32, lib.gram_bf16):
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p,
         ]
@@ -54,13 +58,25 @@ def _check(y: torch.Tensor) -> None:
     if y.ndim != 3:
         raise ValueError(f"gram needs y (M, n, J), got shape {tuple(y.shape)}")
     m, n, j = y.shape
-    if min(m, n, j) < 1 or m > _MAX_WORKERS or max(n, j) > _INT_MAX:
+    if min(m, n, j) < 1 or m > _MAX_WORKERS or n > _INT_MAX or j > _MAX_J:
         raise ValueError(
-            f"gram kernel takes 1 <= M <= {_MAX_WORKERS} and 1 <= n, J < 2**31, "
+            f"gram kernel takes 1 <= M <= {_MAX_WORKERS}, 1 <= n < 2**31 and "
+            f"1 <= J <= {_MAX_J}, "
             f"got M={m} n={n} J={j}"
         )
     if not y.is_contiguous():
         raise ValueError("gram kernel needs a row-major contiguous y")
+
+
+def _workspace(floats: int, device: torch.device) -> torch.Tensor | None:
+    """The kernels' f32 scratch, or None where they need none.  It may be
+    freed on return: the caching allocator hands its memory out again only
+    to work queued after the launches on this stream."""
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def gram_cuda(y: torch.Tensor, *, mu: float) -> torch.Tensor:
@@ -71,9 +87,10 @@ def gram_cuda(y: torch.Tensor, *, mu: float) -> torch.Tensor:
     fn = lib.gram_f32 if y.dtype == torch.float32 else lib.gram_bf16
     m, n, j = y.shape
     g = torch.empty((m, n, n), dtype=torch.float32, device=y.device)
+    ws = _workspace(lib.gram_workspace_floats(m, n, j), y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(y.data_ptr(), g.data_ptr(), m, n, j, 1.0 / mu, stream)
+        err = fn(y.data_ptr(), g.data_ptr(), _ptr(ws), m, n, j, 1.0 / mu, stream)
     if err != 0:
         raise RuntimeError(
             f"gram kernel launch failed with cudaError_t {err} "

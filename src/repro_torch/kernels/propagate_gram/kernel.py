@@ -5,8 +5,8 @@ Port of ``repro/kernels/propagate_gram/kernel.py``
 One op call issues two kernels on the current stream (the propagation,
 then the Gram of its f32 output) and counts as one launch.  The wrapper
 checks what the kernels take and raises on anything else, allocates the
-outputs (and, for bf16, the f32 copy of Y' the Gram pass reads), and
-does not synchronise.
+outputs (and, for bf16, the f32 copy of Y' the Gram pass reads, and
+where J is sliced the Gram pass's workspace), and does not synchronise.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.gram.kernel import _MAX_J, _ptr, _workspace
 
 DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
@@ -39,10 +40,12 @@ def reset_launch_count() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("propagate_gram")
+    lib.propagate_gram_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.propagate_gram_workspace_floats.restype = ctypes.c_longlong
     for fn in (lib.propagate_gram_f32, lib.propagate_gram_bf16):
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p,
         ]
@@ -69,10 +72,10 @@ def _check(w: torch.Tensor, y: torch.Tensor) -> None:
     n, n_prev = w.shape
     m, j = y.shape[0], y.shape[2]
     if (min(m, n, n_prev, j) < 1 or m > _MAX_WORKERS or n > _MAX_ROWS
-            or max(n * n_prev, n_prev, j) > _INT_MAX):
+            or max(n * n_prev, n_prev) > _INT_MAX or j > _MAX_J):
         raise ValueError(
             f"propagate_gram kernel takes 1 <= M <= {_MAX_WORKERS}, "
-            f"1 <= n <= {_MAX_ROWS} and sizes < 2**31, got M={m} n={n} "
+            f"1 <= n <= {_MAX_ROWS}, J <= {_MAX_J} and sizes < 2**31, got M={m} n={n} "
             f"n_prev={n_prev} J={j}"
         )
     if not (w.is_contiguous() and y.is_contiguous()):
@@ -96,12 +99,12 @@ def propagate_gram_cuda(
     else:
         fn = lib.propagate_gram_bf16
         y32 = torch.empty((m, n, j), dtype=torch.float32, device=w.device)
+    ws = _workspace(lib.propagate_gram_workspace_floats(m, n, j), w.device)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            w.data_ptr(), y.data_ptr(), y_out.data_ptr(),
-            None if y32 is None else y32.data_ptr(), g.data_ptr(),
-            m, n, n_prev, j, 1.0 / mu, stream,
+            w.data_ptr(), y.data_ptr(), y_out.data_ptr(), _ptr(y32), g.data_ptr(),
+            _ptr(ws), m, n, n_prev, j, 1.0 / mu, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -109,6 +112,6 @@ def propagate_gram_cuda(
             f"(M={m} n={n} n_prev={n_prev} J={j}, {w.dtype})"
         )
     _launches += 1
-    # y32 may be freed on return: the caching allocator hands its memory
-    # out again only to work queued after the Gram pass on this stream.
+    # y32 and ws may be freed on return: the caching allocator hands their
+    # memory out again only to work queued after the Gram pass on this stream.
     return y_out, g

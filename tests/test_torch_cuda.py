@@ -266,6 +266,191 @@ def test_propagate_gram_deterministic_per_worker(cuda):
     assert torch.equal(gram_mod.gram(y1, mu=1.0), g1)
 
 
+def _ulps_of_max(got, want):
+    """max|got - want| in f32 ulps (2**-24) of max|want|."""
+    return ((got.double() - want).abs().max() / (2**-24 * want.abs().max())).item()
+
+
+def _gram64(y):
+    y64 = y.double()
+    return y64 @ y64.mT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [127, 128, 129, 1020])
+def test_gram_exactly_symmetric_on_ragged_diagonal_tiles(cuda, n):
+    """The 3xTF32 sums for (i, k) and (k, i) take hi and lo in opposite
+    roles; the kernel mirrors every tile, diagonal tiles included."""
+    y = torch.from_numpy(_features(2, n, 300, seed=n)).to(cuda)
+    g = gram_mod.gram(y, mu=1.0)
+    assert torch.equal(g, g.mT)
+    _close_scaled(g, gram_mod.gram_ref(y, mu=1.0), _gram_tol(300))
+    y_new, g = pg_mod.propagate_gram(
+        torch.from_numpy(_features(1, n, n, seed=1)[0] / np.float32(n**0.5)).to(cuda),
+        y, mu=1.0)
+    assert torch.equal(g, g.mT)
+
+
+@pytest.mark.cuda
+def test_gram_worker_bits_do_not_depend_on_the_batch_where_j_is_sliced(cuda):
+    """J = 60000 is cut into slices of a fixed length whose partial sums a
+    second pass adds: a worker's G at M=1 equals its G at M=3 bit for bit."""
+    y = torch.relu(torch.from_numpy(_features(3, 130, 60000, seed=11))).to(cuda)
+    batch = gram_mod.gram(y, mu=1.0)
+    assert torch.equal(batch, batch.mT)
+    for w in range(3):
+        assert torch.equal(gram_mod.gram(y[w:w + 1].contiguous(), mu=1.0)[0], batch[w])
+
+
+@pytest.mark.cuda
+def test_propagate_gram_within_8_ulps_of_a_float64_forward(cuda):
+    """The centralized layer (M=1, J=60000) of ReLU features: Y' within 8
+    f32 ulps of max|Y'| and G within 8 ulps of max|G| of float64."""
+    rng = np.random.default_rng(13)
+    w = torch.from_numpy(
+        (rng.standard_normal((1020, 1020)) / np.sqrt(1020)).astype(np.float32)).to(cuda)
+    y = torch.relu(torch.from_numpy(_features(1, 1020, 60000, seed=14))).to(cuda)
+    y_new, g = pg_mod.propagate_gram(w, y, mu=1.0)
+    y64 = torch.relu(w.double() @ y.double())
+    assert _ulps_of_max(y_new, y64) <= 8
+    g64 = _gram64(y64) + torch.eye(1020, dtype=torch.float64, device=cuda)
+    assert _ulps_of_max(g, g64) <= 8
+
+
+@pytest.mark.cuda
+def test_bf16_instances_take_one_exact_product(cuda):
+    """A bf16 value is exact in TF32 and a product of two is exact in f32,
+    so the bf16 Gram (one product per pair) keeps the f32 bar against a
+    float64 Gram of the same values, as does propagate_gram's bf16 G,
+    built from the f32 Y' before rounding."""
+    y = torch.relu(torch.from_numpy(_features(1, 64, 60000, seed=15))).to(cuda, torch.bfloat16)
+    g = gram_mod.gram(y, mu=1.0)
+    want = _gram64(y) + torch.eye(64, dtype=torch.float64, device=cuda)
+    assert torch.equal(g, g.mT) and _ulps_of_max(g, want) <= 8
+    rng = np.random.default_rng(16)
+    w = torch.from_numpy((rng.standard_normal((130, 200)) / 14).astype(np.float32))
+    w = w.to(cuda, torch.bfloat16)
+    x = torch.relu(torch.from_numpy(_features(2, 200, 3000, seed=17))).to(cuda, torch.bfloat16)
+    y_new, g = pg_mod.propagate_gram(w, x, mu=1.0)
+    y64 = torch.relu(w.double() @ x.double())
+    _close_scaled(y_new, y64.float(), 1e-2)
+    assert torch.equal(g, g.mT)
+    assert _ulps_of_max(g, _gram64(y64) + torch.eye(130, dtype=torch.float64, device=cuda)) <= 8
+
+
+# Every f32 bit pattern through tc::split_tf32, against cvt.rna.tf32.f32
+# for finite x; for a NaN or inf x, lo must be NaN.  bad[0] counts finite
+# mismatches, bad[1] non-finite values whose lo is not NaN.
+_SPLIT_CHECK_CU = r"""
+#include "tensor_core.cuh"
+
+__global__ void split_mismatches(unsigned long long* bad) {
+  unsigned long long finite = 0, nonfinite = 0;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((uint32_t)i);
+    uint32_t hi, lo;
+    tc::split_tf32(x, hi, lo);
+    if (isfinite(x)) {
+      uint32_t h, l;
+      asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
+      asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(x - __uint_as_float(h)));
+      finite += hi != h || lo != l;
+    } else {
+      nonfinite += !isnan(__uint_as_float(lo));
+    }
+  }
+  atomicAdd(bad, finite);
+  atomicAdd(bad + 1, nonfinite);
+}
+
+extern "C" int split_check(unsigned long long* host) {
+  unsigned long long* bad;
+  if (cudaMalloc(&bad, 2 * sizeof(*bad)) != cudaSuccess) return 1;
+  cudaMemset(bad, 0, 2 * sizeof(*bad));
+  split_mismatches<<<132 * 8, 256>>>(bad);
+  const cudaError_t err = cudaMemcpy(host, bad, 2 * sizeof(*bad), cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return err != cudaSuccess;
+}
+"""
+
+
+@pytest.mark.cuda
+def test_tf32_split_rounds_as_cvt_rna_and_keeps_non_finite_values(cuda, tmp_path):
+    """The Gram kernels' two-operation TF32 rounding equals the card's
+    cvt.rna.tf32.f32 on all 2**32 finite f32 values, for hi and for lo;
+    a NaN (any sign or payload) or an inf gives a NaN lo, which carries
+    it into every product."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    src = tmp_path / "split_check.cu"
+    src.write_text(_SPLIT_CHECK_CU)
+    lib = tmp_path / "libsplit_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    counts = (ctypes.c_ulonglong * 2)()
+    assert ctypes.CDLL(str(lib)).split_check(counts) == 0
+    assert list(counts) == [0, 0]
+
+
+# A NaN or inf placed in the operands: 0/0 on the card (its NaN,
+# 0x7fffffff, whose bits a bare round-half-up carries into -0), the same
+# with the sign set, the CPU's NaN (0x7fc00000), and inf.
+_NONFINITE = {
+    "nan_card": lambda dev: torch.zeros((), device=dev) / 0,
+    "nan_negative": lambda dev: torch.tensor(-1, dtype=torch.int32).view(torch.float32).to(dev),
+    "nan_cpu": lambda dev: torch.tensor(float("nan")).to(dev),
+    "inf": lambda dev: torch.tensor(float("inf")).to(dev),
+}
+
+
+def _same_non_finite(got, want, rel):
+    """got is non-finite exactly where want is, NaN wherever want is NaN
+    (an inf may come out as NaN), exactly symmetric where it is a Gram,
+    and within rel * max|want| on the finite entries."""
+    assert (~torch.isfinite(want)).any()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert not (torch.isnan(want) & ~torch.isnan(got)).any()
+    finite = torch.isfinite(want)
+    _close_scaled(got[finite], want[finite], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("value", sorted(_NONFINITE))
+def test_gram_kernels_keep_nan_and_inf(cuda, value, dtype):
+    """A NaN or inf in Y (gram) or in W (propagate_gram, on non-negative
+    features as the train gives it), and a NaN in propagate_gram's Y,
+    reach every output they enter, as in the plain version."""
+    bad = _NONFINITE[value](cuda)
+    y_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    y = torch.relu(torch.from_numpy(_features(2, 130, 300, seed=18))).to(cuda)
+    y_bad = y.clone()
+    y_bad[1, 5, 17] = bad
+    y_bad = y_bad.to(dtype)
+    g = gram_mod.gram(y_bad, mu=1.0)
+    _same_non_finite(g, gram_mod.gram_ref(y_bad, mu=1.0), 1e-5)
+    assert torch.equal(g.nan_to_num(), g.mT.nan_to_num())
+    rng = np.random.default_rng(19)
+    w = torch.from_numpy((rng.standard_normal((140, 130)) / 11).astype(np.float32)).to(cuda)
+    w_bad = w.clone()
+    w_bad[3, 7] = bad
+    operands = [(w_bad, y)]
+    if value != "inf":   # relu(W @ Y) of an inf in Y is 0 where W < 0
+        operands.append((w, y_bad.float()))
+    for ww, yy in operands:
+        ww, yy = ww.to(dtype), yy.to(dtype)
+        y_new, g = pg_mod.propagate_gram(ww, yy, mu=1.0)
+        want_y, want_g = pg_mod.propagate_gram_ref(ww, yy, mu=1.0)
+        _same_non_finite(y_new, want_y, y_tol)
+        _same_non_finite(g, want_g, 1e-5)
+        assert torch.equal(g.nan_to_num(), g.mT.nan_to_num())
+
+
 @pytest.mark.cuda
 def test_gram_wrappers_reject_what_kernels_cannot_take(cuda):
     y = torch.zeros((2, 4, 3), device=cuda)

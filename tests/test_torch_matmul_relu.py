@@ -149,3 +149,39 @@ def test_library_path_is_keyed_by_source_hash(tmp_path, monkeypatch):
 def test_nvcc_flags_target_hopper():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+
+
+def test_unwritable_package_builds_into_the_user_cache(tmp_path, monkeypatch):
+    """An installed package whose directory cannot be written: the
+    libraries are built into $XDG_CACHE_HOME/repro_torch/kernels (else
+    ~/.cache/...), and nothing is written into the package."""
+    package_build = tmp_path / "site-packages" / "repro_torch" / "kernels" / "_build"
+    monkeypatch.setattr(_build, "BUILD_DIR", package_build)
+    writable = _build._writable
+    monkeypatch.setattr(_build, "_writable", lambda d: d != package_build and writable(d))
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"  # a stand-in: writes the file named after -o
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\necho built > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert _build.build_dir() == tmp_path / "home" / ".cache" / "repro_torch" / "kernels"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    cache = tmp_path / "cache" / "repro_torch" / "kernels"
+    assert _build.build_dir() == cache
+    assert _build.library_path("gram").parent == cache
+    libs = _build.build_all(["gram", "matmul_relu"])
+    assert sorted(libs) == ["gram", "matmul_relu"]
+    for lib in libs.values():
+        assert lib.parent == cache and lib.read_text() == "built\n"
+    assert not (tmp_path / "site-packages").exists()
+
+
+def test_build_dir_is_unwritable_where_it_cannot_be_made(tmp_path):
+    blocker = tmp_path / "a-file"
+    blocker.write_text("")
+    assert not _build._writable(blocker / "_build")
+    assert _build._writable(tmp_path / "made" / "_build")
+    assert (tmp_path / "made" / "_build").is_dir()
