@@ -12,7 +12,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    launches — the (1020, 784) and (1020, 1020) layers of the stack below
    at buckets 1, 8, 32 and 128, in f32 and bf16 — plus a ragged
    (1204, 3000) x (3000, 77), each held against its plain PyTorch
-   version and timed beside it and beside ``relu(matmul)``.
+   version and timed beside it, beside ``relu(matmul)`` and beside its
+   bound, with the bound's two sides (the bytes at HBM rate and the
+   operations at the operands' peak).
 3. Kernel vs plain: ``gram`` and ``propagate_gram`` at every shape the
    training slice launches — layer 0 (20, 784, 3000) and (1, 784, 60000),
    layers 1 and l >= 2 with W (1020, 784) and (1020, 1020) over M=20
@@ -64,7 +66,11 @@ Phases, each of which raises (non-zero exit) on any failed check:
    B=2, and at S=4352 (4100 padded to whole chunks) — plus chunk 64 and
    chunk 16 at the reduced width and an odd dh of 80, each held per element
    against its plain version (and launched twice, bit for bit), timed
-   beside it and beside its bound.
+   beside it and beside its bound (with its two sides); then
+   ``torch.profiler`` over a few headline calls prints each of its
+   kernels' device time.
+   (``python3 chip_smoke.py --profile-ssm`` builds ``ssm_scan`` and runs
+   only that profile, in bf16 and f32.)
 9. The hybrid slice at full width: Zamba2-2.7B, all 54 Mamba2 layers and
    9 calls of its shared attention block, seeded weights.  (a) A bf16
    scoring forward at B=1, S=8192 with the kernels on: 54 ``ssm_scan``
@@ -157,19 +163,28 @@ def card_line() -> str:
 def roofline(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     """Least time (ms): ``nbytes`` at HBM rate or ``ops`` at the peak rate
     of the operands' type, whichever is larger, and which one it is."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes, t_ops = bound_parts(ops, nbytes, dtype)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_parts(ops: float, nbytes: float, dtype: str) -> tuple[float, float]:
+    """(ms for ``nbytes`` at HBM rate, ms for ``ops`` at the peak rate of
+    the operands' type): the two sides of ``roofline``."""
+    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
 def elem_bytes(dtype: str) -> int:
     return 4 if dtype == "float32" else 2
 
 
+def matmul_work(m: int, k: int, n: int, dtype: str) -> tuple[float, float]:
+    """relu(W @ X): 2mnk operations; each operand read once, the output
+    written once."""
+    return 2.0 * m * n * k, (m * k + k * n + m * n) * elem_bytes(dtype)
+
+
 def bound(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
-    """relu(W @ X): each operand read once, the output written once, 2mnk
-    operations."""
-    return roofline(2.0 * m * n * k, (m * k + k * n + m * n) * elem_bytes(dtype), dtype)
+    return roofline(*matmul_work(m, k, n, dtype), dtype)
 
 
 def gram_ops(m: int, n: int, j: int) -> float:
@@ -295,6 +310,7 @@ def kernel_cases(torch, np):
             plain_ms = time_ms(torch, matmul_relu_ref, ws, x)
             library_ms = time_ms(torch, lambda a, b: torch.relu(torch.matmul(a, b)), ws, x)
             bound_ms, bound_by = bound(m, k, cols, dtype_name)
+            bytes_ms, ops_ms = bound_parts(*matmul_work(m, k, cols, dtype_name), dtype_name)
             del ws
             case = {
                 "shape": f"w({m},{k}) x({k},{cols}) {dtype_name}",
@@ -306,12 +322,16 @@ def kernel_cases(torch, np):
                 "library_ms": library_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "bytes_ms": bytes_ms,
+                "ops_ms": ops_ms,
             }
+            rate = "f32 CUDA-core" if dtype_name == "float32" else "bf16 tensor-core"
             print(
                 f"matmul_relu {case['shape']}: err {err:.3e} (tol {tol:.3e}) "
                 f"kernel {kernel_ms * 1e3:.2f} us plain {plain_ms * 1e3:.2f} us "
                 f"library {library_ms * 1e3:.2f} us bound {bound_ms * 1e3:.2f} us "
-                f"({bound_by})",
+                f"({bound_by}; bytes {bytes_ms * 1e3:.2f} us, operations {ops_ms * 1e3:.2f} us "
+                f"at the {rate} peak)",
                 flush=True,
             )
             cases.append(case)
@@ -1196,16 +1216,22 @@ def ssm_excess(torch, got, want, inputs, chunk: int, dtype: str) -> dict:
             "excess_h": (dh - eps * h_abs).max().item()}
 
 
-def ssm_bound(b, s, h, dh, ds, chunk, dtype) -> tuple[float, str]:
-    """x, dt, a, B, C read once, y and the f32 h written once; operations:
-    the causal half of C B^T once per (b, chunk), and per (b, h, chunk)
-    the causal half of the scores' product with x, the inter-chunk C h^T
-    and the state update x^T B, at the peak rate of the inputs' type."""
+def ssm_work(b, s, h, dh, ds, chunk, dtype) -> tuple[float, float]:
+    """(operations, bytes) of one call: x, dt, a, B, C read once, y and the
+    f32 h written once; the causal half of C B^T once per (b, chunk), and
+    per (b, h, chunk) the causal half of the scores' product with x, the
+    inter-chunk C h^T and the state update x^T B."""
     nc, tri = s // chunk, chunk * (chunk + 1) // 2
     ops = 2.0 * b * nc * tri * ds + 2.0 * b * h * nc * (tri * dh + 2 * chunk * ds * dh)
     nbytes = ((2 * b * s * h * dh + 2 * b * s * ds) * elem_bytes(dtype)
               + 4 * (b * s * h + h + b * h * dh * ds))
-    return roofline(ops, nbytes, dtype)
+    return ops, nbytes
+
+
+def ssm_bound(b, s, h, dh, ds, chunk, dtype) -> tuple[float, str]:
+    """ssm_work at the peak rate of the inputs' type (bf16: the tensor
+    cores) or HBM rate, whichever is slower."""
+    return roofline(*ssm_work(b, s, h, dh, ds, chunk, dtype), dtype)
 
 
 def ssm_kernel_cases(torch):
@@ -1235,27 +1261,72 @@ def ssm_kernel_cases(torch):
         ms = time_calls(torch, lambda: ssm_scan_cuda(*inputs, chunk=chunk), 10 if big else 50)
         plain_ms = time_calls(torch, lambda: ssm_scan_ref(*inputs, chunk=chunk), 2 if big else 20)
         bound_ms, bound_by = ssm_bound(b, s, h, dh, ds, chunk, dt)
+        bytes_ms, ops_ms = bound_parts(*ssm_work(b, s, h, dh, ds, chunk, dt), dt)
         f32_ms, _ = ssm_bound(b, s, h, dh, ds, chunk, "float32")
         cases.append({
             "shape": shape, "key": SSM_CASES[n], "max_abs_err": ex["err_y"],
             "max_abs_err_h": ex["err_h"], "max_err_over_terms": ex["rel_terms"],
             "tolerance": f"{SSM_REL[dt]:.3e} |plain| + "
             f"{ex['eps']:.3e} |terms|", "la_max": ex["la_max"], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "f32_simt_bound_ms": f32_ms, "blocks": -(-dh // 32) * h * b * (s // chunk),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "f32_simt_bound_ms": f32_ms,
         })
         print(
             f"ssm_scan {shape}: err y {ex['err_y']:.3e} h {ex['err_h']:.3e}, at most "
             f"{ex['rel_terms']:.3e} of |terms| (tol {cases[-1]['tolerance']} per element, "
             f"max|la| {ex['la_max']:.1f}; bit-identical "
-            f"across launches) kernel {ms:.3f} ms ({cases[-1]['blocks']} blocks) plain "
-            f"{plain_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by}, {dt} peak; {f32_ms:.3f} ms "
-            f"at the f32 CUDA-core peak)",
+            f"across launches) kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
+            f"({bound_by}; bytes {bytes_ms:.3f} ms, operations {ops_ms:.3f} ms at the {dt} peak; "
+            f"{f32_ms:.3f} ms at the f32 CUDA-core peak)",
             flush=True,
         )
         del inputs
         torch.cuda.empty_cache()
     return cases
+
+
+SSM_PROFILE_CALLS = 5
+
+
+def ssm_profile(torch, card: str, cases=(SSM_HEADLINE,)) -> dict:
+    """Where ssm_scan's device time goes: ``torch.profiler`` (CUDA activity,
+    so CUPTI records the kernels the ctypes library launches) over
+    SSM_PROFILE_CALLS calls at each case after a warm-up call; prints and
+    returns each kernel's device ms per call, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    splits = {}
+    for key in cases:
+        b, s, h, dh, ds, chunk, valid, dt = key
+        inputs = ssm_inputs(torch, b, s, h, dh, ds, valid, dt, seed=4)
+        ssm_scan_cuda(*inputs, chunk=chunk)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SSM_PROFILE_CALLS):
+                ssm_scan_cuda(*inputs, chunk=chunk)
+            torch.cuda.synchronize()
+        split = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0.0)
+            if us > 0:
+                split[evt.key] = us / 1e3 / SSM_PROFILE_CALLS
+        shape = f"({b},{s},{h},{dh}) ds {ds} chunk {chunk} {dt}"
+        total = sum(split.values())
+        print(f"ssm_scan profile {shape} on {card}: {total:.4f} ms per call over "
+              f"{SSM_PROFILE_CALLS} calls", flush=True)
+        if not split:
+            print(f"ssm_scan profile {shape}: the profiler recorded no device time", flush=True)
+        for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+            print(f"ssm_scan profile {shape}: {ms:.4f} ms per call ({ms / total:.1%}) in {name}",
+                  flush=True)
+        splits[shape] = {"total_ms": total, "kernels_ms": split}
+        del inputs
+        torch.cuda.empty_cache()
+    return splits
 
 
 # The hybrid slice: Zamba2-2.7B (arXiv:2411.15242) at its published widths
@@ -1795,6 +1866,13 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
+    if "--profile-ssm" in sys.argv[1:]:
+        # Only the ssm_scan profile, at the headline in both dtypes.
+        _build.build_all(["ssm_scan"])
+        split = ssm_profile(torch, card, [SSM_HEADLINE, SSM_CASES[1]])
+        print(f"card: {card}", flush=True)
+        print(json.dumps({"ssm_scan_profile": split}), flush=True)
+        return 0
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1806,6 +1884,7 @@ def main() -> int:
     flash_launches = inference_slice(torch, np, card)
     torch.cuda.empty_cache()
     ssm_cases = ssm_kernel_cases(torch)
+    ssm_split = ssm_profile(torch, card)
     ssm_launches, split = hybrid_slice(torch, np, card)
     mlstm_cases = mlstm_kernel_cases(torch)
     mlstm_launches, xlstm_split = xlstm_slice(torch, np, card)
@@ -1850,6 +1929,7 @@ def main() -> int:
               MLSTM_HEADLINE),
     ]
     kernels[-2]["hybrid_forward"] = split
+    kernels[-2]["profile"] = ssm_split
     kernels[-1]["xlstm_forward"] = xlstm_split
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
-// PTX wrappers for Hopper's (sm_90a) warp-level tensor-core path: 16- and
-// 4-byte cp.async copies into shared memory with zero fill, ldmatrix
+// PTX wrappers for Hopper's (sm_90a) warp-level tensor-core path: 16-, 8-
+// and 4-byte cp.async copies into shared memory with zero fill, ldmatrix
 // (plain and transposed) from shared memory into mma fragments, the bf16
 // mma m16n8k16 and the tf32 mma m16n8k8 with f32 accumulators, the split
 // of an f32 value into two tf32 halves, and the special-function unit's
@@ -44,6 +44,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                : "memory");
 }
 
+// 8 bytes, or 8 zero bytes, for rows that are 8- but not 16-byte aligned.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 // 4 bytes, or 4 zero bytes, for rows that are not 16-byte aligned.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
@@ -77,6 +84,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
 }
 
 // Two matrices; lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])

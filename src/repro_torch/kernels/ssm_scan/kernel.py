@@ -3,12 +3,15 @@
 Port of ``repro/kernels/ssm_scan/kernel.py`` (``ssm_scan_pallas``): the
 Mamba2 chunked scan from a zero state.  It takes x, B and C of one dtype
 (f32 or bf16), dt and a in f32, a chunk that is a multiple of 16 up to
-256 dividing S, any head size dh (tiled by 32 rows) and a state size ds
-up to 64.  The wrapper checks what the kernel takes and raises on
-anything else, allocates y, h_final and the kernels' scratch (each
-chunk's state, (B, H, S / chunk, dh, ds) f32, and decay), launches on the
-current CUDA stream without synchronising, and counts its launches: one
-per call, which runs the source's three kernels in turn.
+256 dividing S, any head size dh (tiled by 32 rows in f32, by tiles of
+32, 80 or 160 columns in bf16) and a state size ds up to 64.  The
+wrapper checks what the kernel takes and raises on anything else,
+allocates y, h_final and the kernels' scratch (each chunk's state sum,
+(B, H, S / chunk, dh, ds) f32, and decay; for bf16 also the state at
+each chunk's start as two bf16 pieces, (B, H, S / chunk, 2, dh, ds)),
+launches on the current CUDA stream without synchronising, and counts
+its launches: one per call, which runs the source's three kernels in
+turn.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ CHUNK_MULTIPLE = 16
 MAX_STATE = 64
 _INT_MAX = 2**31 - 1
 _MAX_GRID_YZ = 65535  # H and B * S / chunk are the grids' y and z dimensions
+OUT_PIECES = 2  # kOutPieces of csrc/ssm_scan.cu: bf16 pieces of the state at a chunk's start
 
 #: Launches of the kernel in this process; raised by one at each launch
 #: and nowhere else.  Read with :func:`launch_count`.
@@ -47,8 +51,8 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -121,11 +125,16 @@ def ssm_scan_cuda(
     h_final = torch.empty((b, h, dh, ds), dtype=torch.float32, device=x.device)
     states = torch.empty((b, h, s // chunk, dh, ds), dtype=torch.float32, device=x.device)
     decays = torch.empty((b, h, s // chunk), dtype=torch.float32, device=x.device)
+    pieces = None
+    if x.dtype == torch.bfloat16:
+        pieces = torch.empty((b, h, s // chunk, OUT_PIECES, dh, ds), dtype=torch.bfloat16,
+                             device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
                  c_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(), states.data_ptr(),
-                 decays.data_ptr(), b, s, h, dh, ds, chunk, stream)
+                 decays.data_ptr(), None if pieces is None else pieces.data_ptr(),
+                 b, s, h, dh, ds, chunk, stream)
     if err != 0:
         raise RuntimeError(
             f"ssm_scan kernel launch failed with cudaError_t {err} "

@@ -91,6 +91,39 @@ def test_kernel_columns_independent_of_batch_width(cuda):
         assert torch.equal(matmul_relu(tw, tx[:, :n].contiguous()), full[:, :n]), n
 
 
+SLICE_BUCKETS = (1, 8, 32, 128)   # the served stack's batch buckets (chip_smoke.py)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", SLICE_BUCKETS)
+@pytest.mark.parametrize("m,k", [(1020, 784), (1020, 1020)])
+def test_kernel_matches_plain_at_every_serving_bucket(cuda, m, k, n, dtype):
+    """The served layers' shapes at every bucket: K splits into 7 and 8
+    slices, tiles of 8 and 32 columns."""
+    w, x = _operands(m, k, n, seed=n)
+    tw = torch.from_numpy(w).to(cuda, dtype)
+    tx = torch.from_numpy(x).to(cuda, dtype)
+    got = matmul_relu(tw, tx)
+    want = matmul_relu_ref(tw, tx)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [784, 1020, 3000])
+def test_kernel_bf16_columns_independent_of_batch_width(cuda, k):
+    """The bf16 instance's padding invariance, across both tile widths and
+    a K of several slices per block."""
+    w, x = _operands(1020, k, 128, seed=k)
+    tw = torch.from_numpy(w).to(cuda, torch.bfloat16)
+    tx = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    full = matmul_relu(tw, tx)
+    for n in (1, 8, 9, 32, 65):
+        assert torch.equal(matmul_relu(tw, tx[:, :n].contiguous()), full[:, :n]), n
+    assert torch.equal(matmul_relu(tw, tx), full)   # bit-identical launches
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_kernel_cannot_take(cuda):
     w = torch.zeros((4, 3), device=cuda)
@@ -452,6 +485,24 @@ def test_gram_kernels_keep_nan_and_inf(cuda, value, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("value", sorted(_NONFINITE))
+def test_matmul_relu_keeps_nan_and_inf(cuda, value, dtype):
+    """A NaN or inf in W or in X reaches every output it enters, through
+    the K split and the ReLU, as in the plain version."""
+    bad = _NONFINITE[value](cuda)
+    w, x = _operands(200, 300, 40, seed=21)
+    tw, tx = torch.from_numpy(w).to(cuda), torch.from_numpy(x).to(cuda)
+    w_bad, x_bad = tw.clone(), tx.clone()
+    w_bad[3, 7] = bad
+    x_bad[170, 5] = bad
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for ww, xx in ((w_bad, tx), (tw, x_bad)):
+        ww, xx = ww.to(dtype), xx.to(dtype)
+        _same_non_finite(matmul_relu(ww, xx), matmul_relu_ref(ww, xx), rel)
+
+
+@pytest.mark.cuda
 def test_gram_wrappers_reject_what_kernels_cannot_take(cuda):
     y = torch.zeros((2, 4, 3), device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -789,6 +840,65 @@ def test_ssm_scan_bit_identical_across_launches(cuda):
         inputs = _ssm_inputs(2, 1024, 3, 160, 64, dtype, cuda, seed=5)
         (y1, h1), (y2, h2) = ss.ssm_scan_cuda(*inputs), ss.ssm_scan_cuda(*inputs)
         assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_bit_identical_at_the_attention_block_shape(cuda, dtype):
+    """Zamba2-2.7B's shared-block widths (32 heads of 80): the bf16
+    instance's 80-column tile."""
+    from repro_torch.kernels import ssm_scan as ss
+
+    inputs = _ssm_inputs(1, 2048, 32, 80, 64, dtype, cuda, seed=9)
+    (y1, h1), (y2, h2) = ss.ssm_scan_cuda(*inputs), ss.ssm_scan_cuda(*inputs)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    _close_ssm((y1, h1), ss.ssm_scan_ref(*inputs), inputs, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["x", "B", "C", "dt"])
+def test_ssm_scan_bf16_nan_reaches_every_output_it_enters(cuda, where):
+    """A NaN at step 300 (chunk 1 of 3) in x, B, C or dt: NaN in every
+    output it enters, NaN only where the plain version has NaN (which also
+    spreads it to rows before it, through 0 * NaN in its masked product),
+    and every other output within the per-element bar."""
+    from repro_torch.kernels import ssm_scan as ss
+
+    b, s, h, dh, ds, chunk, s0 = 1, 768, 2, 160, 64, 256, 300
+    x, dt, a, bm, cm = _ssm_inputs(b, s, h, dh, ds, torch.bfloat16, cuda, seed=31)
+    nan = float("nan")
+    y_in = torch.zeros((b, s, h, dh), dtype=torch.bool, device=cuda)
+    h_in = torch.zeros((b, h, dh, ds), dtype=torch.bool, device=cuda)
+    if where == "x":
+        x[0, s0, 1, 17] = nan
+        y_in[0, s0:, 1, 17] = True
+        h_in[0, 1, 17] = True
+    elif where == "B":
+        bm[0, s0, 5] = nan
+        y_in[0, s0:] = True
+        h_in[..., 5] = True
+    elif where == "C":
+        cm[0, s0, 9] = nan
+        y_in[0, s0] = True
+    else:
+        dt[0, s0, 1] = nan
+        y_in[0, s0:, 1] = True
+        h_in[0, 1] = True
+    inputs = (x, dt, a, bm, cm)
+    y, hf = ss.ssm_scan_cuda(*inputs, chunk=chunk)
+    wy, wh = ss.ssm_scan_ref(*inputs, chunk=chunk)
+    y_abs, h_abs = ss.ssm_scan_ref(x.abs().float(), dt, a, bm.abs().float(), cm.abs().float(),
+                                   chunk=chunk)
+    la = (a * dt.nan_to_num()).reshape(b, s // chunk, chunk, h).sum(2).abs().max().item()
+    eps = 2**-20 * la + (chunk + ds) * 2**-24
+    for got, want, terms, entered, rel in ((y, wy, y_abs, y_in, 2**-7), (hf, wh, h_abs, h_in, 0.0)):
+        got, want = got.float(), want.float()
+        assert torch.isnan(got)[entered].all()
+        assert not (torch.isnan(got) & ~torch.isnan(want)).any()
+        ok = torch.isfinite(want)
+        assert torch.isfinite(got[ok]).all()
+        excess = (got - want).abs() - rel * want.abs() - eps * terms
+        assert excess[ok].max().item() <= 0.0
 
 
 @pytest.mark.cuda
