@@ -87,11 +87,19 @@ Phases, each of which raises (non-zero exit) on any failed check:
     the reduced (2, 128, 4, 64) at chunk 16 and dk 64 != dv 128 at chunk
     64, each held per element against its plain version (y and the final
     C, n, m; launched twice, bit for bit), timed beside it and beside its
-    bound.
+    bound; then ``torch.profiler`` over a few headline calls prints each
+    of its three kernels' device time, in bf16 and f32.
+    (``python3 chip_smoke.py --profile-mlstm`` builds ``mlstm_scan`` and
+    runs only that profile.  ``--parent DIR``, with DIR a checkout of
+    another commit, builds DIR's ``mlstm_scan.cu`` as well, times it
+    beside every case and in the profile, and requires its f32 outputs
+    to equal this kernel's bit for bit.)
 11. The xLSTM slice at full width: xLSTM-350M, all 24 layers (20 mLSTM, 4
     sLSTM), seeded weights.  (a) A bf16 scoring forward at B=1, S=8192
     with the kernel on: 20 ``mlstm_scan`` launches, a finite loss, and
-    the kernel's and the sLSTM layers' shares of the forward.  (b) In
+    the kernel's and the sLSTM layers' shares of the forward; one more
+    such forward holds each of its 20 kernel calls against the plain scan
+    on the same input with phase 10's per-element bar.  (b) In
     f32, every mLSTM layer's kernel call against the plain scan on the
     same input, and the kernel route's logits against the plain route's,
     beside the model's response to one ulp of noise.  (c)
@@ -1285,45 +1293,50 @@ def ssm_kernel_cases(torch):
     return cases
 
 
-SSM_PROFILE_CALLS = 5
+PROFILE_CALLS = 5
 
 
-def ssm_profile(torch, card: str, cases=(SSM_HEADLINE,)) -> dict:
-    """Where ssm_scan's device time goes: ``torch.profiler`` (CUDA activity,
-    so CUPTI records the kernels the ctypes library launches) over
-    SSM_PROFILE_CALLS calls at each case after a warm-up call; prints and
+def kernel_profile(torch, card: str, name: str, shape: str, call) -> dict:
+    """Where one kernel call's device time goes: ``torch.profiler`` (CUDA
+    activity, so CUPTI records the kernels the ctypes library launches)
+    over PROFILE_CALLS calls of ``call`` after a warm-up call; prints and
     returns each kernel's device ms per call, by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_CALLS):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0:
+            split[evt.key] = us / 1e3 / PROFILE_CALLS
+    total = sum(split.values())
+    print(f"{name} profile {shape} on {card}: {total:.4f} ms per call over "
+          f"{PROFILE_CALLS} calls", flush=True)
+    if not split:
+        print(f"{name} profile {shape}: the profiler recorded no device time", flush=True)
+    for kernel, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"{name} profile {shape}: {ms:.4f} ms per call ({ms / total:.1%}) in {kernel}",
+              flush=True)
+    return {"total_ms": total, "kernels_ms": split}
+
+
+def ssm_profile(torch, card: str, cases=(SSM_HEADLINE,)) -> dict:
+    """:func:`kernel_profile` of ssm_scan at each case."""
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
     splits = {}
-    for key in cases:
-        b, s, h, dh, ds, chunk, valid, dt = key
+    for b, s, h, dh, ds, chunk, valid, dt in cases:
         inputs = ssm_inputs(torch, b, s, h, dh, ds, valid, dt, seed=4)
-        ssm_scan_cuda(*inputs, chunk=chunk)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(SSM_PROFILE_CALLS):
-                ssm_scan_cuda(*inputs, chunk=chunk)
-            torch.cuda.synchronize()
-        split = {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0.0)
-            if us > 0:
-                split[evt.key] = us / 1e3 / SSM_PROFILE_CALLS
         shape = f"({b},{s},{h},{dh}) ds {ds} chunk {chunk} {dt}"
-        total = sum(split.values())
-        print(f"ssm_scan profile {shape} on {card}: {total:.4f} ms per call over "
-              f"{SSM_PROFILE_CALLS} calls", flush=True)
-        if not split:
-            print(f"ssm_scan profile {shape}: the profiler recorded no device time", flush=True)
-        for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):
-            print(f"ssm_scan profile {shape}: {ms:.4f} ms per call ({ms / total:.1%}) in {name}",
-                  flush=True)
-        splits[shape] = {"total_ms": total, "kernels_ms": split}
+        splits[shape] = kernel_profile(torch, card, "ssm_scan", shape,
+                                       lambda: ssm_scan_cuda(*inputs, chunk=chunk))
         del inputs
         torch.cuda.empty_cache()
     return splits
@@ -1610,10 +1623,56 @@ def mlstm_bound(b, s, h, dk, dv, chunk, dtype) -> tuple[float, str]:
     return roofline(ops, nbytes, dtype)
 
 
-def mlstm_kernel_cases(torch):
+def parent_mlstm(torch, root: str, build: str):
+    """``--parent DIR``: the mlstm_scan of another checkout DIR (the parent
+    commit, unpacked), built from DIR's sources into ``build`` and called as
+    its wrapper calls it: a function with mlstm_scan_cuda's signature."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.nn.xlstm import mlstm_scale
+
+    csrc = os.path.join(root, "src", "repro_torch", "kernels", "csrc")
+    lib_path = os.path.join(build, "libparent_mlstm_scan.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
+                    os.path.join(csrc, "mlstm_scan.cu")], check=True)
+    with open(os.path.join(csrc, "mlstm_scan.cu")) as f:
+        pieced = "void* pieces" in f.read()   # the C ABI with the pieces' scratch
+    lib = ctypes.CDLL(lib_path)
+    for fn in (lib.mlstm_scan_f32, lib.mlstm_scan_bf16):
+        fn.argtypes = ([ctypes.c_void_p] * (12 if pieced else 11) + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+    def call(q, k, v, i_pre, f_pre, *, chunk=256):
+        b, s, h, dk = q.shape
+        dv, nc = v.shape[-1], s // chunk
+        f32 = dict(dtype=torch.float32, device=q.device)
+        y = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+        c, n, m = (torch.empty(shape, **f32) for shape in ((b, h, dk, dv), (b, h, dk), (b, h)))
+        states = torch.empty((b, h, nc, dk * dv + dk), **f32)
+        scalars = torch.empty((3, b, h, nc), **f32)
+        pieces = (torch.empty((b, h, nc, 2, dk, dv), dtype=torch.bfloat16, device=q.device)
+                  if pieced and q.dtype == torch.bfloat16 else None)
+        fn = lib.mlstm_scan_f32 if q.dtype == torch.float32 else lib.mlstm_scan_bf16
+        ptrs = [t.data_ptr() for t in (q, k, v, i_pre, f_pre, y, c, n, m, states, scalars)]
+        if pieced:
+            ptrs.append(None if pieces is None else pieces.data_ptr())
+        err = fn(*ptrs, b, s, h, dk, dv, chunk, mlstm_scale(dk),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's mlstm_scan failed with cudaError_t {err}")
+        return y, (c, n, m)
+
+    return call
+
+
+def mlstm_kernel_cases(torch, parent=None):
     """mlstm_scan at xLSTM's shapes, each held against its plain version and
     timed beside it and beside its bound; no single library call computes
-    it."""
+    it.  With ``parent`` (:func:`parent_mlstm`), the parent's kernel is
+    timed beside it and its f32 outputs must equal the parent's bit for
+    bit."""
     from repro_torch.kernels.mlstm_scan import mlstm_scan_cuda, mlstm_scan_ref
 
     cases = []
@@ -1637,34 +1696,64 @@ def mlstm_kernel_cases(torch):
             )
         if valid is not None and got[0][:, valid:].any():
             raise AssertionError(f"mlstm_scan {shape}: padded rows are not 0")
+        if parent is not None and dt == "float32":
+            old = parent(*inputs, chunk=chunk)
+            if not (torch.equal(got[0], old[0])
+                    and all(torch.equal(x, y) for x, y in zip(got[1], old[1]))):
+                raise AssertionError(f"mlstm_scan {shape}: the f32 instance's outputs differ "
+                                     f"from the parent's")
+            del old
         del got, want, again
         big = s >= 4096
-        ms = time_calls(torch, lambda: mlstm_scan_cuda(*inputs, chunk=chunk), 10 if big else 50)
+        iters = 10 if big else 50
+        ms = time_calls(torch, lambda: mlstm_scan_cuda(*inputs, chunk=chunk), iters)
+        parent_ms = None if parent is None else time_calls(
+            torch, lambda: parent(*inputs, chunk=chunk), iters)
         plain_ms = time_calls(torch, lambda: mlstm_scan_ref(*inputs, chunk=chunk),
                               2 if big else 20)
         bound_ms, bound_by = mlstm_bound(b, s, h, dk, dv, chunk, dt)
         f32_ms, _ = mlstm_bound(b, s, h, dk, dv, chunk, "float32")
-        nc = s // chunk
         cases.append({
             "shape": shape, "key": MLSTM_CASES[n], "max_abs_err": ex["err_y"],
             "max_abs_err_state": ex["err_state"], "max_err_over_terms": ex["rel_terms"],
             "tolerance": f"{MLSTM_REL[dt]:.3e} |plain| + {ex['eps']:.3e} |terms|",
-            "f_max": ex["f_max"], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "f32_simt_bound_ms": f32_ms,
-            "blocks": -(-chunk // 64) * b * h * nc * -(-dv // 64),
+            "f_max": ex["f_max"], "ms": ms, "parent_ms": parent_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "f32_simt_bound_ms": f32_ms,
         })
+        parent_note = "" if parent is None else (
+            f" (the parent's {parent_ms:.3f} ms" + (", f32 outputs bit-identical to it)"
+                                                   if dt == "float32" else ")"))
         print(
             f"mlstm_scan {shape}: err y {ex['err_y']:.3e} state {ex['err_state']:.3e}, at most "
             f"{ex['rel_terms']:.3e} of |terms| (tol {cases[-1]['tolerance']} per element, "
-            f"max|F| {ex['f_max']:.1f}; bit-identical across launches) kernel {ms:.3f} ms "
-            f"({cases[-1]['blocks']} output blocks) plain {plain_ms:.3f} ms bound "
-            f"{bound_ms:.3f} ms ({bound_by}, {dt} peak; {f32_ms:.3f} ms at the f32 CUDA-core "
-            f"peak)",
+            f"max|F| {ex['f_max']:.1f}; bit-identical across launches) kernel {ms:.3f} ms"
+            f"{parent_note} plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by}, {dt} "
+            f"peak; {f32_ms:.3f} ms at the f32 CUDA-core peak)",
             flush=True,
         )
         del inputs
         torch.cuda.empty_cache()
     return cases
+
+
+def mlstm_profile(torch, card: str, cases=(MLSTM_HEADLINE,), parent=None) -> dict:
+    """:func:`kernel_profile` of mlstm_scan at each case: its three kernels
+    (states, carry, outputs) by name; with ``parent``, the parent's too."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_cuda
+
+    splits = {}
+    for b, s, h, dk, dv, chunk, valid, dt in cases:
+        inputs = mlstm_inputs(torch, b, s, h, dk, dv, valid, dt, seed=20)
+        shape = f"({b},{s},{h},{dk}->{dv}) chunk {chunk} {dt}"
+        splits[shape] = kernel_profile(torch, card, "mlstm_scan", shape,
+                                       lambda: mlstm_scan_cuda(*inputs, chunk=chunk))
+        if parent is not None:
+            splits[f"parent {shape}"] = kernel_profile(
+                torch, card, "mlstm_scan (parent)", shape, lambda: parent(*inputs, chunk=chunk))
+        del inputs
+        torch.cuda.empty_cache()
+    return splits
 
 
 # The xLSTM slice: xLSTM-350M (arXiv:2405.04517) at its published widths
@@ -1742,6 +1831,39 @@ def xlstm_slice(torch, np, card: str) -> tuple[int, dict]:
     split = {"forward_ms": fwd_ms, "mlstm_scan_ms": scan_ms, "mlstm_scan_calls": scan_calls,
              "slstm_ms": slstm_ms, "slstm_calls": slstm_calls, "rest_ms": rest,
              "plain_forward_ms": plain_fwd_ms, "peak_gb": peak_gb, "loss": loss}
+
+    # Each bf16 kernel call of the scoring forward against the plain scan on
+    # its own input, with phase 10's per-element bar: one more forward
+    # records the calls' inputs and outputs.
+    calls = []
+    routed = blocks.mlstm_scan
+
+    def record(*args, **kwargs):
+        out = routed(*args, **kwargs)
+        calls.append((args, kwargs["chunk"], out))
+        return out
+
+    blocks.mlstm_scan = record
+    try:
+        with torch.no_grad():
+            make_loss_fn(model)(params, batch)
+    finally:
+        blocks.mlstm_scan = routed
+    worst_y = worst_state = -float("inf")
+    for args, chunk, out in calls:
+        ex = mlstm_excess(torch, out, ms.mlstm_scan_ref(*args, chunk=chunk), args, chunk,
+                          "bfloat16")
+        worst_y, worst_state = max(worst_y, ex["excess_y"]), max(worst_state, ex["excess_state"])
+    if len(calls) != mlstm_layers or not (worst_y <= 0.0 and worst_state <= 0.0):
+        raise AssertionError(f"(a) xlstm bf16: {len(calls)} mlstm_scan calls recorded, an element "
+                             f"of y or (C, n, m) exceeds its allowance by {worst_y:.3e} / "
+                             f"{worst_state:.3e}")
+    print(f"(a) each of the {len(calls)} bf16 mlstm_scan calls of the forward, kernel vs plain "
+          f"scan on the same input, within phase 10's per-element bar (largest excess over the "
+          f"allowance: y {worst_y:.3e}, state {worst_state:.3e}; <= 0 passes)", flush=True)
+    split.update(call_excess_y=worst_y, call_excess_state=worst_state)
+    del calls
+    torch.cuda.empty_cache()
 
     # (c) Serving through the launcher's entry point: prefill and decode
     # take the plain scan and the recurrences, as in the reference.
@@ -1863,16 +1985,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    args = sys.argv[1:]
+    parent_dir = args[args.index("--parent") + 1] if "--parent" in args else None
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    if "--profile-ssm" in sys.argv[1:]:
-        # Only the ssm_scan profile, at the headline in both dtypes.
-        _build.build_all(["ssm_scan"])
-        split = ssm_profile(torch, card, [SSM_HEADLINE, SSM_CASES[1]])
-        print(f"card: {card}", flush=True)
-        print(json.dumps({"ssm_scan_profile": split}), flush=True)
-        return 0
+    for flag, name, profiler, cases in (
+            ("--profile-ssm", "ssm_scan", ssm_profile, [SSM_HEADLINE, SSM_CASES[1]]),
+            ("--profile-mlstm", "mlstm_scan", mlstm_profile, [MLSTM_HEADLINE, MLSTM_CASES[1]])):
+        if flag in args:
+            # Only this kernel's profile, at the headline in both dtypes.
+            _build.build_all([name])
+            split = profiler(torch, card, cases)
+            print(f"card: {card}", flush=True)
+            print(json.dumps({f"{name}_profile": split}), flush=True)
+            return 0
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1886,7 +2013,11 @@ def main() -> int:
     ssm_cases = ssm_kernel_cases(torch)
     ssm_split = ssm_profile(torch, card)
     ssm_launches, split = hybrid_slice(torch, np, card)
-    mlstm_cases = mlstm_kernel_cases(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        parent = parent_mlstm(torch, parent_dir, tmp) if parent_dir else None
+        mlstm_cases = mlstm_kernel_cases(torch, parent)
+        mlstm_split = mlstm_profile(torch, card, [MLSTM_HEADLINE, MLSTM_CASES[1]], parent)
+        del parent
     mlstm_launches, xlstm_split = xlstm_slice(torch, np, card)
 
     def entry(name, source, replaces, launches, cases, headline):
@@ -1931,6 +2062,9 @@ def main() -> int:
     kernels[-2]["hybrid_forward"] = split
     kernels[-2]["profile"] = ssm_split
     kernels[-1]["xlstm_forward"] = xlstm_split
+    kernels[-1]["profile"] = mlstm_split
+    kernels[-1]["parent_ms"] = next(c["parent_ms"] for c in mlstm_cases
+                                    if c["key"] == MLSTM_HEADLINE)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

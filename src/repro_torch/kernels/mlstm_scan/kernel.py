@@ -5,10 +5,12 @@ chunked, stabilized mLSTM from the zero state.  It takes q, k and v of one
 dtype (f32 or bf16), i_pre and f_pre in f32, a chunk that is a multiple of
 16 up to 256 dividing S, and dk and dv up to 256 each.  The wrapper checks
 what the kernel takes and raises on anything else, allocates y, the final
-(C, n, m) and the kernels' scratch (each chunk's state, (B, H, S / chunk,
-dk dv + dk) f32, and three scalars per chunk), launches on the current
-CUDA stream without synchronising, and counts its launches: one per
-call, which runs the source's three kernels in turn.
+(C, n, m) and, in one buffer, the kernels' scratch (each chunk's state,
+(B, H, S / chunk, dk dv + dk) f32, and three scalars per chunk; for bf16
+also the carried C at each chunk's start as two bf16 pieces, (B, H,
+S / chunk, 2, dk, dv)), launches on the current CUDA stream without
+synchronising, and counts its launches: one per call, which runs the
+source's three kernels in turn.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ MAX_CHUNK = 256
 CHUNK_MULTIPLE = 16
 MAX_DIM = 256
 _INT_MAX = 2**31 - 1
-_MAX_GRID_Y = 65535  # B * H * S / chunk is a grid's y dimension
+_MAX_GRID_Y = 65535  # B * H * S / chunk is a grid's y (f32) or z (bf16) dimension
+OUT_PIECES = 2  # kOutPieces of csrc/mlstm_scan.cu: bf16 pieces of the carried C at a chunk's start
 
 #: Launches of the kernel in this process; raised by one at each launch
 #: and nowhere else.  Read with :func:`launch_count`.
@@ -41,11 +44,19 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+#: The query scale 1/sqrt(dk) as the plain version forms it, once per dk.
+_scale = functools.cache(mlstm_scale)
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mlstm_scan")
     for fn in (lib.mlstm_scan_f32, lib.mlstm_scan_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -121,19 +132,29 @@ def mlstm_scan_cuda(
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     nc = s // chunk
-    f32 = dict(dtype=torch.float32, device=q.device)
-    y = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     c_out = torch.empty((b, h, dk, dv), **f32)
     n_out = torch.empty((b, h, dk), **f32)
     m_out = torch.empty((b, h), **f32)
-    states = torch.empty((b, h, nc, dk * dv + dk), **f32)
-    scalars = torch.empty((3, b, h, nc), **f32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(), f_pre.data_ptr(),
-                 y.data_ptr(), c_out.data_ptr(), n_out.data_ptr(), m_out.data_ptr(),
-                 states.data_ptr(), scalars.data_ptr(), b, s, h, dk, dv, chunk, mlstm_scale(dk),
-                 stream)
+    # One scratch allocation: the states, the scalars and, for bf16, the
+    # pieces, each at a 256-byte aligned offset.
+    states_bytes = _aligned(b * h * nc * (dk * dv + dk) * 4)
+    scalars_bytes = _aligned(3 * b * h * nc * 4)
+    pieces_bytes = b * h * nc * OUT_PIECES * dk * dv * 2 if q.dtype == torch.bfloat16 else 0
+    scratch = torch.empty(states_bytes + scalars_bytes + pieces_bytes, dtype=torch.uint8,
+                          device=dev)
+    states = scratch.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(), f_pre.data_ptr(),
+            y.data_ptr(), c_out.data_ptr(), n_out.data_ptr(), m_out.data_ptr(), states,
+            states + states_bytes, states + states_bytes + scalars_bytes if pieces_bytes else None,
+            b, s, h, dk, dv, chunk, _scale(dk))
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"mlstm_scan kernel launch failed with cudaError_t {err} "

@@ -1084,6 +1084,74 @@ def test_mlstm_scan_bit_identical_across_launches(cuda):
 
 
 @pytest.mark.cuda
+def test_mlstm_scan_bf16_headline_bit_identical_across_launches(cuda):
+    """xLSTM-350M's scoring call, (1, 8192, 4, 256) at chunk 256, on the
+    tensor cores: two launches bit for bit, within the per-element bar."""
+    from repro_torch.kernels import mlstm_scan as ms
+
+    inputs = _mlstm_inputs(1, 8192, 4, 256, 256, torch.bfloat16, cuda, seed=8)
+    (y1, st1), (y2, st2) = ms.mlstm_scan_cuda(*inputs), ms.mlstm_scan_cuda(*inputs)
+    assert torch.equal(y1, y2) and all(torch.equal(a, b) for a, b in zip(st1, st2))
+    _close_mlstm((y1, st1), ms.mlstm_scan_ref(*inputs), inputs, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["q", "k", "v", "i_pre", "f_pre"])
+def test_mlstm_scan_bf16_nan_reaches_every_output_it_enters(cuda, where):
+    """A NaN at step 300 (chunk 1 of 3) in q, k, v, i_pre or f_pre: NaN in
+    every output it enters, NaN only where the plain version has NaN (which
+    also spreads a NaN of k or v to rows before it, through 0 * NaN in its
+    masked products), and every other output within the per-element bar."""
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.nn.xlstm import init_mlstm_state, mlstm_terms
+
+    b, s, h, dk, dv, chunk, s0 = 1, 768, 2, 256, 256, 256, 300
+    q, k, v, i_pre, f_pre = _mlstm_inputs(b, s, h, dk, dv, torch.bfloat16, cuda, seed=31)
+    nan = float("nan")
+    y_in = torch.zeros((b, s, h, dv), dtype=torch.bool, device=cuda)
+    c_in = torch.zeros((b, h, dk, dv), dtype=torch.bool, device=cuda)
+    n_in = torch.zeros((b, h, dk), dtype=torch.bool, device=cuda)
+    m_in = torch.zeros((b, h), dtype=torch.bool, device=cuda)
+    if where == "q":
+        q[0, s0, 1, 17] = nan
+        y_in[0, s0, 1] = True
+    elif where == "k":
+        k[0, s0, 1, 17] = nan
+        y_in[0, s0:, 1] = True
+        c_in[0, 1, 17] = n_in[0, 1, 17] = True
+    elif where == "v":
+        v[0, s0, 1, 17] = nan
+        y_in[0, s0:, 1, 17] = True
+        c_in[0, 1, :, 17] = True
+    else:
+        (i_pre if where == "i_pre" else f_pre)[0, s0, 1] = nan
+        y_in[0, s0:, 1] = True
+        c_in[0, 1] = n_in[0, 1] = m_in[0, 1] = True
+    inputs = (q, k, v, i_pre, f_pre)
+    y, (c, n, m) = ms.mlstm_scan_cuda(*inputs, chunk=chunk)
+    wy, (wc, wn, wm) = ms.mlstm_scan_ref(*inputs, chunk=chunk)
+    zero = init_mlstm_state(b, h, dk, dv, device=cuda)
+    _, den, floor, _ = mlstm_terms(*inputs, zero, chunk=chunk)
+    num_a, den_a, _, st_a = mlstm_terms(q.abs(), k.abs(), v.abs(), i_pre, f_pre, zero,
+                                        chunk=chunk)
+    d = torch.maximum(den.abs(), floor)
+    f_max = (torch.nn.functional.logsigmoid(f_pre.nan_to_num()).reshape(b, s // chunk, chunk, h)
+             .cumsum(2).abs().max().item())
+    eps = 2**-20 * f_max + (2 * chunk + dk) * 2**-24
+    wy = wy.float()
+    terms_y = num_a / d[..., None] + wy.abs() * ((den_a + d) / d)[..., None]
+    for got, want, terms, entered, rel in ((y.float(), wy, terms_y, y_in, 2**-7),
+                                           (c, wc, st_a.c, c_in, 0.0), (n, wn, st_a.n, n_in, 0.0),
+                                           (m, wm, f_max + wm.abs(), m_in, 0.0)):
+        assert torch.isnan(got)[entered].all()
+        assert not (torch.isnan(got) & ~torch.isnan(want)).any()
+        ok = torch.isfinite(want)
+        assert torch.isfinite(got[ok]).all()
+        excess = (got - want).abs() - rel * want.abs() - eps * terms
+        assert excess[ok].max().item() <= 0.0
+
+
+@pytest.mark.cuda
 def test_mlstm_scan_rejects_what_kernel_cannot_take(cuda):
     from repro_torch.kernels import mlstm_scan as ms
 
