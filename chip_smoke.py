@@ -40,6 +40,23 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the reference's centralized-equivalence bars, and that the exported
    stack serves through ``ServeEngine`` bit for bit like
    ``ssfn.predict``.  It prints where a layer's time goes.
+5b. The paper's gossip network at full width (``benchmarks/
+   bench_equivalence.py``'s degree-4 circular graph over M=20, with B
+   from ``gossip_rounds_for_tolerance(circular_mixing_matrix(20, 4),
+   1e-8)``, computed here: 52).  (a) The same train through
+   ``train_dssfn.main`` with ``--consensus gossip:B:4``: one ``gram`` and
+   20 ``propagate_gram`` launches, finite readouts, eq.-15 scalars of
+   2 d B = 416 x the ExactMean run's, each layer's final ADMM consensus
+   error within 1e-4 x max|O_l|, and the equivalence bars against phase
+   5's centralized run.  (b) A layer-1 step under ``RingGossip(B, 4)``,
+   card vs CPU plain, broken down beside ExactMean's.  (c) One
+   ``Gossip.mix`` of an (20, 10, 1020) f32 message, compressed (19
+   hops), serial and over a bf16 wire: card vs CPU within 1e-6 x max|x|,
+   each beside a float64 H^B x, timed.  (d) The benchmark's legacy call,
+   ``layerwise.train_decentralized_ssfn(consensus_fn=make_consensus_fn(
+   "gossip", ...), gossip_rounds=B)``, held to the same launches and bars
+   (its eq.-15 scalars are B x ExactMean's, the legacy accounting).  A
+   ``{"gossip": ...}`` line carries the numbers.
 6. Kernel vs plain: ``flash_attention`` at the full-width H2O-Danube3-4B
    shapes — (1, 32, 8192, 120) and (1, 32, 4096, 120) with the 4096
    window, in bf16 and f32, and (1, 32, 8192, 120) over KV at 8 heads, as
@@ -627,6 +644,16 @@ EQUIV_ACC_GAP = 0.05
 STEP_TOL = 1e-4   # o_star, card vs CPU: relative Frobenius gap
 
 
+def check_equivalence(label: str, rep, acc_gap: float) -> None:
+    """Fail unless a decentralized run meets the reference's bars against
+    the centralized one."""
+    if not (rep.agreement >= EQUIV_AGREEMENT and acc_gap < EQUIV_ACC_GAP):
+        raise AssertionError(
+            f"{label}: equivalence bars missed: agreement {rep.agreement:.4f} "
+            f"(>= {EQUIV_AGREEMENT}), accuracy gap {acc_gap:.4f} (< {EQUIV_ACC_GAP})"
+        )
+
+
 def train_argv(workers: int, artifact: str) -> list[str]:
     t = TRAIN
     return [
@@ -658,10 +685,11 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def layer_breakdown(torch, x_workers, t_workers, w1, cfg) -> dict:
+def layer_breakdown(torch, x_workers, t_workers, w1, cfg, policy=None) -> dict:
     """Where a full-width layer step's time goes on the card (layer 1,
-    M workers, the train's own settings), then the same step on the CPU
-    through the plain versions from the same inputs, held against it."""
+    M workers, the train's own settings, under ``policy``: the backend's
+    ExactMean by default), then the same step on the CPU through the
+    plain versions from the same inputs, held against it."""
     from repro_torch.core import admm, engine
     from repro_torch.core.backend import SimulatedBackend
     from repro_torch.kernels.propagate_gram import propagate_gram, propagate_gram_ref
@@ -670,18 +698,18 @@ def layer_breakdown(torch, x_workers, t_workers, w1, cfg) -> dict:
     x = x_workers.contiguous()
     kw = dict(mu=cfg.mul, eps_radius=cfg.eps_radius, num_iters=cfg.admm_iters)
     step0, ms_step0 = timed(torch, lambda: engine.fused_layer_step(
-        SimulatedBackend(m), x, t_workers, None, mu=cfg.mu0,
+        SimulatedBackend(m, policy=policy), x, t_workers, None, mu=cfg.mu0,
         eps_radius=cfg.eps_radius, num_iters=cfg.admm_iters))
     step1, ms_step1 = timed(torch, lambda: engine.fused_layer_step(
-        SimulatedBackend(m), x, t_workers, w1, **kw))
+        SimulatedBackend(m, policy=policy), x, t_workers, w1, **kw))
     (y1, g), ms_kernel = timed(torch, lambda: propagate_gram(w1, x, mu=cfg.mul))
     (chol, _), ms_chol = timed(torch, lambda: admm.guarded_cholesky(g))
     a, ms_a = timed(torch, lambda: torch.matmul(t_workers, y1.mT))
     z0 = torch.zeros_like(a[0])
     _, ms_admm = timed(torch, lambda: admm.worker_admm_iterations(
-        SimulatedBackend(m), a, chol, y1, t_workers, z0, trace_every=1, **kw))
+        SimulatedBackend(m, policy=policy), a, chol, y1, t_workers, z0, trace_every=1, **kw))
     _, ms_admm0 = timed(torch, lambda: admm.worker_admm_iterations(
-        SimulatedBackend(m), a, chol, y1, t_workers, z0, trace_every=0, **kw))
+        SimulatedBackend(m, policy=policy), a, chol, y1, t_workers, z0, trace_every=0, **kw))
 
     # The same step on the CPU, through the plain versions.
     x_c, t_c, w_c = x.cpu(), t_workers.cpu(), w1.cpu()
@@ -696,7 +724,7 @@ def layer_breakdown(torch, x_workers, t_workers, w1, cfg) -> dict:
         )
     del y_ref, g_ref
     cpu_step = engine.fused_layer_step(
-        SimulatedBackend(m), x_c, t_c, w_c, trace_every=0, **kw)
+        SimulatedBackend(m, policy=policy), x_c, t_c, w_c, trace_every=0, **kw)
     # Both f32 steps beside a float64 step of the same math on the CPU,
     # so a gap between them can be told apart from f32 rounding.
     f64 = torch.float64
@@ -704,7 +732,7 @@ def layer_breakdown(torch, x_workers, t_workers, w1, cfg) -> dict:
     g64 = y64 @ y64.mT + torch.eye(y64.shape[1], dtype=f64) / cfg.mul
     t64 = t_c.to(f64)
     (_, z64, _), _ = admm.worker_admm_iterations(
-        SimulatedBackend(m), t64 @ y64.mT, torch.linalg.cholesky(g64), y64, t64,
+        SimulatedBackend(m, policy=policy), t64 @ y64.mT, torch.linalg.cholesky(g64), y64, t64,
         torch.zeros_like(z0, device="cpu", dtype=f64), trace_every=0, **kw)
     del y64, g64
 
@@ -724,10 +752,11 @@ def layer_breakdown(torch, x_workers, t_workers, w1, cfg) -> dict:
     }
 
 
-def train_slice(torch, card: str) -> dict:
+def train_slice(torch, card: str) -> tuple[dict, dict]:
     """Train the full-width stack decentralized and centralized through the
     launcher, check it, break a layer's time down, serve what it trained.
-    Returns each training kernel's main-path launch count."""
+    Returns each training kernel's main-path launch count, and the runs
+    and inputs the gossip phase compares with."""
     from repro_torch.core import equivalence, ssfn
     from repro_torch.data import make_classification, partition_workers
     from repro_torch.kernels import gram, matmul_relu, propagate_gram
@@ -787,11 +816,7 @@ def train_slice(torch, card: str) -> dict:
             f"|test accuracy gap| {acc_gap:.4f}",
             flush=True,
         )
-        if not (rep.agreement >= EQUIV_AGREEMENT and acc_gap < EQUIV_ACC_GAP):
-            raise AssertionError(
-                f"equivalence bars missed: agreement {rep.agreement:.4f} "
-                f"(>= {EQUIV_AGREEMENT}), accuracy gap {acc_gap:.4f} (< {EQUIV_ACC_GAP})"
-            )
+        check_equivalence("train", rep, acc_gap)
 
         cfg = ssfn.SSFNConfig(input_dim=TRAIN["P"], num_classes=q, num_layers=TRAIN["L"],
                               hidden=TRAIN["n"], admm_iters=TRAIN["K"])
@@ -822,6 +847,218 @@ def train_slice(torch, card: str) -> dict:
             raise AssertionError("trained stack: ServeEngine.forward != ssfn.predict (bucket 32)")
         print("trained stack served: ServeEngine.forward == ssfn.predict bit for bit "
               "(bucket 32)", flush=True)
+    # What the gossip phase compares against: the ExactMean runs, their
+    # data, and the ExactMean layer step.
+    exact = {"run_d": run_d, "run_c": run_c, "cen": cen, "data": data, "cfg": cfg,
+             "xw": xw, "tw": tw, "w1": w1, "breakdown": bd}
+    return launches, exact
+
+
+# The paper's own network (repro's benchmarks/bench_equivalence.py): a
+# degree-4 circular graph over the M=20 workers, with the gossip rounds
+# B that bring ||H^B - 11^T/M|| to 1e-8.
+GOSSIP_DEGREE = 4
+GOSSIP_TOL = 1e-8
+# The final ADMM consensus error of each layer, max|mix - mean| at its
+# last iteration, against max|O_l| of that layer's readout: the reference
+# holds its gossip consensus error to 1e-4 (tests/test_system.py:52) at
+# readouts of order 1; here it is made relative to the card's magnitudes.
+GOSSIP_CERR = 1e-4
+# One mix, card vs CPU: the same weighted sums in the same order, so only
+# rounding in the library's elementwise kernels may differ.
+MIX_TOL = 1e-6
+
+
+def gossip_mix_cases(torch, card: str, rounds: int) -> list[dict]:
+    """One ``Gossip.mix`` of an (M, Q, n) f32 message under the paper's
+    network: compressed to one H^B schedule, serial (B rounds of every
+    edge) and compressed over a bf16 wire, each on the card against the
+    CPU and against a float64 H^B x, timed by CUDA events, beside the
+    host's time to enqueue it and its device time (``torch.profiler``)."""
+    import numpy as np
+
+    from repro_torch.core import topology
+    from repro_torch.core.policy import ConsensusContext, RingGossip
+
+    m, q, n = TRAIN["M"], TRAIN["Q"], TRAIN["n"]
+    x = torch.randn((m, q, n), generator=torch.Generator("cuda").manual_seed(5),
+                    device="cuda")
+    h_b = np.linalg.matrix_power(topology.circular_mixing_matrix(m, GOSSIP_DEGREE), rounds)
+    x64 = x.double().cpu().numpy().reshape(m, -1)
+    want = torch.from_numpy((h_b @ x64).reshape(m, q, n))
+    scale = float(x.abs().max())
+    ctx = ConsensusContext(m)
+    out = []
+    for label, pol in (
+            ("compressed", RingGossip(rounds, GOSSIP_DEGREE)),
+            ("serial", RingGossip(rounds, GOSSIP_DEGREE, compress=False)),
+            ("compressed, bf16 wire", RingGossip(rounds, GOSSIP_DEGREE, wire_dtype="bf16"))):
+        card_out = pol.one_shot(x, ctx)
+        cpu_out = pol.one_shot(x.cpu(), ctx)
+        err_cpu = float((card_out.cpu() - cpu_out).abs().max())
+        if not err_cpu <= MIX_TOL * scale:
+            raise AssertionError(f"gossip mix {label}: card vs CPU {err_cpu:.3e} > "
+                                 f"{MIX_TOL} x max|x| = {MIX_TOL * scale:.3e}")
+        err_f64 = float((card_out.cpu().double() - want).abs().max())
+        iters = 20 if label == "serial" else 100
+        for _ in range(3):
+            pol.one_shot(x, ctx)
+        _, ms = timed(torch, lambda: [pol.one_shot(x, ctx) for _ in range(iters)])
+        # The host's side: the time to enqueue the mixes, unsynchronized.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pol.one_shot(x, ctx)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        device = kernel_profile(torch, card, "gossip mix", label, lambda: pol.one_shot(x, ctx))
+        case = {"mix": label, "hops": pol.hops_for(m), "exchanges": pol.exchanges_for(m),
+                "card_vs_cpu": err_cpu / scale, "vs_float64": err_f64 / scale,
+                "ms": ms / iters, "enqueue_ms": enqueue_ms, "device_ms": device["total_ms"]}
+        print(f"gossip mix {label} (M={m}, ({q}, {n}) f32, B={rounds}, "
+              f"{case['hops']} hops): {case['ms']:.3f} ms per mix (host enqueue "
+              f"{enqueue_ms:.3f} ms, device {case['device_ms']:.3f} ms); card vs CPU "
+              f"{case['card_vs_cpu']:.2e} x max|x|, vs float64 H^B x "
+              f"{case['vs_float64']:.2e} x max|x| on {card}", flush=True)
+        out.append(case)
+    return out
+
+
+def consensus_errors(errors, readouts) -> float:
+    """The largest final consensus error of a layer against max|O_l|,
+    failing above GOSSIP_CERR."""
+    worst = max(float(e) / float(o.abs().max()) for e, o in zip(errors, readouts))
+    if not worst <= GOSSIP_CERR:
+        raise AssertionError(f"final ADMM consensus error {worst:.3e} x max|O_l| "
+                             f"> {GOSSIP_CERR}")
+    return worst
+
+
+def gossip_slice(torch, card: str, exact: dict) -> dict:
+    """The paper's gossip network at full width (phase 5b): (a) a train
+    through the launcher, (b) a layer-1 step under it, (c) one mix, (d)
+    the benchmark's legacy dense-H call.  Returns each training kernel's
+    launch count over (a) and (d)."""
+    import warnings
+
+    from repro_torch.core import consensus, equivalence, layerwise, topology
+    from repro_torch.core.policy import RingGossip
+    from repro_torch.kernels import gram, propagate_gram
+    from repro_torch.launch import train_dssfn
+
+    m, q, layers = TRAIN["M"], TRAIN["Q"], TRAIN["L"]
+    h = topology.circular_mixing_matrix(m, GOSSIP_DEGREE)
+    rounds = topology.gossip_rounds_for_tolerance(h, GOSSIP_TOL)
+    policy = RingGossip(rounds, GOSSIP_DEGREE)
+    print(f"gossip network: M={m}, degree {GOSSIP_DEGREE}, spectral gap "
+          f"{topology.spectral_gap(h):.4f}, B={rounds} rounds for {GOSSIP_TOL}, "
+          f"{policy.hops_for(m)} hops per mix ({policy.exchanges_for(m)} exchanges, "
+          f"eq. 15)", flush=True)
+    run_d, run_c, cen, data = exact["run_d"], exact["run_c"], exact["cen"], exact["data"]
+    launches = {"gram": 0, "propagate_gram": 0}
+
+    def count(label):
+        counts = {"gram": gram.launch_count(), "propagate_gram": propagate_gram.launch_count()}
+        if counts != {"gram": 1, "propagate_gram": layers}:
+            raise AssertionError(f"{label}: kernel launches {counts}; expected 1 gram and "
+                                 f"{layers} propagate_gram")
+        for k in launches:
+            launches[k] += counts[k]
+
+    # (a) The launcher, with the spec the benchmark's network spells.
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "gossip")
+        for c in (gram, propagate_gram):
+            c.reset_launch_count()
+        res = train_dssfn.main(train_argv(m, path) +
+                               ["--consensus", f"gossip:{rounds}:{GOSSIP_DEGREE}"])
+        count("gossip train")
+        run = res["runs"][0]
+        params = card_params(torch, path)
+    if res["device"] != "cuda" or run["policy"] != policy.describe():
+        raise AssertionError(f"gossip train: {run['policy']} on {res['device']}")
+    if not all(bool(torch.isfinite(o).all()) for o in params.o):
+        raise AssertionError("gossip train: non-finite readouts")
+    if run["comm_scalars"] != policy.exchanges_for(m) * run_d["comm_scalars"] or \
+            policy.exchanges_for(m) != 2 * GOSSIP_DEGREE * rounds:
+        raise AssertionError(f"gossip train: comm scalars {run['comm_scalars']}, ExactMean "
+                             f"{run_d['comm_scalars']}")
+    cerr = consensus_errors(run["consensus_error"], params.o)
+    rep = equivalence.compare(cen, params, data.x_test, q)
+    acc_gap = abs(run["test_accuracy"] - run_c["test_accuracy"])
+    print(
+        f"gossip train M={m} (launcher, --consensus gossip:{rounds}:{GOSSIP_DEGREE}): "
+        f"{run['wall_time_s']:.3f} s per train (ExactMean {run_d['wall_time_s']:.3f} s), "
+        f"test accuracy {run['test_accuracy']:.4f}, comm {run['comm_scalars']} scalars = "
+        f"{run['comm_scalars'] // run_d['comm_scalars']} x ExactMean's, final consensus "
+        f"error <= {cerr:.3e} x max|O_l| (bar {GOSSIP_CERR}), vs centralized: agreement "
+        f"{rep.agreement:.4f}, |test accuracy gap| {acc_gap:.4f}, max readout gap "
+        f"{rep.max_readout_gap:.3e}; kernel launches {run['kernel_launches']} on {card}",
+        flush=True,
+    )
+    check_equivalence("gossip train", rep, acc_gap)
+
+    # (b) A layer-1 step under the same policy, beside ExactMean's.
+    cfg = exact["cfg"]
+    bd = layer_breakdown(torch, exact["xw"], exact["tw"], exact["w1"], cfg, policy=policy)
+    ex = exact["breakdown"]
+    k = TRAIN["K"]
+    print(
+        f"layer step under gossip (M={m}, B={rounds}): layer 1 {bd['layer1_ms']:.2f} ms "
+        f"(ExactMean {ex['layer1_ms']:.2f}) = propagate_gram {bd['propagate_gram_ms']:.2f} + "
+        f"guarded Cholesky {bd['cholesky_ms']:.2f} + A=TY^T {bd['a_ms']:.2f} + {k} ADMM "
+        f"iterations {bd['admm_ms']:.2f} ms traced, {bd['admm_untraced_ms']:.2f} untraced "
+        f"({bd['admm_untraced_ms'] / k:.3f} ms per iteration; ExactMean "
+        f"{ex['admm_untraced_ms'] / k:.3f}); vs CPU plain: o_star gap "
+        f"{bd['o_star_gap']:.3e} (card vs float64 {bd['card_f64_gap']:.3e}, CPU f32 vs "
+        f"float64 {bd['cpu_f64_gap']:.3e}) on {card}",
+        flush=True,
+    )
+
+    # (c) One mix.
+    mixes = gossip_mix_cases(torch, card, rounds)
+
+    # (d) The benchmark's call: the legacy dense-H simulation, with the
+    # launcher's data, shards and R (the generator at seed + 1).
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        cfn = consensus.make_consensus_fn("gossip", h=h, num_rounds=rounds)
+    for c in (gram, propagate_gram):
+        c.reset_launch_count()
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"] + 1)
+    t0 = time.perf_counter()
+    legacy, log = layerwise.train_decentralized_ssfn(
+        exact["xw"], exact["tw"], cfg, gen, consensus_fn=cfn, gossip_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count("legacy consensus_fn train")
+    if not all(bool(torch.isfinite(o).all()) for o in legacy.o):
+        raise AssertionError("legacy train: non-finite readouts")
+    if log.comm_scalars != rounds * run_d["comm_scalars"]:
+        raise AssertionError(f"legacy train: comm scalars {log.comm_scalars}")
+    legacy_cerr = consensus_errors(log.consensus_error[:, -1], legacy.o)
+    acc = layerwise.accuracy(legacy, data.x_test, data.y_test, q)
+    rep_l = equivalence.compare(cen, legacy, data.x_test, q)
+    gap_l = abs(acc - run_c["test_accuracy"])
+    print(
+        f"legacy gossip train M={m} (consensus_fn=make_consensus_fn('gossip', B={rounds}), "
+        f"gossip_rounds={rounds}): {wall:.3f} s per train, test accuracy {acc:.4f}, comm "
+        f"{log.comm_scalars} scalars = {rounds} x ExactMean's (B per consensus, the legacy "
+        f"accounting), final consensus error <= {legacy_cerr:.3e} x max|O_l|, vs "
+        f"centralized: agreement {rep_l.agreement:.4f}, |test accuracy gap| {gap_l:.4f}, "
+        f"max readout gap {rep_l.max_readout_gap:.3e} on {card}",
+        flush=True,
+    )
+    check_equivalence("legacy gossip train", rep_l, gap_l)
+    print(json.dumps({"gossip": {
+        "card": card, "rounds": rounds, "train_s": run["wall_time_s"],
+        "exact_train_s": run_d["wall_time_s"], "legacy_train_s": wall,
+        "agreement": rep.agreement, "legacy_agreement": rep_l.agreement,
+        "consensus_error": cerr, "legacy_consensus_error": legacy_cerr,
+        "layer1_ms": bd["layer1_ms"], "exact_layer1_ms": ex["layer1_ms"],
+        "admm_untraced_ms": bd["admm_untraced_ms"],
+        "exact_admm_untraced_ms": ex["admm_untraced_ms"], "o_star_gap": bd["o_star_gap"],
+        "mixes": mixes}}), flush=True)
     return launches
 
 
@@ -2006,7 +2243,11 @@ def main() -> int:
     cases = kernel_cases(torch, np)
     gram_cases, prop_cases = gram_kernel_cases(torch)
     launches = serve_slice(torch, np, card)
-    train_launches = train_slice(torch, card)
+    train_launches, exact = train_slice(torch, card)
+    gossip_launches = gossip_slice(torch, card, exact)
+    del exact
+    for k in train_launches:
+        train_launches[k] += gossip_launches[k]
     flash_cases = flash_kernel_cases(torch)
     flash_launches = inference_slice(torch, np, card)
     torch.cuda.empty_cache()

@@ -27,6 +27,7 @@ from typing import TYPE_CHECKING, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import consensus as consensus_lib
 from repro_torch.core.policy import ConsensusPolicy
 from repro_torch.kernels.gram import gram
 
@@ -243,6 +244,49 @@ def worker_admm_iterations(
     return (o, z, lam), tuple(torch.stack(col) for col in zip(*traced))
 
 
+def consensus_fn_iterations(
+    a: Tensor,
+    chol: Tensor,
+    y_workers: Tensor,
+    t_workers: Tensor,
+    z_init: Tensor,
+    *,
+    consensus_fn: Callable[[Tensor], Tensor],
+    mu: float,
+    eps_radius: float,
+    num_iters: int,
+):
+    """K eq.-11 iterations of the legacy ``consensus_fn`` simulation.
+
+    Not the backend path's iterate sequence: every worker's next O-update
+    uses worker 0's projected Z (the reference tracks it as "the" Z),
+    while the dual of each worker uses its own projected consensus
+    estimate.  The objective is taken at worker 0's Z, the primal
+    residual against each worker's own.  a (M, Q, n), chol (M, n, n),
+    y_workers (M, n, J_m) and t_workers (M, Q, J_m) are stacked; z_init
+    is (Q, n).
+
+    Returns ``(o, z, lam), traces``: z is worker 0's (Q, n), traces the
+    ``(objs, primals, duals, cerrs)`` tuple of (K,) tensors, every
+    iteration traced.
+    """
+    o = torch.zeros_like(a)
+    z, lam = z_init.to(a.dtype), torch.zeros_like(a)
+    traced = []
+    for _ in range(num_iters):
+        o = _o_update(a, chol, z, lam, mu)
+        avg = consensus_fn(o + lam)                      # still (M, Q, n)
+        cerr = consensus_lib.gossip_error(avg)
+        z_workers = project_frobenius(avg, eps_radius)
+        z_prev, z = z, z_workers[0]
+        lam = lam + o - z_workers
+        obj = ((t_workers - torch.matmul(z, y_workers)) ** 2).sum()
+        primal = torch.linalg.vector_norm(o - z_workers)
+        dual = torch.linalg.vector_norm(z - z_prev)
+        traced.append((obj, primal, dual, cerr))
+    return (o, z, lam), tuple(torch.stack(col) for col in zip(*traced))
+
+
 def admm_ridge_consensus(
     y_workers: Tensor,
     t_workers: Tensor,
@@ -263,14 +307,34 @@ def admm_ridge_consensus(
     t_workers: (M, Q, J_m) per-worker targets.
     backend: where the M workers run; defaults to ``SimulatedBackend(M)``.
     policy: how they reach consensus; defaults to the backend's policy.
-    consensus_fn: the reference's legacy dense-H simulation; not ported
-        (it raises ``NotImplementedError``).
-    trace_every: convergence-trace stride (``worker_admm_iterations``).
+    consensus_fn: the legacy batched (M, Q, n) -> (M, Q, n) averaging
+        primitive for simulations with an arbitrary dense mixing matrix H
+        (``consensus.make_consensus_fn('gossip', h=...)``); exclusive
+        with ``backend``/``policy`` (:func:`consensus_fn_iterations`).
+    trace_every: convergence-trace stride (``worker_admm_iterations``);
+        the consensus_fn path always traces every iteration.
     """
+    if consensus_fn is not None and (backend is not None or policy is not None):
+        raise ValueError("pass either consensus_fn or backend/policy, not both")
     if consensus_fn is not None:
-        raise NotImplementedError(
-            "the legacy dense-H consensus_fn simulation is not ported; pass "
-            "backend=/policy= (the gossip family is ROADMAP Queue 1 item 4)"
+        if trace_every != 1:
+            raise ValueError(
+                "trace_every is a backend-path knob; the legacy consensus_fn "
+                "simulation always traces every iteration"
+            )
+        a, chol, jitter = _worker_stats(y_workers, t_workers, mu)
+        q, n = t_workers.shape[1], y_workers.shape[1]
+        z_init = (
+            torch.zeros((q, n), dtype=y_workers.dtype, device=y_workers.device)
+            if z0 is None else z0.to(y_workers.dtype)
+        )
+        (o, z, lam), traces = consensus_fn_iterations(
+            a, chol, y_workers, t_workers, z_init, consensus_fn=consensus_fn,
+            mu=mu, eps_radius=eps_radius, num_iters=num_iters,
+        )
+        return ADMMResult(
+            o_star=z, o_workers=o, lam=lam, trace=ADMMTrace(*traces),
+            jitter=jitter,
         )
     from repro_torch.core.backend import SimulatedBackend
 

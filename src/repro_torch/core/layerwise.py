@@ -10,9 +10,13 @@ share the progressive-growth loop (paper §II-B):
     3. form W_{l+1} = [V_Q O_l ; R_{l+1}] and continue
 
 Each layer is one :func:`repro_torch.core.engine.fused_layer_step`, whose
-Gram products go through the hand-written kernels on the card.  Traces
-stay on the device until the loop ends; the loop's host syncs are the
-guarded Cholesky's one per layer and, with size estimation, one scalar.
+Gram products go through the hand-written kernels on the card.  The
+legacy ``consensus_fn=`` simulation (an arbitrary dense H,
+``consensus.make_consensus_fn``) runs its own loop,
+:func:`_train_consensus_fn_path`, through the same propagation and Gram
+ops.  Traces stay on the device until the loop ends; the loop's host
+syncs are the guarded Cholesky's one per layer and, with size
+estimation, one scalar.
 Checkpoint/resume, ``stop_after_layer`` and the divergence guard wait for
 ROADMAP Queue 1 item 6: they are not parameters here yet.
 """
@@ -20,11 +24,12 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import admm as admm_lib
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import ssfn as ssfn_lib
 from repro_torch.core.backend import ConsensusBackend, SimulatedBackend
@@ -80,8 +85,10 @@ def train_decentralized_ssfn(
     generator: torch.Generator | None = None,
     *,
     r: Sequence[Tensor] | None = None,
+    consensus_fn: Callable[[Tensor], Tensor] | None = None,
     backend: ConsensusBackend | None = None,
     policy: ConsensusPolicy | None = None,
+    gossip_rounds: int = 1,
     size_estimation_tol: float | None = None,
     trace_every: int = 1,
 ) -> tuple[ssfn_lib.SSFNParams, LayerwiseLog]:
@@ -95,7 +102,13 @@ def train_decentralized_ssfn(
         arrays).  Exactly one is passed.
     backend: where the M workers run; None = ``SimulatedBackend(M)``.
     policy: how the workers reach consensus; defaults to the backend's.
-        It also drives the eq.-15 accounting (``policy.comm_scalars``).
+        It also drives the eq.-15 accounting (``policy.comm_scalars``)
+        when a backend or policy is passed.
+    consensus_fn: the legacy dense-H consensus primitive for the
+        Z-update (exclusive with ``backend``/``policy``).
+    gossip_rounds: B, the eq.-15 exchanges per consensus when neither a
+        backend nor a policy is passed: with ``consensus_fn``, and for
+        the implicit simulated exact default (B=1 for one all-reduce).
     size_estimation_tol: the self-size-estimating stop (paper §I): stop
         growing layers once the relative cost improvement drops below
         this tolerance.  None = fixed size (``cfg.num_layers``).
@@ -103,16 +116,33 @@ def train_decentralized_ssfn(
         0 carries empty traces and layer costs, and cannot be combined
         with ``size_estimation_tol``.
     """
+    if consensus_fn is not None and (backend is not None or policy is not None):
+        raise ValueError("pass either consensus_fn or backend/policy, not both")
     if trace_every == 0 and size_estimation_tol is not None:
         raise ValueError(
             "size_estimation_tol reads the per-layer consensus objective; "
             "it cannot be combined with trace_every=0 (no traces)"
+        )
+    if consensus_fn is not None:
+        if trace_every != 1:
+            raise ValueError(
+                "trace_every is a backend-path knob; the legacy "
+                "consensus_fn simulation always traces every iteration"
+            )
+        return _train_consensus_fn_path(
+            x_workers, t_workers, cfg, generator, r=r,
+            consensus_fn=consensus_fn,
+            gossip_rounds=gossip_rounds,
+            size_estimation_tol=size_estimation_tol,
         )
     q = cfg.num_classes
     t0 = time.perf_counter()
     r_list = _random_matrices(cfg, generator, r, x_workers.device)
 
     engine_backend = backend or SimulatedBackend(x_workers.shape[0])
+    # The implicit simulated exact default (no backend, no policy) keeps
+    # the legacy ``gossip_rounds`` accounting.
+    explicit = backend is not None or policy is not None
     policy = policy if policy is not None else engine_backend.policy
     num_workers = engine_backend.num_workers
     t_workers = engine_backend.shard_workers(t_workers)
@@ -140,11 +170,14 @@ def train_decentralized_ssfn(
         jitter_list.append(step.jitter.cpu().numpy())
         # Eq.-15 accounting: Q * n_{l-1} scalars per exchange, the
         # policy's exchanges per consensus, K consensus rounds per layer.
-        comm += policy.comm_scalars(
-            scalars=q * y_workers.shape[1],
-            num_consensus=cfg.admm_iters,
-            num_workers=num_workers,
-        )
+        if explicit:
+            comm += policy.comm_scalars(
+                scalars=q * y_workers.shape[1],
+                num_consensus=cfg.admm_iters,
+                num_workers=num_workers,
+            )
+        else:
+            comm += q * y_workers.shape[1] * gossip_rounds * cfg.admm_iters
         # Self-size estimation: every worker sees the same consensus
         # objective, so the stop decision is itself consensual.
         if size_estimation_tol is not None:
@@ -180,6 +213,79 @@ def train_decentralized_ssfn(
         wall_time_s=time.perf_counter() - t0,
         comm_scalars=comm,
         jitter_levels=np.stack(jitter_list),
+    )
+    return params, log
+
+
+def _train_consensus_fn_path(
+    x_workers: Tensor,
+    t_workers: Tensor,
+    cfg: ssfn_lib.SSFNConfig,
+    generator: torch.Generator | None,
+    *,
+    r: Sequence[Tensor] | None,
+    consensus_fn: Callable[[Tensor], Tensor],
+    gossip_rounds: int,
+    size_estimation_tol: float | None,
+) -> tuple[ssfn_lib.SSFNParams, LayerwiseLog]:
+    """Legacy batched dense-H simulation (arbitrary mixing matrix H).
+
+    Each layer is ``admm.admm_ridge_consensus(consensus_fn=...)``'s solve
+    (:func:`admm.consensus_fn_iterations`).  Its features and Gram come
+    from the ``gram`` op at layer 0 and the ``propagate_gram`` op at every
+    later layer: relu(W Y) and Y Y^T + I/mu, the reference's plain
+    propagation and Gram in one call.
+    """
+    q = cfg.num_classes
+    t0 = time.perf_counter()
+    r_list = _random_matrices(cfg, generator, r, x_workers.device)
+
+    o_list: list[Tensor] = []
+    y_workers = x_workers                      # y_0 = x
+    dev_traces = []
+    layer_costs: list[float] = []
+    comm = 0
+    w_next: Tensor | None = None
+    for layer in range(cfg.num_layers + 1):
+        mu = _mu_for_layer(cfg, layer)
+        if w_next is None:
+            a, chol, _ = admm_lib._worker_stats(y_workers, t_workers, mu)
+        else:
+            y_workers, a, chol, _ = engine_lib._propagate_and_stats(
+                w_next, y_workers, t_workers, mu
+            )
+        z_init = torch.zeros(a.shape[1:], dtype=a.dtype, device=a.device)
+        (_, o_l, _), traces = admm_lib.consensus_fn_iterations(
+            a, chol, y_workers, t_workers, z_init, consensus_fn=consensus_fn,
+            mu=mu, eps_radius=cfg.eps_radius, num_iters=cfg.admm_iters,
+        )
+        o_list.append(o_l)
+        dev_traces.append(traces)
+        comm += q * y_workers.shape[1] * gossip_rounds * cfg.admm_iters
+        if size_estimation_tol is not None:
+            layer_costs.append(float(traces[0][-1]))
+            if (
+                len(layer_costs) >= 2
+                and layer_costs[-2] - layer_costs[-1]
+                < size_estimation_tol * max(layer_costs[-2], 1e-12)
+            ):
+                break
+        if layer < cfg.num_layers:
+            w_next = ssfn_lib.build_weight(o_l, r_list[layer], q)
+
+    # One fetch of every per-layer trace after the loop.
+    traces = [[t.cpu().numpy() for t in tr] for tr in dev_traces]
+    params = ssfn_lib.SSFNParams(
+        o=tuple(o_list), r=tuple(r_list[: len(o_list) - 1])
+    )
+    log = LayerwiseLog(
+        layer_costs=[float(tr[0][-1]) for tr in traces],
+        admm_objective=np.stack([tr[0] for tr in traces]),
+        admm_primal=np.stack([tr[1] for tr in traces]),
+        admm_dual=np.stack([tr[2] for tr in traces]),
+        consensus_error=np.stack([tr[3] for tr in traces]),
+        wall_time_s=time.perf_counter() - t0,
+        comm_scalars=comm,
     )
     return params, log
 

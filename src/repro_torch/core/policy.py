@@ -2,15 +2,37 @@
 
 Port of the parts of ``repro/core/policy.py`` the training slice runs:
 the :class:`ConsensusContext` collectives, the :class:`ConsensusPolicy`
-protocol with its eq.-15 accounting, and :class:`ExactMean`.
+protocol with its eq.-15 accounting, :class:`ExactMean`, the paper's
+gossip (:class:`Gossip` over any :mod:`repro_torch.core.topology` graph,
+and :func:`RingGossip`, its circular alias) and the spec grammar
+(:func:`parse_policy`).
 
 The paper's Algorithm 1 is parameterized by *how* the workers average;
 everything else is invariant.  A policy's ``mix(x, state, ctx)`` runs
 inside the worker program and communicates only through ``ctx``.  In the
 port the M workers are the leading dimension of a tensor, ``(M, ...)``,
 so a collective is a reduction over dim 0 whose result every worker
-sees.  The gossip family (``Gossip``, ``QuantizedGossip``, ...) waits for
-ROADMAP Queue 1 item 4.
+sees, and a ``ppermute`` hop is a gather over dim 0.
+
+==================================  ==============================  ==========
+policy                              exchanges/round                 wire bits
+==================================  ==============================  ==========
+``ExactMean()``                     1 (one all-reduce)              32
+``Gossip(rounds, topology)``        rounds * topology edges         32/16
+``RingGossip(rounds, degree)``      2 * degree * rounds             32/16
+==================================  ==============================  ==========
+
+``Gossip`` compiles its B rounds into ONE H^B mix by default
+(``compress=True``; :meth:`repro_torch.core.topology.Topology.power_schedule`),
+where that schedule is shallower than B serial rounds, and takes
+``wire_dtype=`` (f32 / bf16 / f16 link payloads accumulated in full
+precision).  The rest of the reference's family (``QuantizedGossip``,
+``LossyGossip``, ``StaleMixing``, ``AsyncGossip`` and the robust
+policies) waits for ROADMAP Queue 1 item 4: :func:`parse_policy` parses
+their specs and raises ``NotImplementedError`` naming it.
+
+Policies are frozen dataclasses: hashable (they key the backend's
+program record), compare by value, and hold only static configuration.
 """
 from __future__ import annotations
 
@@ -20,6 +42,10 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.core import consensus as consensus_lib
+from repro_torch.core import topology as topology_lib
+from repro_torch.core.topology import Ring, Topology, parse_topology
+
 Tensor = torch.Tensor
 
 
@@ -27,7 +53,8 @@ Tensor = torch.Tensor
 class ConsensusContext:
     """Collectives available to a policy inside the worker program: each
     reduces over the worker dimension (dim 0) of a stacked ``(M, ...)``
-    tensor and hands every worker the result, stacked again."""
+    tensor and hands every worker the result, stacked again, or (for
+    ``ppermute``) moves each worker's slice to another worker."""
 
     num_workers: int
 
@@ -40,8 +67,35 @@ class ConsensusContext:
     def pmax(self, x: Tensor) -> Tensor:
         return x.amax(dim=0, keepdim=True).expand_as(x)
 
+    def ppermute(self, x: Tensor, perm) -> Tensor:
+        """``out[dst] = x[src]`` for each ``(src, dst)`` pair of ``perm``,
+        a permutation of the workers."""
+        return consensus_lib.ppermute(x, perm)
+
     def worker_index(self, device: torch.device | str | None = None) -> Tensor:
         return torch.arange(self.num_workers, device=device)
+
+
+def _cycle_exchanges(
+    topology: Topology, rounds: int, num_workers: int | None
+) -> int:
+    """Eq.-15 peer messages for B gossip rounds over a (possibly
+    time-varying) topology: round b talks on cycle[b % L]'s edges."""
+    cycle = topology.cycle()
+    return sum(
+        cycle[b % len(cycle)].edges_per_node(num_workers)
+        for b in range(rounds)
+    )
+
+
+def _cycle_schedules(topology: Topology, ctx: "ConsensusContext") -> list:
+    """Per-round exchange schedules; round b uses schedules[b % L]
+    (memoized: irregular graphs pay a Birkhoff decomposition per
+    schedule construction)."""
+    return [
+        topology_lib.cached_exchange_schedule(t, ctx.num_workers)
+        for t in topology.cycle()
+    ]
 
 
 class ConsensusPolicy(abc.ABC):
@@ -139,3 +193,336 @@ class ExactMean(ConsensusPolicy):
 
     def mix(self, x, state, ctx):
         return ctx.pmean(x), state
+
+
+# -------------------------------------------------------------- gossip
+
+@dataclass(frozen=True)
+class Gossip(ConsensusPolicy):
+    """B rounds of doubly-stochastic gossip x <- H x over an arbitrary
+    :class:`~repro_torch.core.topology.Topology` (paper §III).
+
+    The topology's static exchange schedule, ``(permutation, weight)``
+    steps, runs as gathers over the worker dimension; ``TimeVarying``
+    topologies cycle one sub-schedule per round.
+
+    ``compress=True`` (default) collapses the B serial rounds into ONE
+    mix with the precomputed power matrix H^B, compiled through the
+    Birkhoff-von-Neumann path (:meth:`Topology.power_schedule`), when
+    that schedule is shallower than the serial one: about |support(H^B)|
+    weighted hops instead of B x edges.  The result equals ``H**B @ x``
+    up to float reassociation; ``compress=False`` runs the hop-by-hop
+    serial schedule (bit-identical to ``consensus.ring_gossip_average``
+    for a ring).
+
+    ``wire_dtype`` (``"float32"`` default, ``"bfloat16"``/``"float16"``)
+    narrows every link payload: messages are cast once before the wire
+    and accumulated in full precision on receipt.  Eq.-15 exchange
+    *counts* stay the mathematical B x edges regardless of compression.
+    """
+
+    rounds: int = 1
+    topology: Topology = Ring(1)
+    compress: bool = True
+    wire_dtype: str = "float32"
+
+    mode_name = "gossip"
+
+    def __post_init__(self):
+        if self.rounds < 1:
+            raise ValueError(f"gossip rounds must be >= 1, got {self.rounds}")
+        if not isinstance(self.topology, Topology):
+            raise TypeError(
+                f"topology must be a Topology, got {type(self.topology).__name__}"
+            )
+        object.__setattr__(
+            self, "wire_dtype",
+            consensus_lib.canonical_wire_dtype(self.wire_dtype),
+        )
+
+    @property
+    def degree(self) -> int:
+        """Legacy ``backend.degree`` view (ring topologies only)."""
+        return getattr(self.topology, "degree", 1)
+
+    @property
+    def wire_bits(self) -> int:  # type: ignore[override]
+        return consensus_lib.WIRE_DTYPES[self.wire_dtype]
+
+    def validate(self, num_workers: int) -> None:
+        self.topology.validate(num_workers)
+
+    @property
+    def exchanges_per_round(self) -> int:
+        return self.exchanges_for(None)
+
+    def exchanges_for(self, num_workers: int | None) -> int:
+        return _cycle_exchanges(self.topology, self.rounds, num_workers)
+
+    @property
+    def _compressible(self) -> bool:
+        # rounds=1 over a single graph IS its native schedule already.
+        return self.compress and not (
+            self.rounds == 1 and len(self.topology.cycle()) == 1
+        )
+
+    def _serial_hops(self, num_workers: int) -> int:
+        # Each distinct cycle entry's schedule is built once, then the
+        # hops are counted over the round sequence.
+        per_phase = [
+            len(topology_lib.cached_exchange_schedule(t, num_workers).perms)
+            for t in self.topology.cycle()
+        ]
+        return sum(
+            per_phase[b % len(per_phase)] for b in range(self.rounds)
+        )
+
+    def _compressed_schedule_or_none(self, num_workers: int):
+        """The H^B schedule IF it is shallower than B serial rounds.
+        Vertex-transitive graphs compress to <= M-1 hops, but the
+        Birkhoff depth of an irregular (geometric) power can exceed the
+        serial hop count: compression applies only where it wins."""
+        if not self._compressible:
+            return None
+        sched = topology_lib.compressed_schedule(
+            self.topology, num_workers, self.rounds
+        )
+        if len(sched.perms) >= self._serial_hops(num_workers):
+            return None
+        return sched
+
+    def hops_for(self, num_workers: int) -> int:
+        """Permutation hops one ``mix`` executes: the compressed
+        schedule's depth, or every edge of every round when serial."""
+        sched = self._compressed_schedule_or_none(num_workers)
+        if sched is not None:
+            return len(sched.perms)
+        return self._serial_hops(num_workers)
+
+    def mix(self, x, state, ctx):
+        wd = None if self.wire_dtype == "float32" else self.wire_dtype
+        sched = self._compressed_schedule_or_none(ctx.num_workers)
+        if sched is not None:
+            # One mix with H^B: the whole B-round schedule as one
+            # minimal-depth weighted hop sequence.
+            return consensus_lib.schedule_gossip_step(x, sched, wire_dtype=wd), state
+        scheds = _cycle_schedules(self.topology, ctx)
+        if len(scheds) == 1:
+            # The bit-identity path for Ring (ring_gossip_average's hops).
+            out = consensus_lib.schedule_gossip_average(
+                x, scheds[0], self.rounds, wire_dtype=wd
+            )
+        else:
+            out = x
+            for b in range(self.rounds):
+                out = consensus_lib.schedule_gossip_step(
+                    out, scheds[b % len(scheds)], wire_dtype=wd
+                )
+        return out, state
+
+
+def RingGossip(
+    rounds: int = 1,
+    degree: int = 1,
+    *,
+    compress: bool = True,
+    wire_dtype: str = "float32",
+) -> Gossip:
+    """The paper's degree-d circular gossip: an alias for
+    ``Gossip(rounds, topology=Ring(degree))``.  With ``compress=False``
+    (and a full-width wire) it executes ``ring_gossip_average``'s hop
+    sequence bit for bit; the default compressed form mixes once with
+    H^B instead (equal up to float reassociation)."""
+    return Gossip(
+        rounds=rounds, topology=Ring(degree=degree),
+        compress=compress, wire_dtype=wire_dtype,
+    )
+
+
+# ------------------------------------------------------------- parsing
+
+#: Spec-grammar policy names (``parse_policy`` / ``dssfn.parse_spec``).
+_MODES = (
+    "exact", "gossip", "quantized", "lossy", "stale", "async",
+    "trimmed", "median", "clipped",
+)
+
+#: Max positional ``:``-separated arguments each policy spec accepts;
+#: extra segments are an error, never silently dropped.  ``key=value``
+#: segments are counted separately (see ``parse_policy``).
+_SPEC_MAX_ARGS = {
+    "exact": 0, "gossip": 2, "quantized": 1, "lossy": 3, "stale": 1,
+    "async": 0, "trimmed": 0, "median": 0, "clipped": 1,
+}
+
+#: One-line-per-entry grammar, quoted in full by unknown-token errors.
+_POLICY_GRAMMAR = """\
+  exact                                   one all-reduce (true mean)
+  gossip[:B[:d]]                          B gossip rounds, ring degree d
+  quantized[:bits]                        stochastic k-bit quantized gossip
+  lossy[:p[:B[:d]]]                       per-link drop probability p
+  stale[:delay]                           delayed self-substitution mixing
+  async[:key=value...]                    interval= rounds= seed= drop=
+                                          fail= fail_at= stragglers=
+                                          straggle= byz= attack=
+  trimmed[:key=value...]                  f= rounds= + fault keys
+  median[:key=value...]                   rounds= + fault keys
+  clipped[:tau][:key=value...]            tau= rounds= + fault keys
+Any gossip-family policy also takes wire=f32|bf16|f16, and attacks are
+signflip | scale:c | noise:s | nanbomb | replay:d (byz= picks workers,
+attack= alone defaults to byz=0).  Append @topology to pick the graph:
+  ring[:d] | torus:RxC | hypercube | geometric:r[:seed] | full
+  ('+'-join phases for a time-varying cycle, e.g. ring:1+hypercube)"""
+
+def _int_list(text: str) -> tuple[int, ...]:
+    """``"1+3+6"`` -> ``(1, 3, 6)`` (the spec grammar's worker lists)."""
+    return tuple(int(s) for s in text.split("+") if s)
+
+
+#: How each ``key=value`` of the unported policies parses.
+_KEY_PARSERS = {
+    "rounds": int, "interval": int, "f": int, "tau": float,
+    "drop": float, "seed": int, "fail_at": int, "straggle": int,
+    "fail": _int_list, "stragglers": _int_list, "byz": _int_list, "attack": str,
+}
+
+#: The fault-grammar keys ``async`` and the robust policies share.
+_FAULT_KEYS = ("drop", "seed", "fail", "fail_at", "stragglers", "straggle", "byz", "attack")
+
+#: The ``key=value`` segments each unported keyed policy takes.
+_POLICY_KEYS = {
+    "async": ("rounds", "interval") + _FAULT_KEYS,
+    "trimmed": ("rounds", "f") + _FAULT_KEYS,
+    "median": ("rounds",) + _FAULT_KEYS,
+    "clipped": ("rounds", "tau") + _FAULT_KEYS,
+}
+
+
+def _unported_policy(name: str, spec: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"consensus policy {name!r} (spec {spec!r}) is not ported to "
+        "repro_torch yet (ROADMAP Queue 1 item 4); the port runs exact "
+        "and gossip"
+    )
+
+
+def parse_policy(
+    spec: str,
+    *,
+    degree: int = 1,
+    rounds: int = 1,
+    topology: "Topology | str | None" = None,
+) -> ConsensusPolicy:
+    """CLI policy specs: ``exact | gossip[:B[:d]] | quantized:bits |
+    lossy:p[:B[:d]] | stale:delay | async[:key=value...] |
+    trimmed[:key=value...] | median[:key=value...] |
+    clipped[:tau][:key=value...]``, the reference's grammar and errors.
+
+    ``degree``/``rounds`` fill the segments the spec leaves out;
+    ``key=value`` segments configure ``wire=`` and the fault keys; an
+    ``@topology`` half (or ``topology=``, a ``Topology`` or a
+    ``parse_topology`` spec) replaces the default ring.  ``exact`` and
+    ``gossip`` build their policies; the rest of the family parses, then
+    raises ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+
+    >>> parse_policy("gossip:3").topology
+    Ring(degree=1)
+    """
+    if isinstance(topology, str):
+        topology = parse_topology(topology)
+    spec, at, graph = spec.partition("@")
+    if at:
+        if topology is not None:
+            raise ValueError(
+                f"policy spec {spec!r}@{graph!r} names an '@topology' AND "
+                "one was passed explicitly; drop one of them"
+            )
+        topology = parse_topology(graph)
+    segments = [s for s in spec.split(":") if s]
+    name = segments[0] if segments else spec
+    args: list[str] = []
+    kv: dict[str, str] = {}
+    last_key: str | None = None
+    for seg in segments[1:]:
+        if "=" in seg:
+            k, _, v = seg.partition("=")
+            if k in kv:
+                raise ValueError(
+                    f"bad consensus policy spec {spec!r}: duplicate key {k!r}"
+                )
+            kv[k] = v
+            last_key = k
+        elif last_key == "attack":
+            # Attack specs carry their own ':'-argument (scale:10,
+            # noise:0.5, replay:3): rejoin the segment the split took off.
+            kv["attack"] += ":" + seg
+            last_key = None
+        else:
+            args.append(seg)
+            last_key = None
+    if name not in _MODES:
+        raise ValueError(
+            f"unknown consensus policy {name!r} (spec {spec!r}); "
+            f"the full grammar:\n{_POLICY_GRAMMAR}"
+        )
+    if len(args) > _SPEC_MAX_ARGS[name]:
+        raise ValueError(
+            f"bad consensus policy spec {spec!r}: {name} takes at most "
+            f"{_SPEC_MAX_ARGS[name]} positional ':'-argument(s), got {len(args)}"
+        )
+    if topology is not None and name == "exact":
+        raise ValueError(
+            f"bad consensus policy spec {spec!r}: exact consensus is a "
+            "single all-reduce and takes no topology (use a gossip-family "
+            "policy)"
+        )
+    try:
+        wire = kv.pop("wire", None)
+        if wire is not None and name in ("exact", "quantized"):
+            raise ValueError(f"{name} takes no wire= (it has no gossip link)")
+        wire = consensus_lib.canonical_wire_dtype(wire or "float32")
+        if name in _POLICY_KEYS:
+            # Parse the keys (and clipped's positional tau) as the
+            # reference's constructors take them, then refuse.
+            if name == "clipped" and "tau" in kv and args:
+                raise ValueError(
+                    "pass the clip radius either positionally "
+                    "(clipped:0.5) or as tau=, not both"
+                )
+            for key in _POLICY_KEYS[name]:
+                if key in kv:
+                    _KEY_PARSERS[key](kv.pop(key))
+            for text in args:
+                float(text)
+            if kv:
+                raise ValueError(f"unknown {name} key(s) {sorted(kv)}")
+            raise _unported_policy(name, spec)
+        if kv:
+            raise ValueError(f"unknown {name} key(s) {sorted(kv)}")
+        if name == "exact":
+            return ExactMean()
+        if name == "gossip":
+            b = int(args[0]) if args else rounds
+            if topology is not None:
+                if len(args) > 1:
+                    raise ValueError(
+                        "pass either a ring degree segment or topology=, "
+                        "not both"
+                    )
+                return Gossip(rounds=b, topology=topology, wire_dtype=wire)
+            deg = int(args[1]) if len(args) > 1 else degree
+            return RingGossip(rounds=b, degree=deg, wire_dtype=wire)
+        # quantized:bits, lossy:p[:B[:d]], stale:delay: parse the
+        # positional segments as the reference's constructors take them.
+        if name == "lossy" and topology is not None and len(args) > 2:
+            raise ValueError(
+                "pass either a ring degree segment or topology=, not both"
+            )
+        kinds = (float, int, int) if name == "lossy" else (int,)
+        for text, kind in zip(args, kinds):
+            kind(text)
+        raise _unported_policy(name, spec)
+    except ValueError as e:
+        # int()/float() parse failures and constructor validation errors,
+        # re-raised with the offending spec attached.
+        raise ValueError(f"bad consensus policy spec {spec!r}: {e}") from e

@@ -1,8 +1,9 @@
 """repro_torch.dssfn — the one-call facade for decentralized SSFN training.
 
-Port of ``repro/dssfn.py`` (:class:`TrainSpec`, :func:`train`,
-:func:`evaluate`) for what the port runs so far: the simulated backend
-with exact consensus::
+Port of ``repro/dssfn.py`` (:func:`parse_spec`, :class:`TrainSpec`,
+:func:`train`, :func:`evaluate`) for what the port runs so far: the
+simulated backend with exact consensus or the paper's gossip over any
+graph::
 
     from repro_torch import dssfn
     from repro_torch.core import ssfn
@@ -11,21 +12,29 @@ with exact consensus::
         cfg=ssfn.SSFNConfig(input_dim=16, num_classes=6, num_layers=3,
                             hidden=64),
         workers=8,
+        policy="gossip:4:2",       # or a repro_torch.core.policy object
+        topology="torus:2x4",      # or a core.topology.Topology object
         partition="noniid:0.75",
     )
     x_workers, t_workers = spec.partition_data(x_train, t_train)
     result = dssfn.train(spec, x_workers, t_workers, torch.Generator("cuda"))
     acc = dssfn.evaluate(result, x_test, y_test)
 
+``policy`` accepts a policy object or a spec string in the unified
+:func:`parse_spec` grammar, ``"policy[@topology]"``; ``topology`` a
+:mod:`repro_torch.core.topology` object or spec string applied to the
+gossip policy; ``membership`` masks its graph to the active workers
+(``Masked``/``Membership``); ``wire_dtype`` narrows its link payloads.
+
 Training runs on the device the data lies on.  Every field of the
-reference's spec is here; those whose machinery is not ported yet (other
-backends and policies, topologies, membership, wire dtypes, checkpoints
-and the divergence guard) raise ``NotImplementedError`` naming the
-ROADMAP item that brings them, rather than being ignored.
+reference's spec is here; those whose machinery is not ported yet (the
+mesh backend, the rest of the policy family, checkpoints and the
+divergence guard) raise ``NotImplementedError`` naming the ROADMAP item
+that brings them, rather than being ignored.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import NamedTuple, Sequence
 
 import torch
@@ -33,7 +42,9 @@ import torch
 from repro_torch.core import layerwise as layerwise_lib
 from repro_torch.core import ssfn as ssfn_lib
 from repro_torch.core.backend import ConsensusBackend, SimulatedBackend
-from repro_torch.core.policy import ConsensusPolicy, ExactMean
+from repro_torch.core.consensus import canonical_wire_dtype
+from repro_torch.core.policy import ConsensusPolicy, ExactMean, Gossip, parse_policy
+from repro_torch.core.topology import Masked, Membership, Topology, parse_topology
 
 _BACKEND_KINDS = ("simulated", "mesh")
 
@@ -41,7 +52,70 @@ _BACKEND_KINDS = ("simulated", "mesh")
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item}); "
-        "the port trains with backend='simulated' and exact consensus"
+        "the port trains with backend='simulated'"
+    )
+
+
+def parse_spec(
+    spec: str, *, degree: int = 1, rounds: int = 1
+) -> ConsensusPolicy:
+    """The unified consensus-spec grammar: ``policy[@topology]``.
+
+    The policy half is the ``parse_policy`` grammar (``exact |
+    gossip[:B[:d]] | quantized:bits | lossy:p[:B[:d]] | stale:delay |
+    async[:key=value...] | trimmed[:key=value...] |
+    median[:key=value...] | clipped[:tau][:key=value...]``, plus
+    ``wire=``/fault ``key=value`` segments) and the optional
+    ``@topology`` half the ``parse_topology`` grammar (``ring:d |
+    torus:RxC | hypercube | geometric:r[:seed] | full``, ``+``-joined for
+    time-varying cycles)::
+
+        parse_spec("gossip:4:2")
+        parse_spec("gossip:4@torus:2x4")
+        parse_spec("gossip:3:wire=bf16@hypercube")
+
+    ``degree``/``rounds`` fill spec segments left implicit (the
+    launcher's ``--degree``/``--rounds`` flags).  Policies the port does
+    not have yet parse, then raise ``NotImplementedError``.
+    """
+    policy_part, sep, topo_part = spec.partition("@")
+    if sep and not topo_part:
+        raise ValueError(f"bad consensus spec {spec!r}: empty @topology half")
+    topo = parse_topology(topo_part) if sep else None
+    return parse_policy(policy_part, degree=degree, rounds=rounds, topology=topo)
+
+
+def apply_topology(policy: ConsensusPolicy, topology: Topology) -> ConsensusPolicy:
+    """Return ``policy`` running over ``topology``.
+
+    Gossip-family policies (anything with a ``topology`` field) are
+    rebuilt with the graph swapped in; ``ExactMean`` is rejected: a
+    single all-reduce has no graph (use ``Gossip`` with
+    ``FullyConnected()`` for the dense-graph gossip form).
+    """
+    if any(f.name == "topology" for f in fields(policy)):
+        return replace(policy, topology=topology)
+    raise ValueError(
+        f"policy {policy.describe()} does not take a topology; use a "
+        "gossip-family policy (gossip / quantized / lossy / stale)"
+    )
+
+
+def apply_wire_dtype(policy: ConsensusPolicy, wire_dtype: str) -> ConsensusPolicy:
+    """Return ``policy`` with its link payloads narrowed to ``wire_dtype``
+    (``"float32" | "bfloat16" | "float16"``, or ``f32/bf16/f16``).
+
+    Gossip-family policies (anything with a ``wire_dtype`` field) are
+    rebuilt with the wire swapped in; ``ExactMean`` (the full-precision
+    all-reduce baseline) is rejected.
+    """
+    wire_dtype = canonical_wire_dtype(wire_dtype)
+    if any(f.name == "wire_dtype" for f in fields(policy)):
+        return replace(policy, wire_dtype=wire_dtype)
+    raise ValueError(
+        f"policy {policy.describe()} does not take a wire_dtype; use a "
+        "gossip-family policy (gossip / lossy / stale — quantized packs "
+        "its own wire format)"
     )
 
 
@@ -52,13 +126,22 @@ class TrainSpec:
     cfg: ssfn_lib.SSFNConfig
     backend: str | ConsensusBackend = "simulated"
     workers: int | None = None
-    #: ``None``, ``"exact"`` or ``ExactMean()``.  None defers to a backend
-    #: instance's own policy, else ``ExactMean``.
+    #: ConsensusPolicy object or spec string.  None defers to the
+    #: backend: a ``ConsensusBackend`` instance keeps its own policy; a
+    #: backend built from a kind string gets ``ExactMean`` (or one
+    #: ``Gossip`` round when ``topology`` is set).  An explicit policy
+    #: always wins.
     policy: str | ConsensusPolicy | None = None
-    topology: object | None = None
+    #: Communication graph for the gossip policy: a
+    #: ``repro_torch.core.topology.Topology`` object or spec string
+    #: (``parse_topology`` grammar).  None keeps the policy's own graph.
+    topology: str | Topology | None = None
     #: Worker-shard layout ``partition_data`` uses: ``"iid"`` or
     #: ``"noniid[:alpha]"`` (``repro_torch.data.partition_by_spec``).
     partition: str = "iid"
+    #: Link payload width for the gossip policy (``"float32" |
+    #: "bfloat16" | "float16"`` or ``f32/bf16/f16``); None keeps the
+    #: policy's own wire.
     wire_dtype: str | None = None
     #: ADMM convergence-trace stride: 1 = every iteration, 0 = none,
     #: N > 1 = every N-th iteration.
@@ -66,7 +149,10 @@ class TrainSpec:
     mesh: object | None = None
     #: Self-size-estimation stop tolerance (paper §I); None = fixed depth.
     size_estimation_tol: float | None = None
-    membership: object | None = None
+    #: Elastic membership: a ``Membership`` (or a ``"1"``/``"0"`` slot
+    #: string such as ``"1101"``) masking the gossip policy's graph to the
+    #: active workers (``topology.Masked``).
+    membership: Membership | str | None = None
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1
     resume: bool = False
@@ -87,17 +173,6 @@ class TrainSpec:
             raise _unported(f"backend {type(self.backend).__name__}", "item 5")
         if self.mesh is not None:
             raise _unported("mesh=", "item 5")
-        pol = self.policy
-        if isinstance(self.backend, ConsensusBackend) and pol is None:
-            pol = self.backend.policy
-        if not (pol is None or pol == "exact" or isinstance(pol, ExactMean)):
-            raise _unported(f"consensus policy {pol!r}", "item 4")
-        if self.topology is not None:
-            raise _unported("topology=", "items 3-4")
-        if self.membership is not None:
-            raise _unported("membership=", "item 3")
-        if self.wire_dtype is not None:
-            raise _unported("wire_dtype=", "item 4")
         if (
             self.checkpoint_dir is not None or self.checkpoint_every != 1
             or self.resume or self.stop_after_layer is not None
@@ -107,13 +182,56 @@ class TrainSpec:
                 "checkpointing, resume, stop_after_layer and the divergence "
                 "guard", "item 6",
             )
+        # Policies the port does not have raise here, not at train time.
+        self.resolve_policy()
+
+    def resolve_membership(self) -> Membership | None:
+        if self.membership is None or isinstance(self.membership, Membership):
+            return self.membership
+        return Membership(tuple(c == "1" for c in self.membership))
+
+    def resolve_topology(self) -> Topology | None:
+        if self.topology is None or isinstance(self.topology, Topology):
+            return self.topology
+        return parse_topology(self.topology)
 
     def resolve_policy(self) -> ConsensusPolicy:
+        topo = self.resolve_topology()
         if isinstance(self.policy, ConsensusPolicy):
-            return self.policy
-        if self.policy is None and isinstance(self.backend, ConsensusBackend):
-            return self.backend.policy
-        return ExactMean()
+            pol = self.policy
+            pol = pol if topo is None else apply_topology(pol, topo)
+        elif self.policy is None:
+            if topo is not None:
+                # Topology with no policy = one plain gossip round over
+                # that graph per consensus (raise rounds via policy=).
+                pol = Gossip(rounds=1, topology=topo)
+            elif isinstance(self.backend, ConsensusBackend):
+                pol = self.backend.policy
+            else:
+                pol = ExactMean()
+        elif "@" in self.policy:
+            # The unified spec grammar carries its own topology half.
+            if topo is not None:
+                raise ValueError(
+                    f"policy spec {self.policy!r} already names a "
+                    "'@topology'; drop spec.topology"
+                )
+            pol = parse_spec(self.policy)
+        else:
+            pol = parse_policy(self.policy, topology=topo)
+        if self.wire_dtype is not None:
+            pol = apply_wire_dtype(pol, self.wire_dtype)
+        membership = self.resolve_membership()
+        if membership is not None:
+            base = getattr(pol, "topology", None)
+            if base is None:
+                raise ValueError(
+                    f"policy {pol.describe()} does not take a topology, so "
+                    "membership cannot mask its graph; use a gossip-family "
+                    "policy"
+                )
+            pol = apply_topology(pol, Masked(base, membership))
+        return pol
 
     def resolve_backend(self) -> ConsensusBackend:
         if isinstance(self.backend, ConsensusBackend):

@@ -2,21 +2,40 @@
 
 Port of ``repro/launch/train_dssfn.py`` for what the port runs so far:
 layer-wise consensus-ADMM training of M workers on the simulated backend
-(all workers on one device) with exact consensus.  Every Gram product of
-the train goes through the hand-written CUDA kernels (``gram`` at layer
-0, ``propagate_gram`` at every later layer)::
+(all workers on one device) with exact consensus or the paper's gossip.
+Every Gram product of the train goes through the hand-written CUDA
+kernels (``gram`` at layer 0, ``propagate_gram`` at every later layer)::
 
     python -m repro_torch.launch.train_dssfn --workers 20 --layers 20 \\
         --hidden 1020 --classes 10 --input-dim 784 --train 60000 \\
         --test 10000 --admm-iters 100 --export-artifact /tmp/stack
     python -m repro_torch.launch.serve_dssfn --artifact /tmp/stack
 
+Consensus is a policy spec in ``dssfn.parse_spec``'s grammar::
+
+    --consensus exact           one all-reduce (the default)
+    --consensus gossip:52:4     52 rounds of degree-4 ring gossip (the
+                                paper's M=20 network at tolerance 1e-8)
+    --consensus gossip:4@torus:2x4
+
+``--topology`` (``ring[:d] | torus:RxC | hypercube | geometric:r[:seed]
+| full``, ``+``-joined for a time-varying cycle) swaps the gossip graph,
+and with the default ``--consensus exact`` implies gossip over it
+(``--rounds`` rounds); ``--degree``/``--rounds`` fill the segments a
+spec leaves out; ``--wire-dtype bf16|f16`` narrows the link payloads;
+``--no-compress`` runs B serial rounds instead of one H^B schedule;
+``--membership 1101`` masks the graph to the active workers.  The other
+policies of the grammar (quantized, lossy, stale, async and the robust
+ones) raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+
 It runs on ``cuda`` unless ``--device cpu`` is given (the CPU takes the
 kernels' plain versions).  The data is the planted-teacher problem of
 ``repro_torch.data`` drawn from ``--seed`` and the random matrices from
 ``--seed + 1``, on the run's device.  The result dict has ``repro``'s
-keys, plus ``device`` and ``kernel_launches``, the CUDA kernel launches
-per kernel during training and test evaluation.  ``--export-artifact``
+keys, plus ``device``, ``kernel_launches`` (the CUDA kernel launches
+per kernel during training and test evaluation) and
+``consensus_error`` (each layer's ADMM consensus error at its last
+iteration; None without traces).  ``--export-artifact``
 writes the trained stack in ``repro``'s serving format, which
 ``repro_torch.launch.serve_dssfn`` (or ``repro``'s) serves.
 """
@@ -37,12 +56,44 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument(
         "--consensus", default="exact",
-        help="consensus spec; only 'exact' (one all-reduce) is ported",
+        help="consensus spec (dssfn.parse_spec grammar): exact | "
+        "gossip[:B[:d]], optionally '@topology' and ':wire=bf16'; the "
+        "other policies of the grammar are not ported yet",
+    )
+    ap.add_argument(
+        "--topology", default=None,
+        help="communication graph for the gossip policy: ring[:d] | "
+        "torus:RxC | hypercube | geometric:r[:seed] | full ('+'-joined "
+        "specs cycle round by round).  With the default --consensus exact "
+        "this implies gossip over the graph (--rounds rounds).",
     )
     ap.add_argument(
         "--partition", default="iid",
         help="worker data partition: iid | noniid[:alpha] (alpha in (0,1] "
         "= label-skew fraction per shard)",
+    )
+    # default=None so build_policy can tell an explicit --degree from the
+    # implicit 2 and reject --degree with --topology.
+    ap.add_argument(
+        "--degree", type=int, default=None,
+        help="gossip ring degree d (default 2; incompatible with --topology)",
+    )
+    ap.add_argument("--rounds", type=int, default=10, help="gossip rounds B")
+    ap.add_argument(
+        "--wire-dtype", default=None,
+        choices=["float32", "bfloat16", "float16", "f32", "bf16", "f16"],
+        help="link payload width for the gossip policy: messages are cast "
+        "once before the wire and accumulated in f32",
+    )
+    ap.add_argument(
+        "--no-compress", action="store_true",
+        help="run gossip rounds as B serial exchange schedules instead of "
+        "the default ONE compressed H^B schedule (power_schedule)",
+    )
+    ap.add_argument(
+        "--membership", default=None,
+        help="active-worker slot mask as a 1/0 string (e.g. 1101): masks "
+        "the gossip graph to the active workers",
     )
     ap.add_argument(
         "--trace-every", type=int, default=1,
@@ -80,13 +131,54 @@ def _launch_counts() -> dict[str, int]:
     }
 
 
+def build_policy(args):
+    """--consensus + --topology -> ConsensusPolicy via the unified
+    ``dssfn.parse_spec`` grammar.  --degree/--rounds fill any segment the
+    spec leaves out; --topology (or the spec's own ``@graph`` half) swaps
+    the gossip graph, and with the default ``--consensus exact`` it
+    implies ``gossip`` over that graph."""
+    from dataclasses import fields, replace
+
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.core.topology import parse_topology
+    from repro_torch.dssfn import parse_spec
+
+    consensus, sep, spec_topo = args.consensus.partition("@")
+    if sep and args.topology:
+        raise ValueError(
+            f"--consensus {args.consensus!r} already names an '@topology'; "
+            "drop --topology"
+        )
+    topo_spec = spec_topo if sep else args.topology
+    topo = parse_topology(topo_spec) if topo_spec else None
+    if topo is not None and args.degree is not None:
+        raise ValueError(
+            "--degree configures the default ring; pass either --degree or "
+            "--topology (ring degree spells ring:d), not both"
+        )
+    if topo is not None and consensus == "exact":
+        consensus = "gossip"
+    kw = dict(
+        degree=args.degree if args.degree is not None else 2,
+        rounds=args.rounds,
+    )
+    if sep:
+        policy = parse_spec(f"{consensus}@{spec_topo}", **kw)
+    else:
+        policy = parse_policy(consensus, topology=topo, **kw)
+    if args.no_compress and any(f.name == "compress" for f in fields(policy)):
+        policy = replace(policy, compress=False)
+    return policy
+
+
 def train_one(kind: str, args, data, xw, tw, cfg, generator) -> dict:
     from repro_torch import dssfn
     from repro_torch._device import synchronize
 
     spec = dssfn.TrainSpec(
-        cfg=cfg, backend=kind, workers=args.workers, policy=args.consensus,
-        trace_every=args.trace_every,
+        cfg=cfg, backend=kind, workers=args.workers, policy=build_policy(args),
+        wire_dtype=args.wire_dtype, trace_every=args.trace_every,
+        membership=args.membership,
     )
     before = _launch_counts()
     t0 = time.perf_counter()
@@ -113,6 +205,9 @@ def train_one(kind: str, args, data, xw, tw, cfg, generator) -> dict:
         "executable_cache": backend.cache_info(),
         "device": str(params.o[-1].device),
         "kernel_launches": {k: after[k] - before[k] for k in after},
+        "consensus_error": (
+            log.consensus_error[:, -1].tolist() if log.consensus_error.size else None
+        ),
         "params": params,
     }
 
@@ -154,6 +249,24 @@ def main(argv=None) -> dict:
     generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     results: dict = {"config": vars(args), "device": str(dev), "runs": []}
+    # Predicted mixing behaviour of the selected graph (paper §III).
+    topo = getattr(build_policy(args), "topology", None)
+    if topo is not None:
+        results["topology"] = {
+            "spec": topo.describe(),
+            "spectral_gap": topo.spectral_gap(args.workers),
+            "edges_per_node": topo.edges_per_node(args.workers),
+            "rounds_for_tolerance_1e6": topo.rounds_for_tolerance(
+                args.workers, 1e-6
+            ),
+        }
+        print(
+            f"topology {topo.describe()}: gap="
+            f"{results['topology']['spectral_gap']:.3f} "
+            f"edges/node={results['topology']['edges_per_node']} "
+            f"B*(1e-6)={results['topology']['rounds_for_tolerance_1e6']}",
+            flush=True,
+        )
     run = train_one(args.backend, args, data, xw, tw, cfg, generator)
     params = run.pop("params")
     results["runs"].append(run)

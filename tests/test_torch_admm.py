@@ -134,9 +134,12 @@ def test_repeated_solves_record_one_program():
 def test_unported_and_invalid_arguments_raise():
     _, _, yw, tw = _problem(8, 2, 40, 2, seed=7)
     y, t = torch.from_numpy(yw), torch.from_numpy(tw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(ValueError, match="not both"):
         admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=2,
-                                  consensus_fn=lambda v: v)
+                                  consensus_fn=lambda v: v, backend=SimulatedBackend(2))
+    with pytest.raises(ValueError, match="always traces"):
+        admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=2,
+                                  consensus_fn=lambda v: v, trace_every=0)
     with pytest.raises(ValueError, match="must divide"):
         admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=5, trace_every=2)
     with pytest.raises(ValueError, match=">= 0"):

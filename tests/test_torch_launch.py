@@ -155,7 +155,7 @@ def test_train_cli_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--backend", "mesh"], ["--backend", "both"],
-                                  ["--consensus", "gossip:4:2"]])
+                                  ["--consensus", "quantized:4"]])
 def test_train_cli_refuses_unported_modes(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         train_dssfn.main(TRAIN_ARGS + flag)

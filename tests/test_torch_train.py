@@ -213,10 +213,10 @@ def test_facade_trains_like_the_loop(runs):
 UNPORTED = [
     dict(backend="mesh"),
     dict(mesh=object()),
-    dict(policy="gossip:4:2"),
-    dict(topology="ring:2"),
-    dict(membership="1101"),
-    dict(wire_dtype="bf16"),
+    dict(policy="quantized:4"),
+    dict(policy="lossy:0.1"),
+    dict(policy="stale:2"),
+    dict(policy="async:interval=4"),
     dict(checkpoint_dir="/tmp/ckpt"),
     dict(checkpoint_every=2),
     dict(resume=True),
@@ -226,7 +226,12 @@ UNPORTED = [
 ]
 
 
-@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))
+def _unported_id(kw):
+    key, value = next(iter(kw.items()))
+    return f"policy={value}" if key == "policy" else key
+
+
+@pytest.mark.parametrize("kw", UNPORTED, ids=_unported_id)
 def test_train_spec_rejects_unported_fields(runs, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         dssfn.TrainSpec(cfg=runs["cfg"], workers=M, **kw)
