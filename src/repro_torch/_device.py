@@ -6,6 +6,7 @@ raises instead of continuing on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,3 +28,25 @@ def synchronize(device: torch.device) -> None:
     operations are synchronous."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_device(array: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  A copy to the card goes
+    through pinned memory without waiting for the card's queue (a copy
+    from pageable memory would synchronize the stream)."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
+def exact_div(x: torch.Tensor, divisor) -> torch.Tensor:
+    """``x / divisor`` as IEEE division on every device.  CUDA turns a
+    division by a Python scalar into a multiply by its reciprocal, which
+    rounds differently from the CPU's division and from the reference's;
+    a scalar divisor therefore becomes a tensor (rounded to ``x``'s
+    dtype) on ``x``'s device."""
+    if not isinstance(divisor, torch.Tensor):
+        divisor = torch.full((), divisor, dtype=x.dtype, device=x.device)
+    return x / divisor

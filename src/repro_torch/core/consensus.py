@@ -1,6 +1,7 @@
 """Consensus averaging over the worker graph, on stacked worker tensors.
 
-Port of the gossip half of ``repro/core/consensus.py``.  In the port the
+Port of ``repro/core/consensus.py``'s gossip primitives, its lossy
+schedule hop and its quantizers.  In the port the
 M workers are the leading dimension of a tensor, ``(M, ...)``, so the
 reference's ``ppermute`` along a mesh axis becomes :func:`ppermute`, a
 gather over dim 0: a pair list ``((src, dst), ...)`` that permutes the
@@ -26,9 +27,17 @@ multiply in the tensor's dtype, as the reference's weak-typed scalars
 do).  Each permutation's index tensor is built once per device
 (:func:`_perm_index`), not per hop.
 
+5. ``lossy_schedule_gossip_step``: one schedule round over links that
+   fail independently, each receiver renormalizing its row over the
+   survivors; ``quantize_stochastic``/``quantize_nearest``: the k-bit
+   wire formats.  Under the reference's ``vmap`` each worker draws with
+   its own key and takes its own min/max; here the keys are stacked
+   ``(M, 2)`` threefry words (:mod:`repro_torch.prng`) and min/max run
+   over every dim but 0.
+
 ``make_consensus_fn`` (the legacy batched dense-H factory) is deprecated
-and warns, as the reference's does.  The lossy, faulty, robust and
-quantizing primitives wait for ROADMAP Queue 1 item 4.
+and warns, as the reference's does.  The faulty and robust primitives
+wait for ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -37,6 +46,9 @@ import warnings
 
 import numpy as np
 import torch
+
+from repro_torch import prng
+from repro_torch._device import exact_div
 
 Tensor = torch.Tensor
 
@@ -198,6 +210,121 @@ def schedule_gossip_average(
     for _ in range(num_rounds):
         x = schedule_gossip_step(x, schedule, wire_dtype=wire_dtype)
     return x
+
+
+@functools.lru_cache(maxsize=1024)
+def _perms_index(perms: tuple, num_workers: int, device: torch.device) -> Tensor:
+    """The gather index of several permutations at once: ``x[index]``
+    stacks ``ppermute(x, perm)`` for each perm along dim 0."""
+    return torch.cat([_perm_index(p, num_workers, device) for p in perms])
+
+
+def _worker_shape(x: Tensor) -> tuple:
+    """Shape that broadcasts a per-worker ``(M,)`` value over ``x``."""
+    return (x.shape[0],) + (1,) * (x.ndim - 1)
+
+
+def lossy_link_weights(schedule, drop_prob: float, key) -> tuple[np.ndarray, np.ndarray]:
+    """The link draws of one lossy round, on the host: each worker splits
+    its key (``key``, (M, 2) threefry words) into one subkey per schedule
+    step and keeps step i alive with probability ``1 - drop_prob``.
+    Returns ``coef`` (steps, M), ``alive * weight`` in f32, and ``wsum``
+    (M,), the surviving row sum ``self_weight + sum_i coef_i`` added in
+    step order in f32, as the reference accumulates them."""
+    perms = schedule.perms
+    keys = prng.split(prng.key_data(key), max(len(perms), 1))        # (M, P, 2)
+    alive = prng.bernoulli(keys, 1.0 - drop_prob, ()).astype(np.float32)
+    coef = np.stack(
+        [alive[:, i] * np.float32(w) for i, w in enumerate(schedule.weights)]
+    ) if perms else np.zeros((0, alive.shape[0]), np.float32)
+    wsum = np.full(alive.shape[0], np.float32(schedule.self_weight), np.float32)
+    for c in coef:
+        wsum = wsum + c
+    return coef, wsum
+
+
+def lossy_gossip_apply(
+    x: Tensor,
+    schedule,
+    coef: Tensor,
+    wsum: Tensor,
+    *,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One lossy round with its link draws given (:func:`lossy_link_weights`,
+    as tensors on ``x``'s device):
+
+        x' = (self_weight * x + sum_i coef_i * ppermute(wire, perm_i)) / wsum
+
+    Every step's message is gathered in one ``index_select`` and scaled
+    in one product; the products are added in step order."""
+    narrow = (
+        None if wire_dtype is None
+        else _TORCH_WIRE_DTYPES[canonical_wire_dtype(wire_dtype)]
+    )
+    acc = schedule.self_weight * x
+    if schedule.perms:
+        wire = x if narrow is None else x.to(narrow)
+        steps = len(schedule.perms)
+        index = _perms_index(tuple(schedule.perms), x.shape[0], x.device)
+        msgs = wire.index_select(0, index).view((steps,) + tuple(x.shape))
+        if narrow is not None:
+            msgs = msgs.to(x.dtype)
+        scaled = coef.view((steps,) + _worker_shape(x)) * msgs
+        for i in range(steps):
+            acc = acc + scaled[i]
+    return acc / wsum.view(_worker_shape(x))
+
+
+def lossy_schedule_gossip_step(
+    x: Tensor,
+    schedule,
+    *,
+    drop_prob: float,
+    key,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One exchange-schedule gossip round over a lossy network: each
+    incoming step fails independently with probability ``drop_prob`` and
+    the receiver renormalizes its mixing row over the surviving weights
+    (the self term never drops; ``drop_prob=0`` reduces to
+    :func:`schedule_gossip_step` up to float association).  ``key`` is
+    the stacked per-worker keys, (M, 2) (each node observes its own link
+    failures); the draws are made on the host.  ``wire_dtype`` narrows
+    the link payloads as in :func:`schedule_gossip_step`."""
+    coef, wsum = lossy_link_weights(schedule, drop_prob, key)
+    coef = torch.from_numpy(coef).to(x.device)
+    wsum = torch.from_numpy(wsum).to(x.device)
+    return lossy_gossip_apply(x, schedule, coef, wsum, wire_dtype=wire_dtype)
+
+
+def _range_over_workers(x: Tensor):
+    dims = tuple(range(1, x.ndim))
+    return x.amin(dim=dims, keepdim=True), x.amax(dim=dims, keepdim=True)
+
+
+def quantize_stochastic(x: Tensor, bits: int, key) -> Tensor:
+    """Unbiased per-worker stochastic-rounding quantization to 2^bits
+    levels over each worker's dynamic range: E[q(x)] = x.  ``x`` is
+    stacked (M, ...); ``key`` the per-worker keys, (M, 2) threefry words
+    (numpy or a tensor), each drawing ``bernoulli(key_m, prob_m,
+    x.shape[1:])`` on ``x``'s device, as the reference's ``vmap`` does."""
+    levels = 2 ** bits - 1
+    lo, hi = _range_over_workers(x)
+    scale = exact_div(torch.clamp_min(hi - lo, 1e-12), levels)
+    t = (x - lo) / scale
+    floor = torch.floor(t)
+    up = prng.bernoulli(key, t - floor, tuple(x.shape[1:]), device=x.device)
+    return lo + (floor + up.to(x.dtype)) * scale
+
+
+def quantize_nearest(x: Tensor, bits: int) -> Tensor:
+    """Deterministic round-to-nearest variant (biased, zero variance),
+    per worker of the stacked ``x``."""
+    levels = 2 ** bits - 1
+    lo, hi = _range_over_workers(x)
+    scale = exact_div(torch.clamp_min(hi - lo, 1e-12), levels)
+    return lo + torch.round((x - lo) / scale) * scale
 
 
 class _DenseGossip:

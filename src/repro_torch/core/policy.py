@@ -4,8 +4,9 @@ Port of the parts of ``repro/core/policy.py`` the training slice runs:
 the :class:`ConsensusContext` collectives, the :class:`ConsensusPolicy`
 protocol with its eq.-15 accounting, :class:`ExactMean`, the paper's
 gossip (:class:`Gossip` over any :mod:`repro_torch.core.topology` graph,
-and :func:`RingGossip`, its circular alias) and the spec grammar
-(:func:`parse_policy`).
+and :func:`RingGossip`, its circular alias), the non-ideal links of the
+paper's §IV (:class:`QuantizedGossip`, :class:`LossyGossip`,
+:class:`StaleMixing`) and the spec grammar (:func:`parse_policy`).
 
 The paper's Algorithm 1 is parameterized by *how* the workers average;
 everything else is invariant.  A policy's ``mix(x, state, ctx)`` runs
@@ -20,28 +21,41 @@ policy                              exchanges/round                 wire bits
 ``ExactMean()``                     1 (one all-reduce)              32
 ``Gossip(rounds, topology)``        rounds * topology edges         32/16
 ``RingGossip(rounds, degree)``      2 * degree * rounds             32/16
+``QuantizedGossip(bits, ...)``      1 (or rounds * edges)           ``bits``
+``LossyGossip(drop_prob, ...)``     rounds * topology edges         32/16
+``StaleMixing(delay, ...)``         1 (or topology edges)           32/16
 ==================================  ==============================  ==========
 
 ``Gossip`` compiles its B rounds into ONE H^B mix by default
 (``compress=True``; :meth:`repro_torch.core.topology.Topology.power_schedule`),
 where that schedule is shallower than B serial rounds, and takes
 ``wire_dtype=`` (f32 / bf16 / f16 link payloads accumulated in full
-precision).  The rest of the reference's family (``QuantizedGossip``,
-``LossyGossip``, ``StaleMixing``, ``AsyncGossip`` and the robust
-policies) waits for ROADMAP Queue 1 item 4: :func:`parse_policy` parses
-their specs and raises ``NotImplementedError`` naming it.
+precision).  The rest of the reference's family (``AsyncGossip`` and the
+robust policies) waits for ROADMAP Queue 1 item 4: :func:`parse_policy`
+parses their specs and raises ``NotImplementedError`` naming it.
 
 Policies are frozen dataclasses: hashable (they key the backend's
 program record), compare by value, and hold only static configuration.
+Randomized policies fold a static integer ``seed`` with each worker's
+index into a threefry key (:mod:`repro_torch.prng`, ``jax.random``'s
+words) and advance it through the mix state, so they draw ``repro``'s
+numbers.  No key depends on the data: the key chain runs on the host in
+numpy, and each mix's draws for a given key are memoized (every layer's
+ADMM starts the same chain), so only the bulk stochastic-rounding bits
+are drawn on the device, in one batched pass a mix.
 """
 from __future__ import annotations
 
 import abc
+import functools
 from dataclasses import dataclass
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import prng
+from repro_torch._device import exact_div, to_device
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.topology import Ring, Topology, parse_topology
@@ -339,6 +353,344 @@ def RingGossip(
     )
 
 
+# ------------------------------------------------------------ key chain
+
+def _worker_key(seed: int, ctx: ConsensusContext) -> np.ndarray:
+    """Per-worker threefry keys from a static seed, stacked (M, 2): the
+    reference's ``fold_in(PRNGKey(seed), axis_index)`` for every worker."""
+    return prng.fold_in(prng.PRNGKey(seed), np.arange(ctx.num_workers))
+
+
+def _frozen(array: np.ndarray) -> np.ndarray:
+    array.setflags(write=False)
+    return array
+
+
+@functools.lru_cache(maxsize=512)
+def _key_chain(key_bytes: bytes, num_workers: int, steps: int, device: torch.device):
+    """``steps`` rounds of ``key, sub = split(key)`` from the (M, 2) keys
+    in ``key_bytes``: the advanced keys (host) and the subkeys, (steps,
+    M, 2), as int64 words on ``device``."""
+    key = np.frombuffer(key_bytes, np.uint32).reshape(num_workers, 2)
+    subs = []
+    for _ in range(steps):
+        pair = prng.split(key)
+        key, sub = pair[:, 0], pair[:, 1]
+        subs.append(sub)
+    return _frozen(np.ascontiguousarray(key)), to_device(np.stack(subs).astype(np.int64), device)
+
+
+@functools.lru_cache(maxsize=512)
+def _lossy_draws(policy: "LossyGossip", key_bytes: bytes, num_workers: int,
+                 device: torch.device):
+    """One ``LossyGossip.mix``'s link draws from the (M, 2) keys in
+    ``key_bytes``: for each round, ``key, sub = split(key)`` and
+    :func:`consensus.lossy_link_weights` of ``sub``, moved to ``device``
+    in one copy.  Returns the advanced keys and each round's
+    ``(coef, wsum)`` tensors."""
+    key = np.frombuffer(key_bytes, np.uint32).reshape(num_workers, 2)
+    cycle = policy.topology.cycle()
+    scheds = [topology_lib.cached_exchange_schedule(t, num_workers) for t in cycle]
+    parts, sizes = [], []
+    for b in range(policy.rounds):
+        pair = prng.split(key)
+        key, sub = pair[:, 0], pair[:, 1]
+        coef, wsum = consensus_lib.lossy_link_weights(
+            scheds[b % len(scheds)], policy.drop_prob, sub
+        )
+        parts += [coef.ravel(), wsum]
+        sizes.append(coef.shape)
+    flat = to_device(np.concatenate(parts), device)
+    rounds, offset = [], 0
+    for shape in sizes:
+        n = shape[0] * shape[1]
+        coef = flat[offset:offset + n].view(shape)
+        wsum = flat[offset + n:offset + n + num_workers]
+        rounds.append((coef, wsum))
+        offset += n + num_workers
+    return _frozen(np.ascontiguousarray(key)), tuple(rounds)
+
+
+# ----------------------------------------------------------- quantized
+
+@dataclass(frozen=True)
+class QuantizedGossip(ConsensusPolicy):
+    """k-bit links: every exchanged message is quantized before it goes
+    on the wire.  ``stochastic=True`` uses unbiased stochastic rounding
+    (E[q(x)] = x), so the consensus preserves the doubly-stochastic mean
+    in expectation; eq.-15 traffic scales by bits/32 (``wire_bits``).
+
+    ``topology=None`` (default) keeps the original form: one quantized
+    all-reduce per ``mix``, every worker's own term quantized too.  With
+    a topology, each of ``rounds`` gossip rounds quantizes the outgoing
+    message and mixes it over the graph's exchange schedule; the
+    receiver's own contribution stays full-precision (only the wire is
+    narrow)."""
+
+    bits: int = 8
+    stochastic: bool = True
+    seed: int = 0
+    rounds: int = 1
+    topology: Topology | None = None
+
+    mode_name = "quantized"
+
+    def __post_init__(self):
+        if not 1 <= self.bits <= 32:
+            raise ValueError(f"quantization bits must be in [1, 32], got {self.bits}")
+        if self.rounds < 1:
+            raise ValueError(f"gossip rounds must be >= 1, got {self.rounds}")
+
+    def validate(self, num_workers: int) -> None:
+        if self.topology is not None:
+            self.topology.validate(num_workers)
+
+    @property
+    def wire_bits(self) -> int:  # type: ignore[override]
+        return self.bits
+
+    @property
+    def exchanges_per_round(self) -> int:
+        return self.exchanges_for(None)
+
+    def exchanges_for(self, num_workers: int | None) -> int:
+        if self.topology is None:
+            return 1
+        return _cycle_exchanges(self.topology, self.rounds, num_workers)
+
+    def init_state(self, x, ctx):
+        return _worker_key(self.seed, ctx)
+
+    def _quantize(self, x, key):
+        if self.stochastic:
+            return consensus_lib.quantize_stochastic(x, self.bits, key)
+        return consensus_lib.quantize_nearest(x, self.bits)
+
+    def mix(self, x, state, ctx):
+        steps = 1 if self.topology is None else self.rounds
+        key, subs = _key_chain(state.tobytes(), ctx.num_workers, steps, x.device)
+        if self.topology is None:
+            return ctx.pmean(self._quantize(x, subs[0])), key
+        scheds = _cycle_schedules(self.topology, ctx)
+        for b in range(self.rounds):
+            q = self._quantize(x, subs[b])
+            x = consensus_lib.schedule_gossip_step(
+                q, scheds[b % len(scheds)], self_value=x
+            )
+        return x, key
+
+
+# --------------------------------------------------------------- lossy
+
+@dataclass(frozen=True, init=False)
+class LossyGossip(ConsensusPolicy):
+    """Gossip over a lossy network: each incoming link fails
+    independently with probability ``drop_prob`` per round, and the
+    receiver renormalizes its mixing row over surviving links (the
+    self-link never drops): row-stochastic per round but not doubly
+    stochastic, which is why naive lossy gossip biases the mean (paper
+    §IV / ref [16] relaxed ADMM).
+
+    ``topology=`` is the authoritative graph; ``degree=d`` is a pure
+    construction shorthand for ``topology=Ring(d)`` and NOT a stored
+    field: ``LossyGossip(degree=2)`` and ``LossyGossip(topology=Ring(2))``
+    are the same value object.  Passing both is an error.  Per-round link
+    failures never compress (each round draws its own survivors), but
+    ``wire_dtype`` narrows the surviving payloads as in :class:`Gossip`.
+    The rounds' link draws are made on the host (:func:`_lossy_draws`);
+    the device adds the surviving messages."""
+
+    drop_prob: float = 0.1
+    rounds: int = 1
+    seed: int = 0
+    topology: Topology | None = None
+    wire_dtype: str = "float32"
+
+    mode_name = "lossy"
+
+    def __init__(
+        self,
+        drop_prob: float = 0.1,
+        rounds: int = 1,
+        degree: int | None = None,
+        seed: int = 0,
+        topology: Topology | None = None,
+        wire_dtype: str = "float32",
+    ):
+        if not 0.0 <= drop_prob < 1.0:
+            raise ValueError(f"drop_prob must be in [0, 1), got {drop_prob}")
+        if rounds < 1:
+            raise ValueError(f"gossip rounds must be >= 1, got {rounds}")
+        if degree is not None:
+            if topology is not None:
+                raise ValueError(
+                    "pass either degree (the Ring shorthand) or topology=, "
+                    "not both"
+                )
+            topology = Ring(degree)
+        elif topology is None:
+            topology = Ring(1)
+        if not isinstance(topology, Topology):
+            raise TypeError(
+                f"topology must be a Topology, got {type(topology).__name__}"
+            )
+        object.__setattr__(self, "drop_prob", drop_prob)
+        object.__setattr__(self, "rounds", rounds)
+        object.__setattr__(self, "seed", seed)
+        object.__setattr__(self, "topology", topology)
+        object.__setattr__(
+            self, "wire_dtype", consensus_lib.canonical_wire_dtype(wire_dtype)
+        )
+
+    @property
+    def degree(self) -> int:
+        """Legacy ring-degree view (mirrors ``Gossip.degree``); the
+        stored ``topology`` is authoritative."""
+        return getattr(self.topology, "degree", 1)
+
+    @property
+    def wire_bits(self) -> int:  # type: ignore[override]
+        return consensus_lib.WIRE_DTYPES[self.wire_dtype]
+
+    def validate(self, num_workers: int) -> None:
+        self.topology.validate(num_workers)
+
+    @property
+    def exchanges_per_round(self) -> int:
+        return self.exchanges_for(None)
+
+    def exchanges_for(self, num_workers: int | None) -> int:
+        return _cycle_exchanges(self.topology, self.rounds, num_workers)
+
+    def init_state(self, x, ctx):
+        return _worker_key(self.seed, ctx)
+
+    def mix(self, x, state, ctx):
+        # The reference scans a single schedule and loops over a cycle;
+        # both draw the same keys, so one loop serves.
+        wd = None if self.wire_dtype == "float32" else self.wire_dtype
+        scheds = _cycle_schedules(self.topology, ctx)
+        key, rounds = _lossy_draws(self, state.tobytes(), ctx.num_workers, x.device)
+        for b, (coef, wsum) in enumerate(rounds):
+            x = consensus_lib.lossy_gossip_apply(
+                x, scheds[b % len(scheds)], coef, wsum, wire_dtype=wd
+            )
+        return x, key
+
+
+# --------------------------------------------------------------- stale
+
+@dataclass(frozen=True)
+class StaleMixing(ConsensusPolicy):
+    """Bounded-staleness asynchrony model (ARock-style, paper ref [15]):
+    peers never see this worker's current value, they see the average of
+    its last ``delay`` *transmitted* iterates.  The transmit buffer,
+    ``(delay, M, ...)``, is the mix state; each worker substitutes its
+    own fresh value for its own stale contribution.
+
+    ``delay=0`` is exactly ``ExactMean``; as the ADMM iterates converge
+    the stale window mean converges to the true mean, so the fixed point
+    is unchanged (large ``delay`` with a large ADMM ``mu`` can oscillate:
+    delays up to ~3 are stable at the default hyper-parameters).
+
+    ``topology=None`` (default) mixes the stale messages with one exact
+    all-reduce; a topology mixes them over its exchange schedule, each
+    worker still substituting its own FRESH value (``self_value``).
+    Time-varying topologies are rejected: one ``mix`` is one schedule
+    application, with no round index to cycle on.
+    """
+
+    delay: int = 1
+    topology: Topology | None = None
+    wire_dtype: str = "float32"
+
+    mode_name = "stale"
+
+    def __post_init__(self):
+        if self.delay < 0:
+            raise ValueError(f"staleness delay must be >= 0, got {self.delay}")
+        object.__setattr__(
+            self, "wire_dtype",
+            consensus_lib.canonical_wire_dtype(self.wire_dtype),
+        )
+
+    def validate(self, num_workers: int) -> None:
+        if self.topology is not None:
+            if len(self.topology.cycle()) > 1:
+                raise ValueError(
+                    "StaleMixing applies one schedule per mix; time-varying "
+                    "topologies have no round to cycle on"
+                )
+            self.topology.validate(num_workers)
+
+    @property
+    def exchanges_per_round(self) -> int:
+        return self.exchanges_for(None)
+
+    def exchanges_for(self, num_workers: int | None) -> int:
+        if self.topology is None:
+            return 1
+        return self.topology.edges_per_node(num_workers)
+
+    @property
+    def is_exact(self) -> bool:
+        return (
+            self.delay == 0
+            and self.topology is None
+            and self.wire_dtype == "float32"
+        )
+
+    @property
+    def wire_bits(self) -> int:  # type: ignore[override]
+        return consensus_lib.WIRE_DTYPES[self.wire_dtype]
+
+    def _mix_messages(self, msg: Tensor, fresh: Tensor, ctx: ConsensusContext):
+        """Average the peers' (stale) messages, substituting each
+        worker's fresh value for its own stale term."""
+        wd = None if self.wire_dtype == "float32" else self.wire_dtype
+        if self.topology is None:
+            if wd is not None:
+                # The narrow wire of the all-reduce form: every message is
+                # cast once; each worker swaps its own (narrowed) term for
+                # the full-precision fresh value.
+                narrow = consensus_lib._TORCH_WIRE_DTYPES[wd]
+                msg = msg.to(narrow).to(fresh.dtype)
+            if fresh is msg:  # delay=0: the message IS the fresh value
+                return ctx.pmean(msg)
+            return ctx.pmean(msg) + exact_div(fresh - msg, ctx.num_workers)
+        sched = self.topology.exchange_schedule(ctx.num_workers)
+        return consensus_lib.schedule_gossip_step(
+            msg, sched, self_value=fresh, wire_dtype=wd
+        )
+
+    def init_state(self, x, ctx):
+        if self.delay == 0:
+            return ()
+        # The transmit buffer, oldest first: what peers can see over the
+        # next `delay` rounds.  Zeros match the ADMM zero-initialization
+        # (O^0 = Lam^0 = 0), i.e. "nothing sent yet".
+        return torch.zeros((self.delay,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+    def mix(self, x, state, ctx):
+        if self.delay == 0:
+            return self._mix_messages(x, x, ctx), state
+        # Strictly pre-push: the current x is NOT in the message.
+        msg = exact_div(state.sum(dim=0), self.delay)
+        new_buf = torch.cat([state[1:], x[None]], dim=0)
+        return self._mix_messages(msg, x, ctx), new_buf
+
+    def one_shot(self, x, ctx):
+        # A fresh init_state means "nothing transmitted yet" (zeros), which
+        # would make a lone mix return x/M.  For one-shot use, seed the
+        # window at its steady state, whose mix is exactly the mean (or
+        # the topology's one-round H-average of it).
+        if self.delay == 0:
+            return self._mix_messages(x, x, ctx)
+        steady = x[None].expand((self.delay,) + tuple(x.shape))
+        out, _ = self.mix(x, steady, ctx)
+        return out
+
+
 # ------------------------------------------------------------- parsing
 
 #: Spec-grammar policy names (``parse_policy`` / ``dssfn.parse_spec``).
@@ -379,7 +731,7 @@ def _int_list(text: str) -> tuple[int, ...]:
     return tuple(int(s) for s in text.split("+") if s)
 
 
-#: How each ``key=value`` of the unported policies parses.
+#: How each ``key=value`` of the unported keyed policies parses.
 _KEY_PARSERS = {
     "rounds": int, "interval": int, "f": int, "tau": float,
     "drop": float, "seed": int, "fail_at": int, "straggle": int,
@@ -401,8 +753,8 @@ _POLICY_KEYS = {
 def _unported_policy(name: str, spec: str) -> NotImplementedError:
     return NotImplementedError(
         f"consensus policy {name!r} (spec {spec!r}) is not ported to "
-        "repro_torch yet (ROADMAP Queue 1 item 4); the port runs exact "
-        "and gossip"
+        "repro_torch yet (ROADMAP Queue 1 item 4); the port runs exact, "
+        "gossip, quantized, lossy and stale"
     )
 
 
@@ -421,9 +773,10 @@ def parse_policy(
     ``degree``/``rounds`` fill the segments the spec leaves out;
     ``key=value`` segments configure ``wire=`` and the fault keys; an
     ``@topology`` half (or ``topology=``, a ``Topology`` or a
-    ``parse_topology`` spec) replaces the default ring.  ``exact`` and
-    ``gossip`` build their policies; the rest of the family parses, then
-    raises ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+    ``parse_topology`` spec) replaces the default ring.  ``exact``,
+    ``gossip``, ``quantized``, ``lossy`` and ``stale`` build the
+    reference's policies; ``async`` and the robust policies parse, then
+    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
 
     >>> parse_policy("gossip:3").topology
     Ring(degree=1)
@@ -512,16 +865,31 @@ def parse_policy(
                 return Gossip(rounds=b, topology=topology, wire_dtype=wire)
             deg = int(args[1]) if len(args) > 1 else degree
             return RingGossip(rounds=b, degree=deg, wire_dtype=wire)
-        # quantized:bits, lossy:p[:B[:d]], stale:delay: parse the
-        # positional segments as the reference's constructors take them.
-        if name == "lossy" and topology is not None and len(args) > 2:
-            raise ValueError(
-                "pass either a ring degree segment or topology=, not both"
+        if name == "quantized":
+            bits = int(args[0]) if args else 8
+            if topology is not None:
+                return QuantizedGossip(bits=bits, rounds=rounds, topology=topology)
+            return QuantizedGossip(bits=bits)
+        if name == "lossy":
+            p = float(args[0]) if args else 0.1
+            b = int(args[1]) if len(args) > 1 else rounds
+            if topology is not None:
+                if len(args) > 2:
+                    raise ValueError(
+                        "pass either a ring degree segment or topology=, "
+                        "not both"
+                    )
+                return LossyGossip(
+                    drop_prob=p, rounds=b, topology=topology, wire_dtype=wire
+                )
+            deg = int(args[2]) if len(args) > 2 else degree
+            return LossyGossip(
+                drop_prob=p, rounds=b, degree=deg, wire_dtype=wire
             )
-        kinds = (float, int, int) if name == "lossy" else (int,)
-        for text, kind in zip(args, kinds):
-            kind(text)
-        raise _unported_policy(name, spec)
+        return StaleMixing(
+            delay=int(args[0]) if args else 1, topology=topology,
+            wire_dtype=wire,
+        )
     except ValueError as e:
         # int()/float() parse failures and constructor validation errors,
         # re-raised with the offending spec attached.

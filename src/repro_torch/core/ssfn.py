@@ -25,7 +25,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch import prng
+from repro_torch._device import exact_div, resolve_device
 from repro_torch.kernels.matmul_relu import matmul_relu
 
 
@@ -68,19 +69,33 @@ def v_q(q: int, dtype=torch.float32, device=None) -> torch.Tensor:
 def init_random_matrices(
     cfg: SSFNConfig,
     *,
-    generator: torch.Generator,
+    generator: torch.Generator | None = None,
+    key=None,
     device: str | torch.device | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """R_1..R_L, shared across all workers (Algorithm 1, input line 3):
-    N(0, 1) / sqrt(fan_in) in ``cfg.dtype``, drawn in layer order from
-    ``generator`` on its own device, then placed on ``device`` (``None``
-    means ``cuda``, and raises without it).
+    N(0, 1) / sqrt(fan_in) in ``cfg.dtype``, placed on ``device``
+    (``None`` means ``cuda``, and raises without it).
 
-    The draws are PyTorch's, not ``jax.random``'s: the same seed gives
-    other matrices than ``repro``'s.  To hold the two packages against
-    each other, carry ``repro``'s R across (``convert.r_from_numpy``)."""
+    Draw them from exactly one of ``generator`` (a ``torch.Generator``,
+    in layer order on its own device: PyTorch's numbers, not
+    ``repro``'s) or ``key`` (a :mod:`repro_torch.prng` threefry key: the
+    reference's ``split(key, L)`` and ``normal`` per layer, on the CPU,
+    so the same seed gives ``repro``'s R to a few f32 ulps; f32 only)."""
+    if (generator is None) == (key is None):
+        raise ValueError("pass exactly one of generator= or key=")
     dev = resolve_device(device)
     n, p, q = cfg.n, cfg.input_dim, cfg.num_classes
+    if key is not None:
+        if cfg.dtype != torch.float32:
+            raise ValueError(f"threefry draws are float32, cfg.dtype is {cfg.dtype}")
+        keys = prng.split(prng.key_data(key), cfg.num_layers)
+        rs = []
+        for l in range(cfg.num_layers):
+            fan_in = p if l == 0 else n
+            r = torch.from_numpy(prng.normal(keys[l], (n - 2 * q, fan_in)))
+            rs.append(exact_div(r, math.sqrt(fan_in)).to(dev))
+        return tuple(rs)
     rs = []
     for l in range(cfg.num_layers):
         fan_in = p if l == 0 else n

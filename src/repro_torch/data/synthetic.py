@@ -7,18 +7,23 @@ SSFN) are data-independent; absolute accuracies are for the synthetic
 tasks only.
 
 The draws come from a ``torch.Generator`` on its own device, so the data
-can be made where it is used.  They are PyTorch's, not ``jax.random``'s:
-to hold the two packages against each other, carry ``repro``'s dataset
-across (``convert.dataset_from_numpy``).  The partitions are pure index
-arithmetic and equal ``repro``'s on the same arrays.
+can be made where it is used; those are PyTorch's numbers, not
+``jax.random``'s.  A threefry ``key=`` (:mod:`repro_torch.prng`) draws
+``repro``'s numbers instead: the same key gives ``repro``'s dataset, its
+normals to a few f32 ulps.  The partitions are pure index arithmetic and
+equal ``repro``'s on the same arrays.
 """
 from __future__ import annotations
 
 import math
+import operator
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch import prng
+from repro_torch._device import exact_div, resolve_device
 
 Tensor = torch.Tensor
 
@@ -51,8 +56,10 @@ class Dataset(NamedTuple):
 
 
 def make_classification(
-    generator: torch.Generator,
+    generator: torch.Generator | None = None,
     *,
+    key=None,
+    device: str | torch.device | None = None,
     num_train: int,
     num_test: int,
     input_dim: int,
@@ -61,24 +68,41 @@ def make_classification(
     teacher_width: int = 64,
     label_noise: float = 0.05,
 ) -> Dataset:
-    """Planted nonlinear-teacher classification problem, made on the
-    generator's device: x ~ N(0, 1); a tanh teacher of ``teacher_layers``
-    layers of N(0, 1)/sqrt(fan_in) weights plus ``label_noise`` Gaussian
-    logit noise labels it; x is standardized with the training split's
-    mean and (population) standard deviation."""
-    dev = generator.device
+    """Planted nonlinear-teacher classification problem: x ~ N(0, 1); a
+    tanh teacher of ``teacher_layers`` layers of N(0, 1)/sqrt(fan_in)
+    weights plus ``label_noise`` Gaussian logit noise labels it; x is
+    standardized with the training split's mean and (population)
+    standard deviation.
 
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=dev)
-
+    Draw from exactly one of ``generator`` (made on the generator's
+    device) or ``key`` (a threefry key: the reference's ``split(key, 4)``
+    streams, drawn and computed on the CPU, then placed on ``device``,
+    where ``None`` means ``cuda``)."""
+    if (generator is None) == (key is None):
+        raise ValueError("pass exactly one of generator= or key=")
     j = num_train + num_test
+    if key is not None:
+        kx, _, kw, kn = prng.split(prng.key_data(key), 4)
+        # The reference's draw order: x, the teacher's layers, its
+        # readout, the logit noise.
+        streams = iter([kx, *prng.split(kw, teacher_layers + 1), kn])
+
+        def normal(*shape):
+            return torch.from_numpy(prng.normal(next(streams), shape))
+
+        scale = exact_div
+    else:
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, device=generator.device)
+
+        scale = operator.truediv
     x = normal(input_dim, j)
     h = x
     dim = input_dim
     for _ in range(teacher_layers):
-        h = torch.tanh((normal(teacher_width, dim) / math.sqrt(dim)) @ h)
+        h = torch.tanh(scale(normal(teacher_width, dim), math.sqrt(dim)) @ h)
         dim = teacher_width
-    w_out = normal(num_classes, dim) / math.sqrt(dim)
+    w_out = scale(normal(num_classes, dim), math.sqrt(dim))
     logits = w_out @ h + label_noise * normal(num_classes, j)
     labels = torch.argmax(logits, dim=0)
     t = torch.nn.functional.one_hot(labels, num_classes).T.to(torch.float32)
@@ -86,6 +110,9 @@ def make_classification(
     mu = x[:, :num_train].mean(dim=1, keepdim=True)
     sd = x[:, :num_train].std(dim=1, keepdim=True, correction=0) + 1e-6
     x = (x - mu) / sd
+    if key is not None:
+        out = resolve_device(device)
+        x, t, labels = x.to(out), t.to(out), labels.to(out)
     return Dataset(
         x_train=x[:, :num_train],
         t_train=t[:, :num_train],
@@ -96,12 +123,22 @@ def make_classification(
     )
 
 
-def paper_dataset(name: str, generator: torch.Generator, *, scale: float = 1.0) -> Dataset:
+def paper_dataset(
+    name: str,
+    generator: torch.Generator | None = None,
+    *,
+    key=None,
+    device: str | torch.device | None = None,
+    scale: float = 1.0,
+) -> Dataset:
     """Synthetic stand-in with the paper's Table I geometry (optionally
-    scaled down for quick runs)."""
+    scaled down for quick runs), from a generator or a threefry key as
+    :func:`make_classification` takes them."""
     ntr, nte, p, q = PAPER_DATASETS[name]
     return make_classification(
         generator,
+        key=key,
+        device=device,
         num_train=max(q * 4, int(ntr * scale)),
         num_test=max(q * 4, int(nte * scale)),
         input_dim=p,

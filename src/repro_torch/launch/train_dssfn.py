@@ -2,7 +2,8 @@
 
 Port of ``repro/launch/train_dssfn.py`` for what the port runs so far:
 layer-wise consensus-ADMM training of M workers on the simulated backend
-(all workers on one device) with exact consensus or the paper's gossip.
+(all workers on one device) with exact consensus, the paper's gossip, or
+its quantized, lossy and stale links.
 Every Gram product of the train goes through the hand-written CUDA
 kernels (``gram`` at layer 0, ``propagate_gram`` at every later layer)::
 
@@ -17,6 +18,9 @@ Consensus is a policy spec in ``dssfn.parse_spec``'s grammar::
     --consensus gossip:52:4     52 rounds of degree-4 ring gossip (the
                                 paper's M=20 network at tolerance 1e-8)
     --consensus gossip:4@torus:2x4
+    --consensus quantized:8     one 8-bit stochastically rounded all-reduce
+    --consensus lossy:0.1:52:4  the gossip network with 10% link loss
+    --consensus stale:2         peers see 2-rounds-stale values
 
 ``--topology`` (``ring[:d] | torus:RxC | hypercube | geometric:r[:seed]
 | full``, ``+``-joined for a time-varying cycle) swaps the gossip graph,
@@ -25,8 +29,8 @@ and with the default ``--consensus exact`` implies gossip over it
 spec leaves out; ``--wire-dtype bf16|f16`` narrows the link payloads;
 ``--no-compress`` runs B serial rounds instead of one H^B schedule;
 ``--membership 1101`` masks the graph to the active workers.  The other
-policies of the grammar (quantized, lossy, stale, async and the robust
-ones) raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+policies of the grammar (async and the robust ones) raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 4.
 
 It runs on ``cuda`` unless ``--device cpu`` is given (the CPU takes the
 kernels' plain versions).  The data is the planted-teacher problem of
@@ -37,7 +41,8 @@ per kernel during training and test evaluation) and
 ``consensus_error`` (each layer's ADMM consensus error at its last
 iteration; None without traces).  ``--export-artifact``
 writes the trained stack in ``repro``'s serving format, which
-``repro_torch.launch.serve_dssfn`` (or ``repro``'s) serves.
+``repro_torch.launch.serve_dssfn`` (or ``repro``'s) serves;
+``--export-features`` records a frozen feature-extractor spec in it.
 """
 from __future__ import annotations
 
@@ -57,8 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument(
         "--consensus", default="exact",
         help="consensus spec (dssfn.parse_spec grammar): exact | "
-        "gossip[:B[:d]], optionally '@topology' and ':wire=bf16'; the "
-        "other policies of the grammar are not ported yet",
+        "gossip[:B[:d]] | quantized[:bits] | lossy[:p[:B[:d]]] | "
+        "stale[:delay], optionally '@topology' and ':wire=bf16'; async "
+        "and the robust policies are not ported yet",
     )
     ap.add_argument(
         "--topology", default=None,
@@ -112,6 +118,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--export-artifact", default=None, metavar="PATH",
         help="after training, export the trained stack as a serving "
         "artifact directory (repro_torch.serve.export_artifact)",
+    )
+    ap.add_argument(
+        "--export-features",
+        default=None,
+        help="frozen feature-extractor spec recorded in the exported "
+        "artifact (identity | rff:D[:seed] | relu:D[:seed]); the engine "
+        "applies it to raw requests before the stack, so it is only "
+        "meaningful when training ran on pre-extracted features",
     )
     ap.add_argument("--out", default=None, help="optional JSON results path")
     ap.add_argument(
@@ -286,6 +300,7 @@ def main(argv=None) -> dict:
         export_artifact(
             args.export_artifact,
             params,
+            features=args.export_features,
             source={
                 "trained_by": "repro_torch.launch.train_dssfn",
                 "backend": args.backend,

@@ -15,6 +15,8 @@ assembled weights, then the readout ``O_L y_L``:
   ``matmul_relu`` kernel sums each output element in one fixed order
   whatever the batch width, so padded, bucketed and micro-batched
   forwards return the same bits for the real columns within a bucket.
+  (An ``rff``/``relu`` feature extractor runs ``torch.matmul`` in front
+  of the stack, whose column bits may depend on the batch width.)
 - **Device-resident weights.**  The assembled ``W_l`` and ``O_L`` live on
   the engine's device; :meth:`reload` copies a same-shape artifact into
   them in place and rejects shape or feature changes.
@@ -160,8 +162,12 @@ class ServeEngine:
         return program
 
     def _forward_program(self, x: torch.Tensor) -> torch.Tensor:
-        """The bucket program body: propagate the stack, then read out."""
-        y = x.to(self.dtype).contiguous()
+        """The bucket program body: features, then propagate the stack,
+        then read out."""
+        y = x.to(self.dtype)
+        if self.extractor is not None:
+            y = self.extractor(y).to(self.dtype)
+        y = y.contiguous()
         for w in self._weights:
             y = matmul_relu(w, y)
         return self._o_last @ y

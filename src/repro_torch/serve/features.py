@@ -14,15 +14,29 @@ Spec grammar (``parse_features``), the same as ``repro``'s::
     relu:D[:seed]         D-dim frozen random ReLU projection
                           relu(W x), W ~ N(0, 1/sqrt(P))
 
-``repro`` draws the ``rff``/``relu`` weights with ``jax.random``.  The
-port serves them once it has a threefry PRNG that reproduces those
-numbers bit for bit (ROADMAP, Queue 1: "threefry PRNG"); until then
-:meth:`FeatureExtractor.materialize` raises for those kinds rather than
-draw different weights.
+Extractors are column-wise maps on column-stacked ``(P, J)`` inputs:
+each output column depends only on its input column, so the serving
+engine's zero padding never reaches a real column.
+
+The weights are ``repro``'s: :mod:`repro_torch.prng` draws them from
+``PRNGKey(seed)`` as ``jax.random`` does (the uniform ``b`` bit for bit,
+the normal ``W`` to a few f32 ulps), on the CPU, once the input
+dimension is known (:meth:`FeatureExtractor.materialize`).  They are
+pure functions of ``(spec, input_dim)`` and are moved to each device as
+they are, so train-side and serve-side materializations are
+bit-identical on any device.  The products are plain ``torch.matmul``,
+as ``repro``'s are plain ``jnp`` (no kernel there).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch._device import exact_div
 
 _KINDS = ("identity", "rff", "relu")
 
@@ -34,6 +48,11 @@ class FeatureExtractor:
     kind: str            # one of _KINDS
     dim: int = 0         # D; 0 for identity
     seed: int = 0
+    #: Materialized parameters on the CPU (None until the input dim is
+    #: known; the identity extractor never materializes anything).
+    params: tuple[torch.Tensor, ...] | None = field(default=None, repr=False)
+    input_dim: int | None = field(default=None, repr=False)
+    _placed: dict = field(default_factory=dict, repr=False, compare=False)
 
     def describe(self) -> str:
         if self.kind == "identity":
@@ -44,14 +63,47 @@ class FeatureExtractor:
         return input_dim if self.kind == "identity" else self.dim
 
     def materialize(self, input_dim: int) -> "FeatureExtractor":
-        """Bind this extractor to an input dimension."""
-        if self.kind != "identity":
-            raise NotImplementedError(
-                f"feature extractor {self.describe()!r} draws its weights "
-                "with jax.random; the port serves it once the threefry PRNG "
-                "lands (ROADMAP, Queue 1: threefry PRNG)"
+        """Bind this extractor to an input dimension, drawing its frozen
+        weights.  Deterministic in (kind, dim, seed, input_dim)."""
+        if self.kind == "identity":
+            self.input_dim = input_dim
+            return self
+        if self.input_dim is not None and self.input_dim != input_dim:
+            raise ValueError(
+                f"extractor {self.describe()} materialized for input_dim="
+                f"{self.input_dim}, got {input_dim}"
             )
+        if self.params is None:
+            kw, kb = prng.split(prng.PRNGKey(self.seed))
+            w = torch.from_numpy(prng.normal(kw, (self.dim, input_dim)))
+            if self.kind == "rff":
+                b = torch.from_numpy(
+                    prng.uniform(kb, (self.dim, 1), minval=0.0, maxval=2.0 * math.pi)
+                )
+                self.params = (w, b)
+            else:  # relu
+                self.params = (exact_div(w, math.sqrt(input_dim)),)
+            self.input_dim = input_dim
         return self
+
+    def params_on(self, device: torch.device) -> tuple[torch.Tensor, ...]:
+        """The materialized weights on ``device`` (moved once)."""
+        if device not in self._placed:
+            self._placed[device] = tuple(p.to(device) for p in self.params)
+        return self._placed[device]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Apply to column-stacked ``(P, J)`` inputs on their device."""
+        if self.kind == "identity":
+            return x
+        if self.params is None:
+            self.materialize(x.shape[0])
+        if self.kind == "rff":
+            w, b = self.params_on(x.device)
+            scale = float(np.sqrt(np.float32(2.0 / self.dim)))
+            return scale * torch.cos(w @ x + b)
+        (w,) = self.params_on(x.device)
+        return torch.relu(w @ x)
 
 
 def parse_features(spec: str | None) -> FeatureExtractor | None:

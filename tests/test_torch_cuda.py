@@ -1238,3 +1238,55 @@ def test_xlstm_prefill_and_decode_never_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert bool(torch.isfinite(cache.mlstm.c).all()) and bool(torch.isfinite(cache.slstm.h).all())
+
+
+# ---------------------------------------------------------------------------
+# threefry draws and the stochastic consensus policies on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(), (7,), (10, 1020), (4, 10, 41)])
+def test_threefry_draws_on_card_equal_cpu(cuda, shape):
+    """Integer rounds in int64 and IEEE float steps: the card's words are
+    the CPU's, bit for bit."""
+    from repro_torch import prng
+
+    keys = prng.fold_in(prng.PRNGKey(7), np.arange(20))
+    card = prng.random_bits(keys, shape, device=cuda)
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), prng.random_bits(keys, shape, device="cpu"))
+    for draw in (prng.uniform, prng.normal):
+        assert torch.equal(draw(keys, shape, device=cuda).cpu(), draw(keys, shape, device="cpu"))
+    p = torch.rand((20,) + shape, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(prng.bernoulli(keys, p.to(cuda), shape, device=cuda).cpu(),
+                       prng.bernoulli(keys, p, shape, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["quantized", "quantized:4", "quantized:8@ring:2",
+                                  "lossy:0.2:2:2", "lossy:0.1@hypercube", "stale:1",
+                                  "stale:2", "stale:1@ring:2"])
+def test_policy_mixes_on_card_match_cpu(cuda, spec):
+    """Three mixes from one state, card vs CPU: the same draws (the
+    quantized wire bit for bit, the link draws made on the host), the
+    values within 1e-6 x max|x| (the all-reduce sums in another order)."""
+    from repro_torch import dssfn
+    from repro_torch.core import consensus
+    from repro_torch.core.policy import ConsensusContext
+
+    m = 16 if "hypercube" in spec else 20
+    pol, ctx = dssfn.parse_spec(spec), ConsensusContext(m)
+    gen = torch.Generator().manual_seed(3)
+    xs = [torch.randn((m, 10, 1020), generator=gen) for _ in range(3)]
+    s_card = pol.init_state(xs[0].to(cuda), ctx)
+    s_cpu = pol.init_state(xs[0], ctx)
+    for x in xs:
+        out, s_card = pol.mix(x.to(cuda), s_card, ctx)
+        want, s_cpu = pol.mix(x, s_cpu, ctx)
+        assert out.device.type == "cuda"
+        assert float((out.cpu() - want).abs().max()) <= 1e-6 * float(x.abs().max())
+    if spec.startswith("quantized"):
+        keys = consensus.prng.fold_in(consensus.prng.PRNGKey(1), np.arange(m))
+        assert torch.equal(consensus.quantize_stochastic(xs[0].to(cuda), 8, keys).cpu(),
+                           consensus.quantize_stochastic(xs[0], 8, keys))

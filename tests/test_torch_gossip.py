@@ -10,10 +10,10 @@ Bars:
   it divides by the uniform schedule's term count as a multiply by its
   reciprocal, an ulp per round.  Inside the port the uniform serial path
   is bit-identical to ``ring_gossip_average``.
-- The spec grammar: every ``exact``/``gossip`` entry of
-  ``repro.analysis.grammar.ALL_GRAMMAR`` gives a policy whose
-  ``describe()``, ``wire_bits``, eq.-15 counts and hop counts equal the
-  reference's; every other entry parses, then raises
+- The spec grammar: every ``exact``/``gossip``/``quantized``/``lossy``/
+  ``stale`` entry of ``repro.analysis.grammar.ALL_GRAMMAR`` gives a
+  policy whose ``describe()``, ``wire_bits``, eq.-15 counts and hop
+  counts equal the reference's; every other entry parses, then raises
   ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
 - ADMM and training: the bars of ``tests/test_torch_admm.py`` and
   ``tests/test_torch_train.py`` (readouts within a relative gap of
@@ -273,7 +273,8 @@ def test_gossip_refuses_like_reference():
 # ---------------------------------------------------------------------------
 
 
-PORTED = [e.spec for e in ALL_GRAMMAR if e.spec.split(":")[0].split("@")[0] in ("exact", "gossip")]
+PORTED = [e.spec for e in ALL_GRAMMAR if e.spec.split(":")[0].split("@")[0]
+          in ("exact", "gossip", "quantized", "lossy", "stale")]
 UNPORTED = [e.spec for e in ALL_GRAMMAR if e.spec not in PORTED]
 
 
@@ -300,21 +301,22 @@ def test_unported_policies_raise_naming_item_4(spec):
 #: MALFORMED_SPECS whose refusal comes from a class the port does not
 #: have yet (its constructor or its validation): those parse, then raise
 #: NotImplementedError.
-_CONSTRUCTOR_REFUSALS = {"quantized:64", "lossy:1.5", "stale:-1", "stale:1@ring:1+hypercube",
-                         "async:interval=0", "async:rounds=0", "trimmed:f=0",
+_CONSTRUCTOR_REFUSALS = {"async:interval=0", "async:rounds=0", "trimmed:f=0",
                          "median:rounds=0", "clipped:tau=-1"}
 
 
 @pytest.mark.parametrize("spec,fragment", MALFORMED_SPECS, ids=[s for s, _ in MALFORMED_SPECS])
 def test_malformed_specs_refuse_like_reference(spec, fragment):
+    """Refused at parse time or, like a time-varying StaleMixing, by
+    ``validate(M)``: both stages run, as the reference's own test does."""
     if spec in _CONSTRUCTOR_REFUSALS:
         with pytest.raises(NotImplementedError, match="item 4"):
             dssfn.parse_spec(spec)
         return
     with pytest.raises(ValueError) as je:
-        jdssfn.parse_spec(spec)
+        jdssfn.parse_spec(spec).validate(8)
     with pytest.raises(ValueError) as e:
-        dssfn.parse_spec(spec)
+        dssfn.parse_spec(spec).validate(8)
     assert fragment in str(e.value) and str(e.value) == str(je.value)
 
 

@@ -148,6 +148,24 @@ def test_trained_artifact_serves_in_the_port_and_loads_in_repro(trained, tmp_pat
         np.testing.assert_allclose(z["logits"], want, rtol=1e-5, atol=1e-5)
 
 
+def test_train_cli_exports_features_that_serve_like_reference(tmp_path):
+    """``--export-features`` records the extractor spec, as repro's
+    launcher does; both engines then featurize raw 8-row requests with
+    the same seeded weights in front of the trained stack."""
+    from repro.serve import ServeEngine as JServeEngine
+
+    path = str(tmp_path / "feat")
+    res = train_dssfn.main(TRAIN_ARGS + ["--export-artifact", path,
+                                         "--export-features", "relu:16:3"])
+    assert res["export"]["path"] == path
+    assert j_load(path).features == "relu:16:3"
+    x = np.random.default_rng(0).standard_normal((8, 5)).astype(np.float32)
+    got = ServeEngine(path, buckets=(8,), device="cpu").forward(x).numpy()
+    want = np.asarray(JServeEngine(path, buckets=(8,)).forward(x))
+    assert got.shape == (6, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_train_cli_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
@@ -157,8 +175,23 @@ def test_train_cli_defaults_to_cuda(monkeypatch):
 @pytest.mark.parametrize("flag", [["--backend", "mesh"], ["--backend", "both"],
                                   ["--consensus", "quantized:4"]])
 def test_train_cli_refuses_unported_modes(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        train_dssfn.main(TRAIN_ARGS + flag)
+    """The mesh backends raise naming their ROADMAP item; the quantized
+    policy, once such a refusal, now trains on the CPU with repro's
+    eq.-15 bytes (4 bits a scalar)."""
+    if flag[0] == "--backend":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            train_dssfn.main(TRAIN_ARGS + flag)
+        return
+    from repro.launch import train_dssfn as jlaunch
+
+    run = train_dssfn.main(TRAIN_ARGS + flag)["runs"][0]
+    jrun = jlaunch.main(TRAIN_ARGS[2:] + flag + ["--backend", "simulated",
+                                                 "--no-host-mesh"])["runs"][0]
+    assert run["policy"] == jrun["policy"] and run["wire_bits"] == jrun["wire_bits"] == 4
+    assert run["comm_scalars"] == jrun["comm_scalars"] == 6 * (16 + 40 + 40) * 20
+    assert run["comm_scalars"] * run["wire_bits"] // 8 == \
+        jrun["comm_scalars"] * jrun["wire_bits"] // 8
+    assert 0.0 <= run["test_accuracy"] <= 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -510,17 +510,37 @@ def test_feature_spec_grammar_matches_reference():
             parse_features(bad)
 
 
+#: The normal draws behind W agree with jax's to a few f32 ulps
+#: (``tests/test_torch_prng.py``); 4 ulps of |W|'s largest element.
+FEATURE_ULPS = 4 * 2.0**-23
+
+
 @pytest.mark.parametrize("spec", ["rff:8:1", "relu:8"])
 def test_random_feature_extractors_wait_for_the_prng(artifact_dir, tmp_path, spec):
-    """rff/relu weights come from jax.random; the port refuses to draw
-    other numbers, at materialize time and at an engine's first request."""
-    with pytest.raises(NotImplementedError, match="threefry"):
-        parse_features(spec).materialize(8)
+    """rff/relu weights come from jax.random, which the port's threefry
+    PRNG now reproduces: the extractor draws repro's weights (b bit for
+    bit, W to a few ulps), and a repro-exported artifact recording the
+    extractor serves repro's logits within 1e-5."""
+    from repro.serve import parse_features as j_parse
+
+    got, want = parse_features(spec).materialize(8), j_parse(spec).materialize(8)
+    assert len(got.params) == len(want.params)
+    w, jw = got.params[0].numpy(), np.asarray(want.params[0])
+    assert w.shape == jw.shape == (8, 8)
+    assert np.abs(w - jw).max() <= FEATURE_ULPS * np.abs(jw).max()
+    if spec.startswith("rff"):
+        assert np.array_equal(got.params[1].numpy(), np.asarray(want.params[1]))
+    x = _x(8, 5, 3)
+    np.testing.assert_allclose(got(torch.from_numpy(x)).numpy(), np.asarray(want(jnp.asarray(x))),
+                               **TOL)
     path = str(tmp_path / "feat")
     o, r = _np_stack(8, 3, 20, 2)
-    export_artifact(path, params_from_numpy(o, r, device="cpu"), features=spec)
+    j_export(path, _jparams(o, r), features=spec)
     assert load_artifact(path).features == spec
-    engine = ServeEngine(path, device="cpu")
+    engine = ServeEngine(path, buckets=(4, 16), device="cpu")
     assert engine.request_dim is None
-    with pytest.raises(NotImplementedError, match="threefry"):
-        engine.forward(np.zeros((8, 2), np.float32))
+    x = _x(8, 11, 4)
+    ref = np.asarray(JServeEngine(path, buckets=(4, 16)).forward(x))
+    np.testing.assert_allclose(engine.forward(x).numpy(), ref, **TOL)
+    assert engine.request_dim == 8
+    np.testing.assert_allclose(engine.forward(x[:, :3]).numpy(), ref[:, :3], **TOL)

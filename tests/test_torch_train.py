@@ -213,9 +213,6 @@ def test_facade_trains_like_the_loop(runs):
 UNPORTED = [
     dict(backend="mesh"),
     dict(mesh=object()),
-    dict(policy="quantized:4"),
-    dict(policy="lossy:0.1"),
-    dict(policy="stale:2"),
     dict(policy="async:interval=4"),
     dict(checkpoint_dir="/tmp/ckpt"),
     dict(checkpoint_every=2),
@@ -224,6 +221,56 @@ UNPORTED = [
     dict(guard_divergence=True),
     dict(max_rollbacks=3),
 ]
+
+
+def _train_both(runs, policy):
+    jspec = jdssfn.TrainSpec(cfg=js.SSFNConfig(**GEOM), workers=M, policy=policy)
+    jres = jdssfn.train(jspec, *jspec.partition_data(runs["data"].x_train, runs["data"].t_train),
+                        jax.random.PRNGKey(1))
+    spec = dssfn.TrainSpec(cfg=runs["cfg"], workers=M, policy=policy)
+    res = dssfn.train(spec, *spec.partition_data(runs["td"].x_train, runs["td"].t_train),
+                      r=runs["r"])
+    assert res.policy.describe() == jres.policy.describe()
+    assert res.policy.wire_bits == jres.policy.wire_bits
+    assert res.log.comm_scalars == jres.log.comm_scalars
+    return res, jres
+
+
+@pytest.mark.parametrize("policy", ["lossy:0.1:6:1", "lossy:0.2:2@ring:1", "stale:2",
+                                    "stale:3", "stale:2@full"])
+def test_facade_trains_lossy_and_stale_like_reference(runs, policy):
+    """Their draws are repro's and their arithmetic has no rounding step
+    that an ulp can flip, so they hold to the ADMM readout bar (measured
+    at most 7.0e-6 at layer 3)."""
+    res, jres = _train_both(runs, policy)
+    for l, (a, b) in enumerate(zip(res.params.o, jres.params.o)):
+        assert _rel(a.numpy(), b) <= GAP, l
+    np.testing.assert_allclose(res.log.layer_costs, jres.log.layer_costs, rtol=GAP)
+    exact = runs["torch"]["dec"][0]
+    assert min(_rel(a.numpy(), b.numpy()) for a, b in zip(res.params.o, exact.o)) > 1e-3
+
+
+#: Stochastic rounding turns an f32 ulp of difference between the
+#: packages' Grams into a flipped rounding (one quantization step, 1/255
+#: of a worker's range at 8 bits), and the ADMM iterations and later
+#: layers carry the flips.  Layer 0 sees the same data in both packages,
+#: so its draws and readout agree (measured 9.0e-7); layers 1-3 were
+#: measured 1.0e-2, 4.1e-2, 4.4e-2 from repro's, about the policy's own
+#: effect (2.3e-2 to 6.2e-2 against ExactMean, in either package).
+QUANT_GAP = 0.1
+
+
+def test_facade_trains_quantized_like_reference(runs):
+    res, jres = _train_both(runs, "quantized:8")
+    assert _rel(res.params.o[0].numpy(), jres.params.o[0]) <= GAP
+    for l, (a, b) in enumerate(zip(res.params.o[1:], jres.params.o[1:]), 1):
+        assert _rel(a.numpy(), b) <= QUANT_GAP, l
+    exact = runs["torch"]["dec"][0]
+    assert _rel(res.params.o[0].numpy(), exact.o[0].numpy()) > 100 * GAP
+    x = runs["data"].x_test
+    acc = dssfn.evaluate(res, runs["td"].x_test, runs["td"].y_test)
+    jacc = jdssfn.evaluate(jres, x, runs["data"].y_test)
+    assert abs(acc - jacc) <= 0.05
 
 
 def _unported_id(kw):
