@@ -161,26 +161,24 @@ def validate_trace_every(trace_every: int, num_iters: int) -> int:
     return trace_every
 
 
-def _check_interval(policy: ConsensusPolicy, num_iters: int, trace_every: int) -> None:
-    """The reference's guards for a communication interval N > 1, then a
-    refusal: its chunks of local rounds come with ``AsyncGossip``."""
+def _check_interval(policy: ConsensusPolicy, num_iters: int, trace_every: int) -> int:
+    """The communication interval N of ``policy``, after the reference's
+    guards for N > 1: N must divide the iteration count (whole chunks of
+    N-1 local iterations and one on the wire), and the traces are taken
+    every iteration or not at all."""
     interval = policy.communication_interval
-    if interval <= 1:
-        return
-    if num_iters % interval != 0:
-        raise ValueError(
-            f"communication interval {interval} must divide "
-            f"num_iters={num_iters}"
-        )
-    if trace_every > 1:
-        raise ValueError(
-            "trace_every > 1 does not compose with a communication "
-            "interval; use trace_every of 0 or 1"
-        )
-    raise NotImplementedError(
-        f"communication_interval={interval} (AsyncGossip's local rounds) is "
-        "not ported yet: ROADMAP Queue 1 item 4"
-    )
+    if interval > 1:
+        if num_iters % interval != 0:
+            raise ValueError(
+                f"communication interval {interval} must divide "
+                f"num_iters={num_iters}"
+            )
+        if trace_every > 1:
+            raise ValueError(
+                "trace_every > 1 does not compose with a communication "
+                "interval; use trace_every of 0 or 1"
+            )
+    return interval
 
 
 def worker_admm_iterations(
@@ -211,13 +209,21 @@ def worker_admm_iterations(
     iteration.  The iterates do not depend on it.  Traces are worker
     0's view, as the reference reports them.
 
+    When the policy declares a ``communication_interval`` of N > 1
+    (``AsyncGossip(interval=N)``), every N-th iteration mixes and the
+    N-1 before it are LOCAL: the z-update projects each worker's own
+    ``o + lam``, with no mix and no policy-state advance.  Requires
+    ``num_iters % N == 0`` and ``trace_every`` in {0, 1}; the traces of
+    every iteration, local ones included, come in iteration order (the
+    reference's chunked traces, flattened).
+
     Returns ``(o, z, lam), traces`` with ``traces`` the
     ``(objs, primals, duals, cerrs)`` tuple of (K/N,) tensors, or None
     when ``trace_every=0``.
     """
     policy = policy if policy is not None else backend.policy
     trace_every = validate_trace_every(trace_every, num_iters)
-    _check_interval(policy, num_iters, trace_every)
+    interval = _check_interval(policy, num_iters, trace_every)
     ctx = backend.ctx()
     zeros = torch.zeros_like(a)
     o, z, lam = zeros, z_init.to(a.dtype).expand_as(a), zeros
@@ -225,7 +231,10 @@ def worker_admm_iterations(
     traced = []
     for k in range(num_iters):
         o = _o_update(a, chol, z, lam, mu)
-        avg, pstate = policy.mix(o + lam, pstate, ctx)
+        if (k + 1) % interval:
+            avg = o + lam           # a local round: each worker's own estimate
+        else:
+            avg, pstate = policy.mix(o + lam, pstate, ctx)
         z_prev, z = z, project_frobenius(avg, eps_radius)
         lam = lam + o - z
         if trace_every and (k + 1) % trace_every == 0:

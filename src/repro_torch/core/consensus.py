@@ -35,9 +35,22 @@ do).  Each permutation's index tensor is built once per device
    ``(M, 2)`` threefry words (:mod:`repro_torch.prng`) and min/max run
    over every dim but 0.
 
+6. ``faulty_schedule_gossip_step``: one schedule round under a shared
+   (M,) up-mask, every dead link's weight rerouted to the receiver's own
+   value (the fault model of ``AsyncGossip``); and the screened steps of
+   the Byzantine-robust policies, ``trimmed_mean_schedule_gossip_step``,
+   ``median_schedule_gossip_step`` and ``clipped_schedule_gossip_step``,
+   which first replace every unhealthy (non-finite or dead-link) payload
+   by the receiver's own value (``_receive_screened``).  The reference
+   runs them per worker under ``vmap``; here a per-worker scalar (a link
+   gate, a payload's norm) is an ``(M,)`` or ``(steps, M)`` tensor, and
+   a per-worker reduction runs over every dim but the worker dims.  The
+   faulty step multiplies by its gates, so a NaN payload reaches its
+   receiver even over a dead link, as the reference's does (it is the
+   vulnerable baseline); the screened steps select with ``torch.where``.
+
 ``make_consensus_fn`` (the legacy batched dense-H factory) is deprecated
-and warns, as the reference's does.  The faulty and robust primitives
-wait for ROADMAP Queue 1 item 4.
+and warns, as the reference's does.
 """
 from __future__ import annotations
 
@@ -296,6 +309,312 @@ def lossy_schedule_gossip_step(
     coef = torch.from_numpy(coef).to(x.device)
     wsum = torch.from_numpy(wsum).to(x.device)
     return lossy_gossip_apply(x, schedule, coef, wsum, wire_dtype=wire_dtype)
+
+
+def _narrow_dtype(wire_dtype: str | None):
+    return (
+        None if wire_dtype is None
+        else _TORCH_WIRE_DTYPES[canonical_wire_dtype(wire_dtype)]
+    )
+
+
+def _gather_steps(wire: Tensor, schedule, dtype) -> Tensor:
+    """Every step's received message at once, ``(steps, M, ...)``: one
+    ``index_select`` over the worker dim, widened back to ``dtype``."""
+    steps = len(schedule.perms)
+    if not steps:
+        return wire.new_empty((0,) + tuple(wire.shape), dtype=dtype)
+    index = _perms_index(tuple(schedule.perms), wire.shape[0], wire.device)
+    msgs = wire.index_select(0, index).view((steps,) + tuple(wire.shape))
+    return msgs.to(dtype)
+
+
+def _per_step(v: Tensor, x: Tensor) -> Tensor:
+    """A ``(steps, M)`` per-link value shaped to broadcast over the
+    ``(steps, M, ...)`` messages of ``x``."""
+    return v.view(tuple(v.shape) + (1,) * (x.ndim - 1))
+
+
+def _sum_per_message(t: Tensor, lead: int) -> Tensor:
+    """Sum over every dim after the first ``lead`` (one worker's message)."""
+    return t.flatten(lead).sum(dim=-1) if t.ndim > lead else t
+
+
+def faulty_link_weights(schedule, alive: Tensor) -> tuple[Tensor, Tensor]:
+    """The link gates of one faulty round from the shared (M,) up-mask
+    ``alive`` (in the message's dtype): a step's message survives only
+    when its sender and its receiver are both up, ``g = alive[me] *
+    alive[src]``.  Returns ``coef`` (steps, M), ``w * g``, and ``lost``
+    (M,), ``sum_k w_k (1 - g_k)`` added in step order, as the reference
+    accumulates them, on ``alive``'s device."""
+    m = schedule.num_workers
+    coefs = []
+    lost = torch.zeros(m, dtype=alive.dtype, device=alive.device)
+    for perm, w in zip(schedule.perms, schedule.weights):
+        g = alive * alive.index_select(0, _perm_index(tuple(perm), m, alive.device))
+        coefs.append(w * g)
+        lost = lost + w * (1.0 - g)
+    coef = (
+        torch.stack(coefs) if coefs
+        else torch.zeros((0, m), dtype=alive.dtype, device=alive.device)
+    )
+    return coef, lost
+
+
+def faulty_gossip_apply(
+    x: Tensor,
+    schedule,
+    coef: Tensor,
+    lost: Tensor,
+    *,
+    transmit: Tensor | None = None,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One faulty round with its link gates given
+    (:func:`faulty_link_weights`, on ``x``'s device):
+
+        x' = self_weight * x + sum_k coef_k * recv_k + lost * x
+
+    the products added in step order.  ``transmit`` is what peers
+    receive; each worker's own term is the fresh ``x``."""
+    narrow = _narrow_dtype(wire_dtype)
+    out = x if transmit is None else transmit
+    acc = schedule.self_weight * x
+    if schedule.perms:
+        wire = out if narrow is None else out.to(narrow)
+        scaled = _per_step(coef, x) * _gather_steps(wire, schedule, x.dtype)
+        for i in range(len(schedule.perms)):
+            acc = acc + scaled[i]
+    return acc + lost.view(_worker_shape(x)) * x
+
+
+def faulty_schedule_gossip_step(
+    x: Tensor,
+    schedule,
+    alive,
+    *,
+    transmit: Tensor | None = None,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One exchange-schedule gossip round under a shared fault mask.
+
+    ``alive`` is the (M,) 0/1 vector of which workers are up this round
+    (``policy.FaultModel.alive_mask``).  A step's message survives only
+    when both endpoints are up (g = alive[me] * alive[src]); the weight
+    of every dead link is rerouted to the receiver's own value:
+
+        x' = self_w * x + sum_k w_k [g_k * recv_k + (1 - g_k) * x]
+
+    so every realized row sums to 1 whatever the draw, and a down worker
+    holds its value.  On an inverse-closed schedule
+    (``topology.is_inverse_closed``) the gate kills the (i -> j) and
+    (j -> i) weights together, so the mean over the up workers is kept.
+
+    ``transmit`` substitutes the value peers RECEIVE (a straggler's stale
+    iterate, an attacker's payload); each worker's own contribution is
+    the fresh ``x``.  The gate multiplies the message, so a NaN payload
+    reaches its receiver even over a dead link, as in the reference.
+    ``wire_dtype`` narrows the link payload as in
+    :func:`schedule_gossip_step`.
+    """
+    alive = torch.as_tensor(alive).to(device=x.device, dtype=x.dtype)
+    coef, lost = faulty_link_weights(schedule, alive)
+    return faulty_gossip_apply(
+        x, schedule, coef, lost, transmit=transmit, wire_dtype=wire_dtype
+    )
+
+
+def _receive_screened(
+    x: Tensor,
+    schedule,
+    alive: Tensor | None,
+    *,
+    transmit: Tensor | None = None,
+    wire_dtype: str | None = None,
+):
+    """Gather one payload per schedule step for every worker, screening
+    each incoming message before it can touch an aggregate.
+
+    Returns ``(payloads, oks, weights, self_weight)``: ``payloads``
+    (steps, M, ...) holds step k's received message with the whole
+    message REPLACED by the receiver's own ``x`` when the link is down
+    (both endpoints must be up in ``alive``) or the message holds any
+    non-finite entry; ``oks`` (steps, M) is that health gate (True = the
+    raw message survived).  A NaN-bombing peer thus degrades into the
+    dead-link reroute of :func:`faulty_schedule_gossip_step`, never a
+    poisoned mean; the gates let order-statistic aggregators keep the
+    rerouted links out of their neighborhood-scale estimates.
+
+    ``transmit`` substitutes what peers receive; the receiver's own ``x``
+    stays fresh.  The gate selects with ``torch.where``, so non-finite
+    values never enter a multiply.
+    """
+    narrow = _narrow_dtype(wire_dtype)
+    out = x if transmit is None else transmit
+    wire = out if narrow is None else out.to(narrow)
+    steps, m = len(schedule.perms), x.shape[0]
+    msgs = _gather_steps(wire, schedule, x.dtype)
+    ok = torch.isfinite(msgs)
+    ok = ok.flatten(2).all(dim=-1) if ok.ndim > 2 else ok
+    if alive is not None and steps:
+        alive = alive.to(x.dtype)
+        index = _perms_index(tuple(schedule.perms), m, x.device)
+        up = (alive * alive.index_select(0, index).view(steps, m)) > 0.5
+        ok = ok & up
+    payloads = torch.where(_per_step(ok, x), msgs, x)
+    return payloads, ok, schedule.weights, schedule.self_weight
+
+
+#: Neighborhood-scale factor of the trimmed-mean outlier screen: a link
+#: is trimmable when its payload's distance from the receiver exceeds
+#: this multiple of the median neighborhood distance.  Below 1 the screen
+#: trims the top-f links essentially unconditionally (mis-flagging honest
+#: extremes); large values only catch payloads far outside the honest
+#: spread.  1.5 catches a signflip attacker (whose payload sits ~2||x||
+#: from every honest receiver) while honest distances stay within it.
+TRIM_SCREEN_FACTOR = 1.5
+
+
+def _midpoint(lo: Tensor, hi: Tensor) -> Tensor:
+    """The reference's median of two order statistics: (lo + hi) * 0.5
+    (``jnp.median``'s ``midpoint`` method; one middle value gives
+    (a + a) * 0.5).  ``torch.median`` would return the lower one, and
+    ``torch.quantile`` rounds ``lo + (hi - lo) * 0.5`` differently."""
+    return (lo + hi) * 0.5
+
+
+def _median0(stack: Tensor) -> Tensor:
+    """``jnp.median(stack, axis=0)``: sort along dim 0 and take the
+    midpoint of the middle pair; NaN wherever the column holds one."""
+    n = stack.shape[0]
+    srt = torch.sort(stack, dim=0).values
+    med = _midpoint(srt[(n - 1) // 2], srt[n // 2])
+    return torch.where(torch.isnan(stack).any(dim=0), torch.nan, med)
+
+
+def _nanmedian0(v: Tensor) -> Tensor:
+    """``jnp.nanmedian(v, axis=0)``: the midpoint of the middle pair of
+    each column's non-NaN values (sorting puts NaN last); NaN where a
+    column has none."""
+    srt = torch.sort(v, dim=0).values
+    count = (~torch.isnan(v)).sum(dim=0, keepdim=True)
+    lo = torch.div(count - 1, 2, rounding_mode="floor").clamp_min(0)
+    hi = torch.div(count, 2, rounding_mode="floor")
+    return _midpoint(srt.gather(0, lo), srt.gather(0, hi))[0]
+
+
+def trimmed_mean_schedule_gossip_step(
+    x: Tensor,
+    schedule,
+    *,
+    trim: int,
+    alive: Tensor | None = None,
+    transmit: Tensor | None = None,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One robust gossip round: screened trimmed-mean aggregation.
+
+    Each of the ``trim`` most-deviant payloads (Frobenius distance from
+    the receiver's own value) is rerouted to the diagonal, but only when
+    it stands out from the neighborhood scale,
+
+        d_k > TRIM_SCREEN_FACTOR * median({d_j}) + 1e-6 * (1 + ||x||),
+
+    so honest links mix with their exact gossip weights and a Byzantine
+    payload beyond the honest spread loses its whole link weight.  A
+    screened (rerouted) link ranks as most deviant and stays out of the
+    median.  Ranks break ties by step order (a stable sort), as the
+    reference's ``argsort`` does.  Requires a uniform equal-weight
+    schedule.
+    """
+    if not schedule.uniform:
+        raise ValueError(
+            "trimmed-mean gossip needs a uniform equal-weight schedule"
+        )
+    payloads, ok, _, _ = _receive_screened(
+        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype,
+    )
+    steps = payloads.shape[0]
+    s = steps + 1
+    if not 0 <= 2 * trim < s:
+        raise ValueError(
+            f"trim={trim} needs 2*trim < neighborhood size {s}"
+        )
+    acc = x
+    if trim == 0:
+        for k in range(steps):
+            acc = acc + payloads[k]
+        return exact_div(acc, s)
+    raw = torch.sqrt(_sum_per_message(torch.square(payloads - x), 2))
+    dists = torch.where(ok, raw, torch.inf)
+    med = _nanmedian0(torch.where(ok, raw, torch.nan))
+    floor = 1e-6 * (1.0 + torch.sqrt(_sum_per_message(torch.square(x), 1)))
+    thresh = TRIM_SCREEN_FACTOR * med + floor
+    # rank 0 = most deviant; flag the `trim` most deviant links, but only
+    # those beyond the neighborhood-scale threshold.
+    ranks = torch.argsort(torch.argsort(-dists, dim=0, stable=True), dim=0)
+    flags = _per_step((ranks < trim) & (dists > thresh), x)
+    for k in range(steps):
+        acc = acc + torch.where(flags[k], x, payloads[k])
+    return exact_div(acc, s)
+
+
+def median_schedule_gossip_step(
+    x: Tensor,
+    schedule,
+    *,
+    alive: Tensor | None = None,
+    transmit: Tensor | None = None,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One robust gossip round: coordinate-wise median of the screened
+    neighborhood stack (own value first), the maximal-breakdown member
+    of the trimmed-mean family.  An even stack takes the midpoint of its
+    middle pair, as ``jnp.median`` does.  Uniform schedules only."""
+    if not schedule.uniform:
+        raise ValueError("median gossip needs a uniform equal-weight schedule")
+    payloads, _, _, _ = _receive_screened(
+        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype,
+    )
+    return _median0(torch.cat([x[None], payloads], dim=0))
+
+
+def clipped_schedule_gossip_step(
+    x: Tensor,
+    schedule,
+    *,
+    tau: float,
+    alive: Tensor | None = None,
+    transmit: Tensor | None = None,
+    wire_dtype: str | None = None,
+) -> Tensor:
+    """One robust gossip round with norm-clipped incoming payloads
+    (centered clipping): each screened payload's deviation from self is
+    shrunk onto the Frobenius ball of radius ``tau`` before the weighted
+    accumulation,
+
+        recv_k' = x + min(1, tau / ||recv_k - x||) (recv_k - x)
+
+    so one attacker moves its receiver by at most w_k * tau a round.
+    Payloads within the ball pass through untouched (selected, not
+    recomputed).  Works on any schedule (weights are respected)."""
+    if tau <= 0.0:
+        raise ValueError(f"clip radius tau must be > 0, got {tau}")
+    payloads, _, weights, self_weight = _receive_screened(
+        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype,
+    )
+    acc = self_weight * x
+    if weights:
+        delta = payloads - x
+        norm = torch.sqrt(_sum_per_message(delta * delta, 2))
+        # tau / norm as a tensor division: ``python_scalar / tensor`` is a
+        # reciprocal times the scalar in torch, which rounds differently.
+        scale = torch.full_like(norm, tau) / norm.clamp_min(1e-30)
+        clipped = x + _per_step(scale, x) * delta
+        kept = torch.where(_per_step(norm <= tau, x), payloads, clipped)
+        for k, w in enumerate(weights):
+            acc = acc + w * kept[k]
+    return acc
 
 
 def _range_over_workers(x: Tensor):

@@ -83,7 +83,21 @@ def fused_layer_step(
     policy = policy if policy is not None else backend.policy
     policy.validate(backend.num_workers)
     trace_every = admm_lib.validate_trace_every(trace_every, num_iters)
-    admm_lib._check_interval(policy, num_iters, trace_every)
+    # Interval-mixing policies run whole local/communicate chunks;
+    # surface the incompatible configurations here, with the reference's
+    # messages.
+    interval = policy.communication_interval
+    if interval > 1:
+        if num_iters % interval:
+            raise ValueError(
+                f"communication_interval={interval} must divide "
+                f"num_iters={num_iters} (whole local/communicate chunks)"
+            )
+        if trace_every > 1:
+            raise ValueError(
+                "communication_interval > 1 supports trace_every in {0, 1} "
+                f"only, got {trace_every}"
+            )
 
     def worker(y_m: Tensor, t_m: Tensor, *w_rep: Tensor):
         if w_rep:

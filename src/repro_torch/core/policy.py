@@ -1,12 +1,15 @@
 """ConsensusPolicy: one strategy object per way of reaching consensus.
 
-Port of the parts of ``repro/core/policy.py`` the training slice runs:
-the :class:`ConsensusContext` collectives, the :class:`ConsensusPolicy`
-protocol with its eq.-15 accounting, :class:`ExactMean`, the paper's
-gossip (:class:`Gossip` over any :mod:`repro_torch.core.topology` graph,
-and :func:`RingGossip`, its circular alias), the non-ideal links of the
-paper's §IV (:class:`QuantizedGossip`, :class:`LossyGossip`,
-:class:`StaleMixing`) and the spec grammar (:func:`parse_policy`).
+Port of ``repro/core/policy.py``: the :class:`ConsensusContext`
+collectives, the :class:`ConsensusPolicy` protocol with its eq.-15
+accounting, :class:`ExactMean`, the paper's gossip (:class:`Gossip` over
+any :mod:`repro_torch.core.topology` graph, and :func:`RingGossip`, its
+circular alias), the non-ideal links of the paper's §IV
+(:class:`QuantizedGossip`, :class:`LossyGossip`, :class:`StaleMixing`),
+asynchronous gossip under a seeded fault model (:class:`FaultModel`,
+:class:`AsyncGossip`), the Byzantine-robust policies
+(:class:`TrimmedMeanGossip`, :class:`MedianGossip`,
+:class:`ClippedGossip`) and the spec grammar (:func:`parse_policy`).
 
 The paper's Algorithm 1 is parameterized by *how* the workers average;
 everything else is invariant.  A policy's ``mix(x, state, ctx)`` runs
@@ -24,25 +27,33 @@ policy                              exchanges/round                 wire bits
 ``QuantizedGossip(bits, ...)``      1 (or rounds * edges)           ``bits``
 ``LossyGossip(drop_prob, ...)``     rounds * topology edges         32/16
 ``StaleMixing(delay, ...)``         1 (or topology edges)           32/16
+``AsyncGossip(rounds, interval)``   rounds * edges / interval       32/16
+``TrimmedMeanGossip(f, ...)``       rounds * topology edges         32/16
+``MedianGossip(rounds, ...)``       rounds * topology edges         32/16
+``ClippedGossip(tau, ...)``         rounds * topology edges         32/16
 ==================================  ==============================  ==========
 
 ``Gossip`` compiles its B rounds into ONE H^B mix by default
 (``compress=True``; :meth:`repro_torch.core.topology.Topology.power_schedule`),
 where that schedule is shallower than B serial rounds, and takes
 ``wire_dtype=`` (f32 / bf16 / f16 link payloads accumulated in full
-precision).  The rest of the reference's family (``AsyncGossip`` and the
-robust policies) waits for ROADMAP Queue 1 item 4: :func:`parse_policy`
-parses their specs and raises ``NotImplementedError`` naming it.
+precision).  :class:`FaultModel` injects seeded omission faults (drops,
+crash-stops, stragglers) and corruption faults (``byzantine=`` workers
+sending ``signflip | scale:c | noise:s | nanbomb | replay:d`` payloads);
+``AsyncGossip`` trusts what it receives (the vulnerable baseline), the
+robust policies screen every payload for non-finite values and bound
+what ``f`` attackers per neighborhood can do.
 
 Policies are frozen dataclasses: hashable (they key the backend's
 program record), compare by value, and hold only static configuration.
-Randomized policies fold a static integer ``seed`` with each worker's
-index into a threefry key (:mod:`repro_torch.prng`, ``jax.random``'s
-words) and advance it through the mix state, so they draw ``repro``'s
-numbers.  No key depends on the data: the key chain runs on the host in
-numpy, and each mix's draws for a given key are memoized (every layer's
-ADMM starts the same chain), so only the bulk stochastic-rounding bits
-are drawn on the device, in one batched pass a mix.
+Randomized policies fold a static integer ``seed`` into threefry keys
+(:mod:`repro_torch.prng`, ``jax.random``'s words), so they draw
+``repro``'s numbers.  No key depends on the data: key chains, link draws
+and fault masks are computed on the host in numpy and memoized (every
+layer's ADMM starts the same chain), so only the bulk stochastic-rounding
+bits are drawn on the device, in one batched pass a mix.  A state that
+counts mixes (``AsyncGossip``, the robust policies) keeps the count as a
+host integer for the same reason.
 """
 from __future__ import annotations
 
@@ -58,6 +69,10 @@ from repro_torch import prng
 from repro_torch._device import exact_div, to_device
 from repro_torch.core import consensus as consensus_lib
 from repro_torch.core import topology as topology_lib
+from repro_torch.core.consensus import (  # noqa: F401  (re-exported, as the
+    quantize_nearest,                     # reference's module does)
+    quantize_stochastic,
+)
 from repro_torch.core.topology import Ring, Topology, parse_topology
 
 Tensor = torch.Tensor
@@ -380,6 +395,17 @@ def _key_chain(key_bytes: bytes, num_workers: int, steps: int, device: torch.dev
     return _frozen(np.ascontiguousarray(key)), to_device(np.stack(subs).astype(np.int64), device)
 
 
+def _device_views(parts: list, device: torch.device) -> list:
+    """Host arrays of one dtype moved to ``device`` in one copy, each as
+    a view of its own shape."""
+    flat = to_device(np.concatenate([np.ravel(p) for p in parts]), device)
+    views, offset = [], 0
+    for p in parts:
+        views.append(flat[offset:offset + p.size].view(p.shape))
+        offset += p.size
+    return views
+
+
 @functools.lru_cache(maxsize=512)
 def _lossy_draws(policy: "LossyGossip", key_bytes: bytes, num_workers: int,
                  device: torch.device):
@@ -391,24 +417,15 @@ def _lossy_draws(policy: "LossyGossip", key_bytes: bytes, num_workers: int,
     key = np.frombuffer(key_bytes, np.uint32).reshape(num_workers, 2)
     cycle = policy.topology.cycle()
     scheds = [topology_lib.cached_exchange_schedule(t, num_workers) for t in cycle]
-    parts, sizes = [], []
+    parts = []
     for b in range(policy.rounds):
         pair = prng.split(key)
         key, sub = pair[:, 0], pair[:, 1]
-        coef, wsum = consensus_lib.lossy_link_weights(
+        parts += consensus_lib.lossy_link_weights(
             scheds[b % len(scheds)], policy.drop_prob, sub
         )
-        parts += [coef.ravel(), wsum]
-        sizes.append(coef.shape)
-    flat = to_device(np.concatenate(parts), device)
-    rounds, offset = [], 0
-    for shape in sizes:
-        n = shape[0] * shape[1]
-        coef = flat[offset:offset + n].view(shape)
-        wsum = flat[offset + n:offset + n + num_workers]
-        rounds.append((coef, wsum))
-        offset += n + num_workers
-    return _frozen(np.ascontiguousarray(key)), tuple(rounds)
+    views = _device_views(parts, device)
+    return _frozen(np.ascontiguousarray(key)), tuple(zip(views[::2], views[1::2]))
 
 
 # ----------------------------------------------------------- quantized
@@ -691,6 +708,656 @@ class StaleMixing(ConsensusPolicy):
         return out
 
 
+# --------------------------------------------------------------- async
+
+#: Byzantine attack kinds the fault model can inject (the ``attack=``
+#: grammar): ``signflip`` / ``nanbomb`` take no argument, ``scale:c`` /
+#: ``noise:s`` take a float, ``replay:d`` an integer delay >= 1.
+_ATTACK_KINDS = ("signflip", "scale", "noise", "nanbomb", "replay")
+
+
+def _parse_attack(spec: str):
+    """``"scale:10"`` -> ``("scale", 10.0)``; validates kind and arg."""
+    kind, _, arg = spec.partition(":")
+    if kind not in _ATTACK_KINDS:
+        raise ValueError(
+            f"unknown attack {kind!r}; expected one of {_ATTACK_KINDS} "
+            f"(attack spec {spec!r})"
+        )
+    if kind in ("signflip", "nanbomb"):
+        if arg:
+            raise ValueError(f"{kind} attack takes no ':' argument ({spec!r})")
+        return kind, None
+    if not arg:
+        raise ValueError(
+            f"{kind} attack needs an argument, e.g. '{kind}:2' ({spec!r})"
+        )
+    if kind == "replay":
+        depth = int(arg)
+        if depth < 1:
+            raise ValueError(f"replay depth must be >= 1, got {depth}")
+        return kind, depth
+    return kind, float(arg)
+
+
+@functools.lru_cache(maxsize=4096)
+def _alive_rows(faults: "FaultModel", iteration: int, rounds: tuple, num_workers: int):
+    """The (len(rounds), M) f32 up-masks of the given gossip rounds at one
+    ADMM iteration, on the host: each round's Bernoulli draw from
+    ``fold_in(fold_in(PRNGKey(seed), iteration), round)``, times the
+    permanent-failure gate."""
+    alive = np.ones((len(rounds), num_workers), np.float32)
+    if faults.drop > 0.0:
+        key = prng.fold_in(prng.PRNGKey(faults.seed), iteration)
+        keys = prng.fold_in(key, np.asarray(rounds, np.int64))
+        alive = prng.bernoulli(keys, 1.0 - faults.drop, (num_workers,)).astype(np.float32)
+    if faults.failed:
+        fail = faults._member_mask(faults.failed, num_workers).astype(np.float32)
+        down = fail * np.float32(iteration >= faults.fail_at)
+        alive = alive * (np.float32(1.0) - down)
+    return _frozen(alive)
+
+
+@functools.lru_cache(maxsize=256)
+def _noise(seed: int, iteration: int, round_idx: int, shape: tuple, device: torch.device):
+    """The ``noise`` attack's draw: ``normal(fold_in(fold_in(fold_in(
+    PRNGKey(seed), 0x4E5A), iteration), round), shape)`` in f32, made on
+    the host and moved to ``device``."""
+    key = prng.fold_in(prng.PRNGKey(seed), 0x4E5A)
+    key = prng.fold_in(prng.fold_in(key, iteration), round_idx)
+    return to_device(prng.normal(key, shape), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _member_tensor(workers: tuple, num_workers: int, device: torch.device) -> Tensor:
+    return torch.from_numpy(np.isin(np.arange(num_workers), workers)).to(device)
+
+
+@dataclass(frozen=True)
+class FaultModel:
+    """Deterministic, seeded fault process, evaluated for all M workers
+    at once.  Faults are data: the same policy serves every realized
+    fault pattern.
+
+    ``drop``: each worker independently misses each gossip round with
+    this probability.  The draw folds ``(seed, iteration, round)`` into
+    one key WITHOUT a worker index, so every worker sees the same (M,)
+    mask, the shared knowledge the renormalization in
+    ``consensus.faulty_schedule_gossip_step`` relies on.  No draw depends
+    on the data, so the masks are drawn on the host (:mod:`repro_torch.
+    prng`, the reference's words) and memoized: each layer's ADMM
+    restarts the iteration count, and finds them drawn.
+
+    ``failed``/``fail_at``: the listed workers go down permanently once
+    the ADMM iteration reaches ``fail_at`` (crash-stop).
+
+    ``stragglers``/``straggle``: the listed workers transmit the value
+    they held ``straggle`` communicating rounds ago (zeros before the
+    window fills); their OWN mixing input stays fresh.
+
+    ``byzantine``/``attack``: the listed workers put a CORRUPTED payload
+    on the wire every gossip round: ``signflip`` (-x), ``scale:c``
+    (c*x), ``noise:s`` (x + s*N(0,1), seeded per (iteration, round), the
+    same draw for every worker), ``nanbomb`` (all NaN), ``replay:d`` (the
+    payload from d mixes ago, zeros before the window fills).  An
+    attacker's own mixing input stays honest.
+    """
+
+    drop: float = 0.0
+    seed: int = 0
+    fail_at: int | None = None
+    failed: tuple[int, ...] = ()
+    straggle: int = 1
+    stragglers: tuple[int, ...] = ()
+    byzantine: tuple[int, ...] = ()
+    attack: str = "signflip"
+
+    def __post_init__(self):
+        if not 0.0 <= self.drop < 1.0:
+            raise ValueError(f"drop must be in [0, 1), got {self.drop}")
+        object.__setattr__(
+            self, "failed", tuple(sorted(int(i) for i in self.failed))
+        )
+        object.__setattr__(
+            self, "stragglers", tuple(sorted(int(i) for i in self.stragglers))
+        )
+        object.__setattr__(
+            self, "byzantine", tuple(sorted(int(i) for i in self.byzantine))
+        )
+        if self.failed and self.fail_at is None:
+            object.__setattr__(self, "fail_at", 0)
+        if self.fail_at is not None and self.fail_at < 0:
+            raise ValueError(f"fail_at must be >= 0, got {self.fail_at}")
+        if self.straggle < 1:
+            raise ValueError(
+                f"straggle delay must be >= 1 round, got {self.straggle}"
+            )
+        _parse_attack(self.attack)  # validate the spec even when unarmed
+
+    @property
+    def is_null(self) -> bool:
+        """No fault source configured: policies fall through to their
+        fault-free (bit-identical) mixing path."""
+        return (
+            self.drop == 0.0
+            and not self.failed
+            and not self.stragglers
+            and not self.byzantine
+        )
+
+    @property
+    def attack_kind(self) -> str:
+        return _parse_attack(self.attack)[0]
+
+    @property
+    def attack_param(self):
+        return _parse_attack(self.attack)[1]
+
+    @property
+    def replay_depth(self) -> int:
+        """Transmit-history window the replay attack needs (0 = none)."""
+        if self.byzantine and self.attack_kind == "replay":
+            return self.attack_param
+        return 0
+
+    def validate(self, num_workers: int) -> None:
+        for i in self.failed + self.stragglers + self.byzantine:
+            if not 0 <= i < num_workers:
+                raise ValueError(
+                    f"fault model names worker {i}, mesh has {num_workers}"
+                )
+        if len(set(self.failed)) >= num_workers:
+            raise ValueError("fault model permanently fails every worker")
+        if len(set(self.byzantine)) >= num_workers:
+            raise ValueError("fault model makes every worker Byzantine")
+
+    def corrupted_payload(self, x: Tensor, *, iteration: int, round_idx: int,
+                          replay: Tensor | None = None) -> Tensor:
+        """The wire payload Byzantine workers transmit in place of the
+        stacked ``x`` (M, ...).  Pure data: callers select it per worker
+        with ``torch.where`` (never a multiply: NaN * 0 is NaN).  The
+        ``noise`` draw is one (Q, n)-shaped f32 normal shared by every
+        worker, as the reference's per-worker draws from one key are."""
+        kind, param = _parse_attack(self.attack)
+        if kind == "signflip":
+            return -x
+        if kind == "scale":
+            return param * x
+        if kind == "nanbomb":
+            return torch.full_like(x, torch.nan)
+        if kind == "replay":
+            if replay is None:
+                raise ValueError(
+                    "replay attack needs the transmit-history buffer "
+                    "(policy must thread replay_depth state)"
+                )
+            return replay
+        noise = _noise(self.seed, int(iteration), int(round_idx), tuple(x.shape[1:]), x.device)
+        return x + param * noise.to(x.dtype)
+
+    def transmit_for(self, x: Tensor, *, iteration: int, round_idx: int,
+                     replay: Tensor | None = None) -> Tensor:
+        """What each worker of the stacked ``x`` puts on the wire: the
+        corrupted payload on Byzantine slots, its own value elsewhere
+        (selected with ``torch.where``, so non-finite attack values never
+        leak into honest transmissions)."""
+        if not self.byzantine:
+            return x
+        byz = _member_tensor(self.byzantine, x.shape[0], x.device)
+        bad = self.corrupted_payload(
+            x, iteration=iteration, round_idx=round_idx, replay=replay
+        )
+        return torch.where(byz.view((-1,) + (1,) * (x.ndim - 1)), bad, x)
+
+    def _member_mask(self, workers: tuple[int, ...], num_workers: int):
+        return np.isin(np.arange(num_workers), workers)
+
+    def alive_mask(self, iteration: int, round_idx: int, num_workers: int,
+                   dtype=torch.float32, device=None) -> Tensor:
+        """(M,) 0/1 up-mask for one gossip round: the reference's Bernoulli
+        words, drawn on the host, as a ``dtype`` tensor on ``device``."""
+        rows = _alive_rows(self, int(iteration), (int(round_idx),), num_workers)
+        return torch.from_numpy(rows[0].copy()).to(device=device, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def _async_link_weights(policy: "AsyncGossip", t: int, num_workers: int,
+                        dtype: torch.dtype, device: torch.device):
+    """The link gates (:func:`consensus.faulty_link_weights`) of every
+    round of ``policy``'s mix number ``t``, from the host's up-masks,
+    moved to ``device`` in one copy: a tuple of ``(coef, lost)``."""
+    faults = policy.faults
+    scheds = [topology_lib.cached_exchange_schedule(p, num_workers)
+              for p in policy.topology.cycle()]
+    phase = t % len(scheds)
+    iteration = t * policy.interval + (policy.interval - 1)
+    alive = torch.from_numpy(np.array(
+        _alive_rows(faults, iteration, tuple(range(policy.rounds)), num_workers)
+    )).to(dtype)
+    parts = []
+    for b in range(policy.rounds):
+        parts += [v.numpy() for v in consensus_lib.faulty_link_weights(
+            scheds[(phase + b) % len(scheds)], alive[b]
+        )]
+    views = _device_views(parts, device)
+    return tuple(zip(views[::2], views[1::2]))
+
+
+@functools.lru_cache(maxsize=4096)
+def _robust_alive(faults: FaultModel, t: int, rounds: int, num_workers: int,
+                  dtype: torch.dtype, device: torch.device):
+    """Each round's (M,) up-mask of a robust mix at iteration ``t``, on
+    ``device`` in one copy, or None where every worker is up every round
+    (the screen's link gate then passes every link)."""
+    alive = _alive_rows(faults, t, tuple(range(rounds)), num_workers)
+    if alive.all():
+        return None
+    return torch.from_numpy(np.array(alive)).to(device=device, dtype=dtype)
+
+
+def _push(buf: Tensor, x: Tensor) -> Tensor:
+    """A transmit-history buffer (oldest first) advanced by ``x``."""
+    return torch.cat([buf[1:], x[None]], dim=0)
+
+
+@dataclass(frozen=True)
+class AsyncGossip(ConsensusPolicy):
+    """Elastic asynchronous gossip: serial rounds over any topology, a
+    communication interval (mix every ``interval``-th ADMM iteration,
+    Bagua-style) and a seeded :class:`FaultModel`.
+
+    With ``interval=N`` the ADMM loop runs N-1 purely local iterations
+    per communicating one (``admm.worker_admm_iterations``), so the
+    eq.-15 accounting (:meth:`comm_scalars`) scales by 1/N.  A
+    ``TimeVarying`` topology rotates across communicating calls: call t
+    starts on phase ``t % L`` (a host branch; the reference switches on
+    the traced t).
+
+    Faults renormalize on the fly (``faulty_schedule_gossip_step``): every
+    realized mixing slice stays row-stochastic, and because only
+    inverse-closed schedules are admitted under faults (``validate``), it
+    keeps the mean over the up workers.  A null fault model falls through
+    to the plain serial schedule path, bit-identical to
+    ``Gossip(compress=False)`` over the same graph.
+
+    The mix state is ``(t, [straggler buffer], [replay buffer])``: the
+    call count t as a host integer (it seeds the fault draws, so keeping
+    it on the host lets them be drawn there), then the (depth, M, ...)
+    transmit histories.
+    """
+
+    rounds: int = 1
+    interval: int = 1
+    topology: Topology = Ring(1)
+    faults: FaultModel = FaultModel()
+    wire_dtype: str = "float32"
+
+    mode_name = "async"
+
+    def __post_init__(self):
+        if self.rounds < 1:
+            raise ValueError(f"gossip rounds must be >= 1, got {self.rounds}")
+        if self.interval < 1:
+            raise ValueError(
+                f"communication interval must be >= 1, got {self.interval}"
+            )
+        if not isinstance(self.topology, Topology):
+            raise TypeError(
+                f"topology must be a Topology, got {type(self.topology).__name__}"
+            )
+        if not isinstance(self.faults, FaultModel):
+            raise TypeError(
+                f"faults must be a FaultModel, got {type(self.faults).__name__}"
+            )
+        object.__setattr__(
+            self, "wire_dtype",
+            consensus_lib.canonical_wire_dtype(self.wire_dtype),
+        )
+
+    @property
+    def degree(self) -> int:
+        """Legacy ``backend.degree`` view (ring topologies only)."""
+        return getattr(self.topology, "degree", 1)
+
+    @property
+    def wire_bits(self) -> int:  # type: ignore[override]
+        return consensus_lib.WIRE_DTYPES[self.wire_dtype]
+
+    @property
+    def communication_interval(self) -> int:
+        return self.interval
+
+    def validate(self, num_workers: int) -> None:
+        self.topology.validate(num_workers)
+        self.faults.validate(num_workers)
+        if not self.faults.is_null:
+            for phase in self.topology.cycle():
+                sched = topology_lib.cached_exchange_schedule(
+                    phase, num_workers
+                )
+                if not topology_lib.is_inverse_closed(sched):
+                    raise ValueError(
+                        "fault renormalization is mean-preserving only on "
+                        "inverse-closed exchange schedules; "
+                        f"{phase.describe()} compiles to an asymmetric hop "
+                        "set (use a vertex-transitive or Masked topology)"
+                    )
+
+    @property
+    def exchanges_per_round(self) -> int:
+        return self.exchanges_for(None)
+
+    def exchanges_for(self, num_workers: int | None) -> int:
+        """Exchanges per COMMUNICATING mix (skipped rounds are accounted
+        in :meth:`comm_scalars`, which divides the consensus count)."""
+        return _cycle_exchanges(self.topology, self.rounds, num_workers)
+
+    def comm_scalars(
+        self, *, scalars: int, num_consensus: int,
+        num_workers: int | None = None,
+    ) -> int:
+        # Only every interval-th consensus call touches the wire.
+        return (
+            scalars * self.exchanges_for(num_workers)
+            * (num_consensus // self.interval)
+        )
+
+    def init_state(self, x, ctx):
+        parts = [0]
+        for depth in (
+            self.faults.straggle if self.faults.stragglers else 0,
+            self.faults.replay_depth,
+        ):
+            if depth:
+                parts.append(torch.zeros(
+                    (depth,) + tuple(x.shape), dtype=x.dtype, device=x.device
+                ))
+        return tuple(parts)
+
+    def mix(self, x, state, ctx):
+        t = state[0]
+        wd = None if self.wire_dtype == "float32" else self.wire_dtype
+        scheds = _cycle_schedules(self.topology, ctx)
+        faults = self.faults
+        # The ADMM iteration this mix call lands on (communicating
+        # iterations close each interval chunk): what fail_at compares
+        # against and what seeds the per-round drop draws.
+        iteration = t * self.interval + (self.interval - 1)
+        transmit = None
+        strag_idx = 1 if faults.stragglers else None
+        replay_idx = (2 if faults.stragglers else 1) if faults.replay_depth else None
+        if faults.stragglers:
+            strag = _member_tensor(faults.stragglers, ctx.num_workers, x.device)
+            # Stragglers replay the value transmitted `straggle` calls
+            # ago; everyone else sends fresh.
+            transmit = x + strag.to(x.dtype).view(consensus_lib._worker_shape(x)) * (
+                state[strag_idx][0] - x
+            )
+        replay_val = state[replay_idx][0] if replay_idx is not None else None
+
+        if faults.is_null and transmit is None and len(scheds) == 1:
+            # Healthy + fresh + single graph: the serial Gossip path, so a
+            # disabled fault model is bit-identical to Gossip(compress=False).
+            out = consensus_lib.schedule_gossip_average(
+                x, scheds[0], self.rounds, wire_dtype=wd
+            )
+        else:
+            phase = t % len(scheds)
+            gates = None if faults.is_null else _async_link_weights(
+                self, t, ctx.num_workers, x.dtype, x.device
+            )
+            out = x
+            for b in range(self.rounds):
+                sched = scheds[(phase + b) % len(scheds)]
+                tx = transmit if b == 0 else None
+                if faults.byzantine:
+                    # Attackers corrupt EVERY round's outgoing payload; the
+                    # honest base is the straggler transmit on round 0, the
+                    # current mixed value after that.  AsyncGossip trusts
+                    # what it receives: it is the vulnerable baseline.
+                    tx = faults.transmit_for(
+                        out if tx is None else tx,
+                        iteration=iteration, round_idx=b, replay=replay_val,
+                    )
+                if gates is None:
+                    # A null fault model sends fresh values: tx is None.
+                    out = consensus_lib.schedule_gossip_step(out, sched, wire_dtype=wd)
+                else:
+                    coef, lost = gates[b]
+                    out = consensus_lib.faulty_gossip_apply(
+                        out, sched, coef, lost, transmit=tx, wire_dtype=wd,
+                    )
+        new_state = [t + 1]
+        for idx in (strag_idx, replay_idx):
+            if idx is not None:
+                new_state.append(_push(state[idx], x))
+        return out, tuple(new_state)
+
+
+# ------------------------------------------------- robust aggregation
+
+class _RobustGossipMixin:
+    """Shared plumbing for the Byzantine-robust gossip family.
+
+    * **Null fault model -> plain gossip, bit for bit.**  With no
+      attackers (and no omission faults) the robust estimator would still
+      distort the mean, so the policies run the serial Gossip path
+      instead: the zero-attacker case is bit-identical to
+      ``Gossip(compress=False)`` over the same graph.
+    * **Any non-null fault model -> robust aggregation every round.**
+      Byzantine members corrupt their outgoing payload
+      (``FaultModel.transmit_for``), every incoming payload is screened
+      for non-finite values and rerouted to the receiver's diagonal when
+      unhealthy, and the surviving neighborhood goes through the robust
+      estimator (trim / median / clip).
+    * An attacker's own mixing input stays honest.
+
+    The fault draws take ``iteration = t``, the call count, where
+    ``AsyncGossip`` takes the ADMM iteration of its interval; the
+    reference does the same.  The mix state is ``(t, [replay buffer])``,
+    t a host integer.
+    """
+
+    # Concrete classes: dataclass fields (estimator knob first), a
+    # ``mode_name``, and ``_aggregate``; everything else lives here.
+
+    def _robust_post_init(self):
+        if self.rounds < 1:
+            raise ValueError(f"gossip rounds must be >= 1, got {self.rounds}")
+        if not isinstance(self.topology, Topology):
+            raise TypeError(
+                f"topology must be a Topology, got {type(self.topology).__name__}"
+            )
+        if not isinstance(self.faults, FaultModel):
+            raise TypeError(
+                f"faults must be a FaultModel, got {type(self.faults).__name__}"
+            )
+        object.__setattr__(
+            self, "wire_dtype",
+            consensus_lib.canonical_wire_dtype(self.wire_dtype),
+        )
+
+    @property
+    def degree(self) -> int:
+        """Legacy ``backend.degree`` view (ring topologies only)."""
+        return getattr(self.topology, "degree", 1)
+
+    @property
+    def wire_bits(self) -> int:  # type: ignore[override]
+        return consensus_lib.WIRE_DTYPES[self.wire_dtype]
+
+    @property
+    def exchanges_per_round(self) -> int:
+        return self.exchanges_for(None)
+
+    def exchanges_for(self, num_workers: int | None) -> int:
+        return _cycle_exchanges(self.topology, self.rounds, num_workers)
+
+    def validate(self, num_workers: int) -> None:
+        self.topology.validate(num_workers)
+        self.faults.validate(num_workers)
+        if self.faults.stragglers:
+            raise ValueError(
+                f"{type(self).__name__} transmits fresh payloads only; "
+                "model stragglers with AsyncGossip"
+            )
+        for phase in self.topology.cycle():
+            sched = topology_lib.cached_exchange_schedule(phase, num_workers)
+            self._validate_schedule(phase, sched)
+
+    def _validate_schedule(self, phase, sched) -> None:
+        """Per-phase schedule admission (estimator-specific)."""
+
+    def init_state(self, x, ctx):
+        if self.faults.replay_depth:
+            buf = torch.zeros(
+                (self.faults.replay_depth,) + tuple(x.shape),
+                dtype=x.dtype, device=x.device,
+            )
+            return (0, buf)
+        return (0,)
+
+    def mix(self, x, state, ctx):
+        t = state[0]
+        wd = None if self.wire_dtype == "float32" else self.wire_dtype
+        scheds = _cycle_schedules(self.topology, ctx)
+        faults = self.faults
+        replay_val = state[1][0] if faults.replay_depth else None
+        if faults.is_null and len(scheds) == 1:
+            # Healthy network: the serial Gossip path (robust estimation
+            # engages only under a non-null fault model).
+            out = consensus_lib.schedule_gossip_average(
+                x, scheds[0], self.rounds, wire_dtype=wd
+            )
+        else:
+            phase = t % len(scheds)
+            alive = None if faults.is_null else _robust_alive(
+                faults, t, self.rounds, ctx.num_workers, x.dtype, x.device
+            )
+            out = x
+            for b in range(self.rounds):
+                sched = scheds[(phase + b) % len(scheds)]
+                if faults.is_null:
+                    out = consensus_lib.schedule_gossip_step(out, sched, wire_dtype=wd)
+                    continue
+                tx = faults.transmit_for(
+                    out, iteration=t, round_idx=b, replay=replay_val
+                ) if faults.byzantine else None
+                out = self._aggregate(
+                    out, sched, None if alive is None else alive[b], tx, wd
+                )
+        if faults.replay_depth:
+            return out, (t + 1, _push(state[1], x))
+        return out, (t + 1,)
+
+
+@dataclass(frozen=True)
+class TrimmedMeanGossip(_RobustGossipMixin, ConsensusPolicy):
+    """Screened trimmed-mean gossip: each round every receiver trims
+    (reroutes to its own diagonal) up to ``f`` neighborhood payloads,
+    picked as the most-deviant links (Frobenius distance from the
+    receiver) that stand beyond the neighborhood scale
+    (``consensus.TRIM_SCREEN_FACTOR`` x the median link distance).  The
+    surviving links mix with their exact gossip weights, so honest
+    traffic is never distorted; a Byzantine payload outside the honest
+    spread loses its whole link weight.  Tolerates up to ``f`` attackers
+    per neighborhood within the breakdown bound ``2f < |neighborhood|``.
+    Requires uniform exchange schedules (equal hop weights).
+    """
+
+    f: int = 1
+    rounds: int = 1
+    topology: Topology = Ring(1)
+    faults: FaultModel = FaultModel()
+    wire_dtype: str = "float32"
+
+    mode_name = "trimmed"
+
+    def __post_init__(self):
+        if self.f < 1:
+            raise ValueError(
+                f"trimmed mean needs f >= 1 (use Gossip for f=0), got {self.f}"
+            )
+        self._robust_post_init()
+
+    def _validate_schedule(self, phase, sched) -> None:
+        if not sched.uniform:
+            raise ValueError(
+                "trimmed-mean gossip needs a uniform exchange schedule; "
+                f"{phase.describe()} compiles to weighted hops"
+            )
+        stack = len(sched.perms) + 1
+        if 2 * self.f >= stack:
+            raise ValueError(
+                f"trimmed mean with f={self.f} needs a neighborhood of "
+                f"> {2 * self.f} payloads; {phase.describe()} gives {stack}"
+            )
+
+    def _aggregate(self, out, sched, alive, tx, wd):
+        return consensus_lib.trimmed_mean_schedule_gossip_step(
+            out, sched, trim=self.f, alive=alive, transmit=tx, wire_dtype=wd,
+        )
+
+
+@dataclass(frozen=True)
+class MedianGossip(_RobustGossipMixin, ConsensusPolicy):
+    """Coordinate-wise median gossip: the maximal-breakdown member of the
+    trimmed-mean family (survives just under half the neighborhood being
+    Byzantine, at the price of the largest honest-case bias).  Uniform
+    schedules only, like :class:`TrimmedMeanGossip`.
+    """
+
+    rounds: int = 1
+    topology: Topology = Ring(1)
+    faults: FaultModel = FaultModel()
+    wire_dtype: str = "float32"
+
+    mode_name = "median"
+
+    def __post_init__(self):
+        self._robust_post_init()
+
+    def _validate_schedule(self, phase, sched) -> None:
+        if not sched.uniform:
+            raise ValueError(
+                "median gossip needs a uniform exchange schedule; "
+                f"{phase.describe()} compiles to weighted hops"
+            )
+
+    def _aggregate(self, out, sched, alive, tx, wd):
+        return consensus_lib.median_schedule_gossip_step(
+            out, sched, alive=alive, transmit=tx, wire_dtype=wd,
+        )
+
+
+@dataclass(frozen=True)
+class ClippedGossip(_RobustGossipMixin, ConsensusPolicy):
+    """Norm-clipped gossip (centered clipping): each incoming payload's
+    offset from self is clipped to radius ``tau`` before the weighted
+    mix, bounding any single attacker's per-round influence by ``w *
+    tau`` while leaving nearby honest payloads untouched.  Works on ANY
+    schedule (weighted hops included): clipping is per link.
+    """
+
+    tau: float = 1.0
+    rounds: int = 1
+    topology: Topology = Ring(1)
+    faults: FaultModel = FaultModel()
+    wire_dtype: str = "float32"
+
+    mode_name = "clipped"
+
+    def __post_init__(self):
+        if not self.tau > 0.0:
+            raise ValueError(f"clip radius tau must be > 0, got {self.tau}")
+        self._robust_post_init()
+
+    def _aggregate(self, out, sched, alive, tx, wd):
+        return consensus_lib.clipped_schedule_gossip_step(
+            out, sched, tau=self.tau, alive=alive, transmit=tx, wire_dtype=wd,
+        )
+
+
 # ------------------------------------------------------------- parsing
 
 #: Spec-grammar policy names (``parse_policy`` / ``dssfn.parse_spec``).
@@ -731,30 +1398,25 @@ def _int_list(text: str) -> tuple[int, ...]:
     return tuple(int(s) for s in text.split("+") if s)
 
 
-#: How each ``key=value`` of the unported keyed policies parses.
-_KEY_PARSERS = {
-    "rounds": int, "interval": int, "f": int, "tau": float,
-    "drop": float, "seed": int, "fail_at": int, "straggle": int,
-    "fail": _int_list, "stragglers": _int_list, "byz": _int_list, "attack": str,
-}
-
-#: The fault-grammar keys ``async`` and the robust policies share.
-_FAULT_KEYS = ("drop", "seed", "fail", "fail_at", "stragglers", "straggle", "byz", "attack")
-
-#: The ``key=value`` segments each unported keyed policy takes.
-_POLICY_KEYS = {
-    "async": ("rounds", "interval") + _FAULT_KEYS,
-    "trimmed": ("rounds", "f") + _FAULT_KEYS,
-    "median": ("rounds",) + _FAULT_KEYS,
-    "clipped": ("rounds", "tau") + _FAULT_KEYS,
-}
-
-
-def _unported_policy(name: str, spec: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"consensus policy {name!r} (spec {spec!r}) is not ported to "
-        "repro_torch yet (ROADMAP Queue 1 item 4); the port runs exact, "
-        "gossip, quantized, lossy and stale"
+def _faults_from_kv(kv: dict) -> FaultModel:
+    """Consume the fault-grammar keys shared by ``async`` and the robust
+    policies (``drop``/``seed``/``fail``/``fail_at``/``stragglers``/
+    ``straggle``/``byz``/``attack``) out of ``kv``.  ``attack=`` without
+    ``byz=`` arms worker 0, the one-attacker smoke spec."""
+    fail_at = kv.pop("fail_at", None)
+    attack = kv.pop("attack", None)
+    byzantine = _int_list(kv.pop("byz", ""))
+    if attack is not None and not byzantine:
+        byzantine = (0,)
+    return FaultModel(
+        drop=float(kv.pop("drop", 0.0)),
+        seed=int(kv.pop("seed", 0)),
+        fail_at=None if fail_at is None else int(fail_at),
+        failed=_int_list(kv.pop("fail", "")),
+        straggle=int(kv.pop("straggle", 1)),
+        stragglers=_int_list(kv.pop("stragglers", "")),
+        byzantine=byzantine,
+        attack=attack if attack is not None else "signflip",
     )
 
 
@@ -771,15 +1433,18 @@ def parse_policy(
     clipped[:tau][:key=value...]``, the reference's grammar and errors.
 
     ``degree``/``rounds`` fill the segments the spec leaves out;
-    ``key=value`` segments configure ``wire=`` and the fault keys; an
+    ``key=value`` segments configure ``wire=`` and the async/fault
+    grammar (``async:interval=4:drop=0.1:rounds=2:seed=7:fail=2+5:
+    fail_at=30:stragglers=1:straggle=3``, worker lists ``+``-joined);
+    the robust policies share the fault keys plus the Byzantine pair
+    ``byz=0+3:attack=signflip`` (``attack=`` alone arms worker 0).  An
     ``@topology`` half (or ``topology=``, a ``Topology`` or a
-    ``parse_topology`` spec) replaces the default ring.  ``exact``,
-    ``gossip``, ``quantized``, ``lossy`` and ``stale`` build the
-    reference's policies; ``async`` and the robust policies parse, then
-    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+    ``parse_topology`` spec) replaces the default ring.
 
     >>> parse_policy("gossip:3").topology
     Ring(degree=1)
+    >>> parse_policy("async:interval=4:drop=0.1").communication_interval
+    4
     """
     if isinstance(topology, str):
         topology = parse_topology(topology)
@@ -834,22 +1499,52 @@ def parse_policy(
         if wire is not None and name in ("exact", "quantized"):
             raise ValueError(f"{name} takes no wire= (it has no gossip link)")
         wire = consensus_lib.canonical_wire_dtype(wire or "float32")
-        if name in _POLICY_KEYS:
-            # Parse the keys (and clipped's positional tau) as the
-            # reference's constructors take them, then refuse.
-            if name == "clipped" and "tau" in kv and args:
+        if name == "async":
+            b = int(kv.pop("rounds", rounds))
+            interval = int(kv.pop("interval", 1))
+            faults = _faults_from_kv(kv)
+            if kv:
+                raise ValueError(f"unknown async key(s) {sorted(kv)}")
+            return AsyncGossip(
+                rounds=b, interval=interval,
+                topology=topology if topology is not None else Ring(degree),
+                faults=faults, wire_dtype=wire,
+            )
+        if name in ("trimmed", "median", "clipped"):
+            b = int(kv.pop("rounds", rounds))
+            graph = topology if topology is not None else Ring(degree)
+            if name == "trimmed":
+                f = int(kv.pop("f", 1))
+                faults = _faults_from_kv(kv)
+                if kv:
+                    raise ValueError(f"unknown trimmed key(s) {sorted(kv)}")
+                return TrimmedMeanGossip(
+                    f=f, rounds=b, topology=graph, faults=faults,
+                    wire_dtype=wire,
+                )
+            if name == "median":
+                faults = _faults_from_kv(kv)
+                if kv:
+                    raise ValueError(f"unknown median key(s) {sorted(kv)}")
+                return MedianGossip(
+                    rounds=b, topology=graph, faults=faults, wire_dtype=wire,
+                )
+            tau_kv = kv.pop("tau", None)
+            if tau_kv is not None and args:
                 raise ValueError(
                     "pass the clip radius either positionally "
                     "(clipped:0.5) or as tau=, not both"
                 )
-            for key in _POLICY_KEYS[name]:
-                if key in kv:
-                    _KEY_PARSERS[key](kv.pop(key))
-            for text in args:
-                float(text)
+            tau = float(
+                tau_kv if tau_kv is not None else (args[0] if args else 1.0)
+            )
+            faults = _faults_from_kv(kv)
             if kv:
-                raise ValueError(f"unknown {name} key(s) {sorted(kv)}")
-            raise _unported_policy(name, spec)
+                raise ValueError(f"unknown clipped key(s) {sorted(kv)}")
+            return ClippedGossip(
+                tau=tau, rounds=b, topology=graph, faults=faults,
+                wire_dtype=wire,
+            )
         if kv:
             raise ValueError(f"unknown {name} key(s) {sorted(kv)}")
         if name == "exact":

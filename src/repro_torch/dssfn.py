@@ -28,9 +28,9 @@ gossip policy; ``membership`` masks its graph to the active workers
 
 Training runs on the device the data lies on.  Every field of the
 reference's spec is here; those whose machinery is not ported yet (the
-mesh backend, the rest of the policy family, checkpoints and the
-divergence guard) raise ``NotImplementedError`` naming the ROADMAP item
-that brings them, rather than being ignored.
+mesh backend, checkpoints and the divergence guard) raise
+``NotImplementedError`` naming the ROADMAP item that brings them, rather
+than being ignored.
 """
 from __future__ import annotations
 
@@ -75,8 +75,7 @@ def parse_spec(
         parse_spec("gossip:3:wire=bf16@hypercube")
 
     ``degree``/``rounds`` fill spec segments left implicit (the
-    launcher's ``--degree``/``--rounds`` flags).  Policies the port does
-    not have yet parse, then raise ``NotImplementedError``.
+    launcher's ``--degree``/``--rounds`` flags).
     """
     policy_part, sep, topo_part = spec.partition("@")
     if sep and not topo_part:

@@ -2,8 +2,9 @@
 
 Port of ``repro/launch/train_dssfn.py`` for what the port runs so far:
 layer-wise consensus-ADMM training of M workers on the simulated backend
-(all workers on one device) with exact consensus, the paper's gossip, or
-its quantized, lossy and stale links.
+(all workers on one device) with exact consensus, the paper's gossip,
+its quantized, lossy and stale links, asynchronous gossip under a seeded
+fault model, or the Byzantine-robust policies.
 Every Gram product of the train goes through the hand-written CUDA
 kernels (``gram`` at layer 0, ``propagate_gram`` at every later layer)::
 
@@ -21,6 +22,12 @@ Consensus is a policy spec in ``dssfn.parse_spec``'s grammar::
     --consensus quantized:8     one 8-bit stochastically rounded all-reduce
     --consensus lossy:0.1:52:4  the gossip network with 10% link loss
     --consensus stale:2         peers see 2-rounds-stale values
+    --consensus async:rounds=52:interval=4:drop=0.1:seed=7@ring:4
+                                the gossip network mixing every 4th ADMM
+                                iteration, each worker missing a round
+                                with probability 0.1
+    --consensus trimmed:f=1:rounds=3:byz=3:attack=signflip@ring:4
+                                worker 3 sends -x; receivers trim it
 
 ``--topology`` (``ring[:d] | torus:RxC | hypercube | geometric:r[:seed]
 | full``, ``+``-joined for a time-varying cycle) swaps the gossip graph,
@@ -28,9 +35,7 @@ and with the default ``--consensus exact`` implies gossip over it
 (``--rounds`` rounds); ``--degree``/``--rounds`` fill the segments a
 spec leaves out; ``--wire-dtype bf16|f16`` narrows the link payloads;
 ``--no-compress`` runs B serial rounds instead of one H^B schedule;
-``--membership 1101`` masks the graph to the active workers.  The other
-policies of the grammar (async and the robust ones) raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+``--membership 1101`` masks the graph to the active workers.
 
 It runs on ``cuda`` unless ``--device cpu`` is given (the CPU takes the
 kernels' plain versions).  The data is the planted-teacher problem of
@@ -63,8 +68,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--consensus", default="exact",
         help="consensus spec (dssfn.parse_spec grammar): exact | "
         "gossip[:B[:d]] | quantized[:bits] | lossy[:p[:B[:d]]] | "
-        "stale[:delay], optionally '@topology' and ':wire=bf16'; async "
-        "and the robust policies are not ported yet",
+        "stale[:delay] | async[:key=value...] | trimmed[:key=value...] | "
+        "median[:key=value...] | clipped[:tau][:key=value...], optionally "
+        "'@topology' and ':wire=bf16'",
     )
     ap.add_argument(
         "--topology", default=None,

@@ -148,14 +148,24 @@ def test_unported_and_invalid_arguments_raise():
         admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=2,
                                   backend=SimulatedBackend(3))
 
+    from repro.core.policy import ExactMean as JExactMean
+
     class EveryOther(ExactMean):
         @property
         def communication_interval(self):
             return 2
 
-    with pytest.raises(NotImplementedError, match="communication_interval"):
-        admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=4,
-                                  policy=EveryOther())
+    class JEveryOther(JExactMean):
+        @property
+        def communication_interval(self):
+            return 2
+
+    # An interval of 2 runs (a local iteration, then a mix), as in repro.
+    got = admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=4,
+                                    policy=EveryOther())
+    want = jadmm.admm_ridge_consensus(jnp.asarray(yw), jnp.asarray(tw), mu=1.0, eps_radius=1.0,
+                                      num_iters=4, backend=JBackend(2), policy=JEveryOther())
+    assert _rel(got.o_star.numpy(), want.o_star) <= 1e-4
     with pytest.raises(ValueError, match="must divide"):
         admm.admm_ridge_consensus(y, t, mu=1.0, eps_radius=1.0, num_iters=3,
                                   policy=EveryOther())

@@ -1290,3 +1290,108 @@ def test_policy_mixes_on_card_match_cpu(cuda, spec):
         keys = consensus.prng.fold_in(consensus.prng.PRNGKey(1), np.arange(m))
         assert torch.equal(consensus.quantize_stochastic(xs[0].to(cuda), 8, keys).cpu(),
                            consensus.quantize_stochastic(xs[0], 8, keys))
+
+
+# ---------------------------------------------------------------------------
+# the fault model and the Byzantine-robust steps on the card
+# ---------------------------------------------------------------------------
+
+
+def _fault_stack(m=9, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, 10, 41), generator=gen)
+    tx = x.clone()
+    tx[1] = -8.0 * x[1]
+    tx[4] = float("nan")
+    tx[6, 0, 0] = float("inf")
+    alive = torch.ones(m)
+    alive[[0, 5]] = 0.0
+    return x, tx, alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["faulty", "trimmed", "median", "clipped"])
+@pytest.mark.parametrize("attacked", [False, True])
+@pytest.mark.parametrize("drop", [False, True])
+def test_fault_steps_on_card_match_cpu(cuda, step, attacked, drop):
+    """One round of each fault-model step on a degree-2 ring of 9, card
+    vs CPU: the same screen decisions and NaNs, values within 1e-6 x
+    max|x| (the per-message norms sum in another order)."""
+    from repro_torch.core import consensus, topology
+
+    x, tx, alive = _fault_stack()
+    sched = topology.Ring(2).exchange_schedule(9)
+    call = {
+        "faulty": lambda x, a, t: consensus.faulty_schedule_gossip_step(
+            x, sched, torch.ones(9, device=x.device) if a is None else a, transmit=t),
+        "trimmed": lambda x, a, t: consensus.trimmed_mean_schedule_gossip_step(
+            x, sched, trim=1, alive=a, transmit=t),
+        "median": lambda x, a, t: consensus.median_schedule_gossip_step(
+            x, sched, alive=a, transmit=t),
+        "clipped": lambda x, a, t: consensus.clipped_schedule_gossip_step(
+            x, sched, tau=0.7, alive=a, transmit=t),
+    }[step]
+    a, t = (alive if drop else None), (tx if attacked else None)
+    got = call(x.to(cuda), None if a is None else a.to(cuda), None if t is None else t.to(cuda))
+    want = call(x, a, t)
+    assert got.device.type == cuda.type
+    got = got.cpu()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-6 * float(x.abs().max())
+    if step != "faulty":
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_nanmedian_and_stable_ranks_on_card_match_cpu(cuda):
+    """The sort puts NaN last and the stable argsort breaks ties by index
+    on the card as on the CPU."""
+    from repro_torch.core import consensus
+
+    gen = torch.Generator().manual_seed(2)
+    v = torch.randn((8, 300), generator=gen)
+    v[torch.rand((8, 300), generator=gen) < 0.4] = float("nan")
+    v[:, 0] = float("nan")
+    v[:, 1] = float("inf")
+    got = consensus._nanmedian0(v.to(cuda)).cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(consensus._nanmedian0(v)))
+    assert torch.equal(got.nan_to_num(), consensus._nanmedian0(v).nan_to_num())
+    d = torch.where(torch.isnan(v), float("inf"), v.round())
+    assert torch.equal(torch.argsort(-d.to(cuda), dim=0, stable=True).cpu(),
+                       torch.argsort(-d, dim=0, stable=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [
+    "async:rounds=2", "async:interval=2:rounds=2", "async:interval=4@ring:2",
+    "async:drop=0.2:seed=3@hypercube", "async:rounds=2@ring:1+hypercube",
+    "trimmed:f=1:attack=signflip", "trimmed:f=1:attack=scale:10@hypercube",
+    "median:attack=noise:0.5@ring:2", "clipped:0.5:attack=nanbomb",
+    "clipped:tau=2.0:byz=0+3:attack=replay:2@torus:2x4",
+    "async:rounds=5:interval=4:drop=0.1:seed=7@ring:4",
+    "async:rounds=3:byz=3:attack=signflip@ring:4",
+    "trimmed:f=1:rounds=3:byz=3:attack=signflip@ring:4",
+    "median:rounds=3:byz=3+11:attack=nanbomb@ring:4"])
+def test_fault_policy_mixes_on_card_match_cpu(cuda, spec):
+    """Three mixes from one state, card vs CPU: the same masks and draws
+    (made on the host), values within 1e-6 x max|x|, the same NaNs."""
+    from repro_torch import dssfn
+    from repro_torch.core.policy import ConsensusContext
+
+    m = 16 if "hypercube" in spec else 8 if "torus" in spec else 20
+    pol, ctx = dssfn.parse_spec(spec), ConsensusContext(m)
+    pol.validate(m)
+    gen = torch.Generator().manual_seed(4)
+    xs = [torch.randn((m, 10, 1020), generator=gen) for _ in range(3)]
+    s_card = pol.init_state(xs[0].to(cuda), ctx)
+    s_cpu = pol.init_state(xs[0], ctx)
+    for x in xs:
+        out, s_card = pol.mix(x.to(cuda), s_card, ctx)
+        want, s_cpu = pol.mix(x, s_cpu, ctx)
+        assert out.device.type == cuda.type and s_card[0] == s_cpu[0]
+        out = out.cpu()
+        assert torch.equal(torch.isfinite(out), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        if bool(fin.any()):
+            assert float((out[fin] - want[fin]).abs().max()) <= 1e-6 * float(x.abs().max())

@@ -10,11 +10,10 @@ Bars:
   it divides by the uniform schedule's term count as a multiply by its
   reciprocal, an ulp per round.  Inside the port the uniform serial path
   is bit-identical to ``ring_gossip_average``.
-- The spec grammar: every ``exact``/``gossip``/``quantized``/``lossy``/
-  ``stale`` entry of ``repro.analysis.grammar.ALL_GRAMMAR`` gives a
-  policy whose ``describe()``, ``wire_bits``, eq.-15 counts and hop
-  counts equal the reference's; every other entry parses, then raises
-  ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+- The spec grammar: every entry of ``repro.analysis.grammar.ALL_GRAMMAR``
+  gives a policy whose ``describe()``, ``wire_bits``, eq.-15 counts and
+  hop counts equal the reference's, and every ``MALFORMED_SPECS`` entry
+  refuses with the reference's message.
 - ADMM and training: the bars of ``tests/test_torch_admm.py`` and
   ``tests/test_torch_train.py`` (readouts within a relative gap of
   1e-4, traces rtol 1e-4, counts equal).
@@ -273,9 +272,7 @@ def test_gossip_refuses_like_reference():
 # ---------------------------------------------------------------------------
 
 
-PORTED = [e.spec for e in ALL_GRAMMAR if e.spec.split(":")[0].split("@")[0]
-          in ("exact", "gossip", "quantized", "lossy", "stale")]
-UNPORTED = [e.spec for e in ALL_GRAMMAR if e.spec not in PORTED]
+PORTED = [e.spec for e in ALL_GRAMMAR]
 
 
 @pytest.mark.parametrize("spec", PORTED)
@@ -291,28 +288,10 @@ def test_parse_spec_matches_reference(spec):
         assert mine.hops_for(8) == ref.hops_for(8)
 
 
-@pytest.mark.parametrize("spec", UNPORTED)
-def test_unported_policies_raise_naming_item_4(spec):
-    jdssfn.parse_spec(spec)                    # a valid spec of the grammar
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        dssfn.parse_spec(spec)
-
-
-#: MALFORMED_SPECS whose refusal comes from a class the port does not
-#: have yet (its constructor or its validation): those parse, then raise
-#: NotImplementedError.
-_CONSTRUCTOR_REFUSALS = {"async:interval=0", "async:rounds=0", "trimmed:f=0",
-                         "median:rounds=0", "clipped:tau=-1"}
-
-
 @pytest.mark.parametrize("spec,fragment", MALFORMED_SPECS, ids=[s for s, _ in MALFORMED_SPECS])
 def test_malformed_specs_refuse_like_reference(spec, fragment):
     """Refused at parse time or, like a time-varying StaleMixing, by
     ``validate(M)``: both stages run, as the reference's own test does."""
-    if spec in _CONSTRUCTOR_REFUSALS:
-        with pytest.raises(NotImplementedError, match="item 4"):
-            dssfn.parse_spec(spec)
-        return
     with pytest.raises(ValueError) as je:
         jdssfn.parse_spec(spec).validate(8)
     with pytest.raises(ValueError) as e:

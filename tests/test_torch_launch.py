@@ -194,6 +194,24 @@ def test_train_cli_refuses_unported_modes(flag):
     assert 0.0 <= run["test_accuracy"] <= 1.0
 
 
+@pytest.mark.parametrize("spec,ratio", [("async:rounds=2:interval=4:drop=0.1:seed=7@ring:1", 2 * 2 / 4),
+                                        ("median:rounds=2:byz=1:attack=nanbomb@ring:1", 2 * 2)])
+def test_train_cli_trains_async_and_robust_policies(spec, ratio):
+    """The fault and robust specs pass through --consensus, as in repro's
+    launcher: the same policy and eq.-15 scalars (interval 4 talks on 5
+    of the 20 ADMM iterations), finite consensus errors per layer."""
+    from repro.launch import train_dssfn as jlaunch
+
+    flag = ["--consensus", spec]
+    run = train_dssfn.main(TRAIN_ARGS + flag)["runs"][0]
+    jrun = jlaunch.main(TRAIN_ARGS[2:] + flag + ["--backend", "simulated",
+                                                 "--no-host-mesh"])["runs"][0]
+    assert run["policy"] == jrun["policy"]
+    assert run["comm_scalars"] == jrun["comm_scalars"] == ratio * 6 * (16 + 40 + 40) * 20
+    assert len(run["consensus_error"]) == 3 and all(np.isfinite(run["consensus_error"]))
+    assert run["kernel_launches"] == {"gram": 0, "propagate_gram": 0, "matmul_relu": 0}
+
+
 # ---------------------------------------------------------------------------
 # serve (model zoo)
 # ---------------------------------------------------------------------------

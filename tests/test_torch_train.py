@@ -213,7 +213,6 @@ def test_facade_trains_like_the_loop(runs):
 UNPORTED = [
     dict(backend="mesh"),
     dict(mesh=object()),
-    dict(policy="async:interval=4"),
     dict(checkpoint_dir="/tmp/ckpt"),
     dict(checkpoint_every=2),
     dict(resume=True),
@@ -223,11 +222,11 @@ UNPORTED = [
 ]
 
 
-def _train_both(runs, policy):
-    jspec = jdssfn.TrainSpec(cfg=js.SSFNConfig(**GEOM), workers=M, policy=policy)
+def _train_both(runs, policy, **geom):
+    jspec = jdssfn.TrainSpec(cfg=js.SSFNConfig(**{**GEOM, **geom}), workers=M, policy=policy)
     jres = jdssfn.train(jspec, *jspec.partition_data(runs["data"].x_train, runs["data"].t_train),
                         jax.random.PRNGKey(1))
-    spec = dssfn.TrainSpec(cfg=runs["cfg"], workers=M, policy=policy)
+    spec = dssfn.TrainSpec(cfg=dataclasses.replace(runs["cfg"], **geom), workers=M, policy=policy)
     res = dssfn.train(spec, *spec.partition_data(runs["td"].x_train, runs["td"].t_train),
                       r=runs["r"])
     assert res.policy.describe() == jres.policy.describe()
@@ -243,6 +242,33 @@ def test_facade_trains_lossy_and_stale_like_reference(runs, policy):
     that an ulp can flip, so they hold to the ADMM readout bar (measured
     at most 7.0e-6 at layer 3)."""
     res, jres = _train_both(runs, policy)
+    for l, (a, b) in enumerate(zip(res.params.o, jres.params.o)):
+        assert _rel(a.numpy(), b) <= GAP, l
+    np.testing.assert_allclose(res.log.layer_costs, jres.log.layer_costs, rtol=GAP)
+    exact = runs["torch"]["dec"][0]
+    assert min(_rel(a.numpy(), b.numpy()) for a, b in zip(res.params.o, exact.o)) > 1e-3
+
+
+@pytest.mark.parametrize("policy,iters", [("async:interval=2:rounds=2", 30),
+                                          ("trimmed:f=1:attack=signflip", 30),
+                                          ("async:interval=4", 28)])
+def test_facade_trains_async_and_robust_like_reference(runs, policy, iters):
+    """The communication interval and the trimmed screen against one
+    attacker (worker 0 sends -x): no rounding step an ulp can flip, and no
+    screen decision flipped at this geometry, so each layer holds to the
+    ADMM readout bar (measured at most 8.6e-6 at layer 3).  An interval
+    must divide K: at K=30 interval 4 refuses in both packages alike."""
+    if iters != GEOM["admm_iters"]:
+        spec = dssfn.TrainSpec(cfg=runs["cfg"], workers=M, policy=policy)
+        with pytest.raises(ValueError) as e:
+            dssfn.train(spec, *spec.partition_data(runs["td"].x_train, runs["td"].t_train),
+                        r=runs["r"])
+        with pytest.raises(ValueError) as je:
+            jspec = jdssfn.TrainSpec(cfg=js.SSFNConfig(**GEOM), workers=M, policy=policy)
+            jdssfn.train(jspec, *jspec.partition_data(runs["data"].x_train,
+                                                      runs["data"].t_train), jax.random.PRNGKey(1))
+        assert str(e.value) == str(je.value)
+    res, jres = _train_both(runs, policy, admm_iters=iters)
     for l, (a, b) in enumerate(zip(res.params.o, jres.params.o)):
         assert _rel(a.numpy(), b) <= GAP, l
     np.testing.assert_allclose(res.log.layer_costs, jres.log.layer_costs, rtol=GAP)
