@@ -96,6 +96,27 @@ Phases, each of which raises (non-zero exit) on any failed check:
    kept under drops; timed cold and warm.  (c) A layer-1 step under the
    async spec, card vs CPU plain, beside ExactMean's.  A ``{"faults":
    ...}`` line carries the numbers.
+5e. Elastic training at full width (phase 5's geometry and seed, M=20,
+   ExactMean), through ``train_dssfn.main`` in one temporary directory
+   under the checkout.  (a) ``--checkpoint-dir D --checkpoint-every 7
+   --stop-after-layer 6``: it writes ``dssfn_layer_007.npz`` and returns
+   7 readouts with 1 ``gram`` and 6 ``propagate_gram`` launches; then a
+   fresh ``main`` with ``--resume`` restores it onto the card, makes 0
+   ``gram`` and 14 ``propagate_gram`` launches and writes layers 014 and
+   021; all 21 readouts, all 20 R, the eq.-15 scalars and the test
+   accuracy equal phase 5's decentralized run bit for bit.  (b) A fresh
+   run with ``--checkpoint-every 7 --guard-divergence`` whose monitor is
+   made to flag layer 10's first attempt (``repro``'s
+   ``tests/test_checkpoint.py`` drill): one rollback, the warning names
+   layer 7, O_0..O_6 and R_0..R_5 equal phase 5's bit for bit and R_6 is
+   redrawn, every readout finite; its accuracy printed beside phase 5's.
+   (c) ``export_from_checkpoint(D, ...)`` takes layer 021, and
+   ``serve_dssfn.main`` serves it in bucket 32 with 20 ``matmul_relu``
+   launches a forward; its logits equal those of phase 5's readouts
+   exported and served the same way, bit for bit.  (d) Each checkpoint's
+   bytes, host fetch and ``save_pytree`` (savez and fsync) ms, the
+   resume's load ms and each drill's train time beside phase 5's.  An
+   ``{"elastic": ...}`` line carries the numbers.
 6. Kernel vs plain: ``flash_attention`` at the full-width H2O-Danube3-4B
    shapes — (1, 32, 8192, 120) and (1, 32, 4096, 120) with the 4096
    window, in bf16 and f32, and (1, 32, 8192, 120) over KV at 8 heads, as
@@ -175,6 +196,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1577,6 +1599,267 @@ def fault_slice(torch, card: str, exact: dict) -> dict:
     return launches
 
 
+# Phase 5e: the elastic-training drills.  Checkpoints every 7 layers, so
+# L = 20 saves after layers 6, 13 and 20 (layer_next 7, 14, 21), and the
+# kill falls after layer 6.  The divergence drill flags layer 10's first
+# attempt, the monitor's 11th call, as repro's test flags layer 2's.
+ELASTIC_EVERY = 7
+ELASTIC_STOP = 6
+ELASTIC_FLAG_LAYER = 10
+
+
+class CheckpointTimer:
+    """Times the port's checkpoint I/O inside the launcher's train: each
+    save's host fetch and its ``save_pytree`` (savez and the two fsyncs),
+    each resume load (npz read and the copy to the card) and each
+    ``latest_checkpoint`` scan (which reads every candidate once to
+    validate it), by wrapping the module functions the loop calls.  The
+    card is synchronized before each span, so a span holds no queued
+    layer work."""
+
+    def __init__(self, torch):
+        from repro_torch.checkpoint import store
+        from repro_torch.core import layerwise
+
+        self.torch, self.store, self.layerwise = torch, store, layerwise
+        self.saves, self.loads, self.scans = [], [], []
+
+    def __enter__(self):
+        torch, store, lw = self.torch, self.store, self.layerwise
+        self.real = (lw._save_checkpoint, lw._load_checkpoint, lw.latest_checkpoint,
+                     store.save_pytree)
+        real_save, real_load, real_scan, real_pytree = self.real
+        inner = {}
+
+        def save_pytree(path, tree):
+            t0 = time.perf_counter()
+            real_pytree(path, tree)
+            inner["save_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def save_checkpoint(directory, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = real_save(directory, **kw)
+            total = (time.perf_counter() - t0) * 1e3
+            self.saves.append({
+                "layer_next": kw["layer_next"], "path": os.path.basename(path),
+                "bytes": os.path.getsize(path) + os.path.getsize(path + ".meta.json"),
+                "fetch_ms": total - inner["save_ms"], "save_ms": inner["save_ms"],
+                "total_ms": total})
+            return path
+
+        def load_checkpoint(path, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_load(path, **kw)
+            torch.cuda.synchronize()
+            self.loads.append({"path": os.path.basename(path),
+                               "ms": (time.perf_counter() - t0) * 1e3,
+                               "device": str(out["y_workers"].device)})
+            return out
+
+        def latest_checkpoint(directory):
+            t0 = time.perf_counter()
+            out = real_scan(directory)
+            self.scans.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        store.save_pytree = save_pytree
+        lw._save_checkpoint, lw._load_checkpoint = save_checkpoint, load_checkpoint
+        lw.latest_checkpoint = latest_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        lw = self.layerwise
+        (lw._save_checkpoint, lw._load_checkpoint, lw.latest_checkpoint,
+         self.store.save_pytree) = self.real
+        return False
+
+
+def checkpoint_files(directory: str) -> list[str]:
+    return sorted(f for f in os.listdir(directory) if f.endswith(".npz"))
+
+
+def elastic_slice(torch, np, card: str, exact: dict) -> dict:
+    """Phase 5e: (a) the kill/resume drill, (b) the divergence drill,
+    (c) the checkpoint's export served beside phase 5's, (d) the
+    checkpoint I/O timed.  Returns each kernel's launch count over the
+    drills and the serve."""
+    import warnings
+
+    from repro_torch.core import layerwise
+    from repro_torch.kernels import gram, matmul_relu, propagate_gram
+    from repro_torch.launch import serve_dssfn, train_dssfn
+    from repro_torch.serve import export_artifact, export_from_checkpoint, load_artifact
+
+    m, layers = TRAIN["M"], TRAIN["L"]
+    run_d, dec = exact["run_d"], exact["dec"]
+    counters = {"gram": gram, "propagate_gram": propagate_gram, "matmul_relu": matmul_relu}
+    launches = dict.fromkeys(counters, 0)
+
+    def drive(fn):
+        """fn's result and each kernel's launches, counted from zero."""
+        for c in counters.values():
+            c.reset_launch_count()
+        out = fn()
+        counts = {k: c.launch_count() for k, c in counters.items()}
+        for k in launches:
+            launches[k] += counts[k]
+        return out, counts
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+    ck_flags = ["--checkpoint-every", str(ELASTIC_EVERY)]
+    out = {"card": card, "phase5_train_s": run_d["wall_time_s"]}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        # (a) Kill after layer 6, resume in a fresh launcher call.
+        ck_a = os.path.join(tmp, "ck_a")
+        with CheckpointTimer(torch) as tim_a:
+            res1, c1 = drive(lambda: train_dssfn.main(
+                train_argv(m, os.path.join(tmp, "part")) + ["--checkpoint-dir", ck_a]
+                + ck_flags + ["--stop-after-layer", str(ELASTIC_STOP)]))
+            files1 = checkpoint_files(ck_a)
+            res2, c2 = drive(lambda: train_dssfn.main(
+                train_argv(m, os.path.join(tmp, "resumed")) + ["--checkpoint-dir", ck_a]
+                + ck_flags + ["--resume"]))
+        files2 = checkpoint_files(ck_a)
+        run1, run2 = res1["runs"][0], res2["runs"][0]
+        if files1 != ["dssfn_layer_007.npz"] or res1["export"]["num_layers"] + 1 != 7 \
+                or (c1["gram"], c1["propagate_gram"]) != (1, ELASTIC_STOP):
+            raise AssertionError(f"(a) kill half: files {files1}, "
+                                 f"{res1['export']['num_layers'] + 1} readouts, launches {c1}")
+        if files2 != ["dssfn_layer_007.npz", "dssfn_layer_014.npz", "dssfn_layer_021.npz"] \
+                or (c2["gram"], c2["propagate_gram"]) != (0, layers - ELASTIC_STOP):
+            raise AssertionError(f"(a) resume half: files {files2}, launches {c2}")
+        if [ld["device"] for ld in tim_a.loads] != ["cuda:0"]:
+            raise AssertionError(f"(a) resume restored onto {tim_a.loads}")
+        resumed = card_params(torch, os.path.join(tmp, "resumed"))
+        o_same, r_same = same(resumed.o, dec.o), same(resumed.r, dec.r)
+        if not (o_same and r_same and len(resumed.o) == layers + 1
+                and run2["comm_scalars"] == run_d["comm_scalars"]
+                and run2["test_accuracy"] == run_d["test_accuracy"]):
+            gaps = [float((a - b).abs().max()) for a, b in zip(resumed.o, dec.o)]
+            raise AssertionError(
+                f"(a) resumed run != phase 5's: readouts equal {o_same} (max abs gaps {gaps}), "
+                f"R equal {r_same}, comm {run2['comm_scalars']} vs {run_d['comm_scalars']}, "
+                f"accuracy {run2['test_accuracy']} vs {run_d['test_accuracy']}")
+        out["kill_resume"] = {
+            "kill_train_s": run1["wall_time_s"], "resume_train_s": run2["wall_time_s"],
+            "launches_kill": c1, "launches_resume": c2, "files": files2,
+            "saves": tim_a.saves, "loads": tim_a.loads, "scans_ms": tim_a.scans,
+            "accuracy": run2["test_accuracy"]}
+        print(
+            f"elastic (a) kill/resume (M={m}, L={layers}, --checkpoint-every {ELASTIC_EVERY}): "
+            f"--stop-after-layer {ELASTIC_STOP} {run1['wall_time_s']:.3f} s (wrote {files1}, "
+            f"launches {c1}), --resume {run2['wall_time_s']:.3f} s (wrote {files2[1:]}, launches "
+            f"{c2}) against phase 5's {run_d['wall_time_s']:.3f} s uninterrupted; all "
+            f"{layers + 1} readouts, {layers} R and {run2['comm_scalars']} eq.-15 scalars equal "
+            f"phase 5's bit for bit; test accuracy {run2['test_accuracy']:.4f} == "
+            f"{run_d['test_accuracy']:.4f} on {card}", flush=True)
+
+        # (b) Flag layer 10's first attempt: roll back to layer 7's checkpoint.
+        ck_b = os.path.join(tmp, "ck_b")
+        real = layerwise._step_diverged
+        calls = {"n": 0}
+
+        def flag(step, prev_cost, blowup=1e3):
+            calls["n"] += 1
+            return calls["n"] == ELASTIC_FLAG_LAYER + 1 or real(step, prev_cost, blowup)
+
+        layerwise._step_diverged = flag
+        try:
+            with CheckpointTimer(torch) as tim_b, warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res3, c3 = drive(lambda: train_dssfn.main(
+                    train_argv(m, os.path.join(tmp, "healed")) + ["--checkpoint-dir", ck_b]
+                    + ck_flags + ["--guard-divergence"]))
+        finally:
+            layerwise._step_diverged = real
+        run3 = res3["runs"][0]
+        rolled = [str(w.message) for w in caught if "rolling back" in str(w.message)]
+        healed = card_params(torch, os.path.join(tmp, "healed"))
+        keep = ELASTIC_EVERY
+        if run3["rollbacks"] != 1 or len(rolled) != 1 or "rolling back to layer 7" not in rolled[0]:
+            raise AssertionError(f"(b) rollbacks {run3['rollbacks']}, warnings {rolled}")
+        if not (same(healed.o[:keep], dec.o[:keep]) and same(healed.r[:keep - 1], dec.r[:keep - 1])
+                and not torch.equal(healed.r[keep - 1], dec.r[keep - 1])):
+            raise AssertionError(f"(b) O_0..O_{keep - 1} / R_0..R_{keep - 2} not restored "
+                                 f"verbatim, or R_{keep - 1} not redrawn")
+        if len(healed.o) != layers + 1 or not all(bool(torch.isfinite(o).all()) for o in healed.o):
+            raise AssertionError("(b) healed run: missing or non-finite readouts")
+        want = (1, ELASTIC_FLAG_LAYER + layers - ELASTIC_EVERY + 1)
+        if (c3["gram"], c3["propagate_gram"]) != want:
+            raise AssertionError(f"(b) launches {c3}, expected gram/propagate_gram {want}")
+        out["rollback"] = {
+            "train_s": run3["wall_time_s"], "rollbacks": run3["rollbacks"], "warning": rolled[0],
+            "launches": c3, "accuracy": run3["test_accuracy"], "saves": tim_b.saves,
+            "loads": tim_b.loads, "scans_ms": tim_b.scans}
+        print(
+            f"elastic (b) divergence guard: layer {ELASTIC_FLAG_LAYER}'s first attempt flagged; "
+            f"{rolled[0]!r}; rollbacks {run3['rollbacks']}; O_0..O_{keep - 1} and "
+            f"R_0..R_{keep - 2} equal phase 5's bit for bit, R_{keep - 1} redrawn; "
+            f"{run3['wall_time_s']:.3f} s (phase 5 {run_d['wall_time_s']:.3f} s), launches {c3}; "
+            f"test accuracy {run3['test_accuracy']:.4f} (phase 5 {run_d['test_accuracy']:.4f}) "
+            f"on {card}", flush=True)
+        shutil.rmtree(ck_b)
+
+        # (c) Export drill (a)'s checkpoint directory and serve it beside
+        # phase 5's readouts exported again.
+        art, art5 = os.path.join(tmp, "from_ckpt"), os.path.join(tmp, "phase5")
+        export_from_checkpoint(ck_a, art)
+        source = load_artifact(art).manifest["source"]
+        if not source.endswith("dssfn_layer_021.npz"):
+            raise AssertionError(f"(c) export_from_checkpoint took {source}")
+        export_artifact(art5, dec)
+        served = {}
+        for label, path in (("checkpoint", art), ("phase5", art5)):
+            logits = os.path.join(tmp, f"{label}_logits.npz")
+            argv = ["--artifact", path, "--requests", str(SLICE_REQUESTS), "--request-size", "1",
+                    "--batch-bucket", "32", "--max-batch", "32", "--max-wait-us", "200",
+                    "--seed", "0", "--save-logits", logits]
+            if label == "checkpoint":
+                res, c5 = drive(lambda: serve_dssfn.main(argv))
+                if res["device"] != "cuda" or res["completed"] != SLICE_REQUESTS \
+                        or res["kernel_launches"] != layers * res["batches"] \
+                        or c5["matmul_relu"] < res["kernel_launches"]:
+                    raise AssertionError(
+                        f"(c) served {res['completed']} on {res['device']}: kernel_launches "
+                        f"{res['kernel_launches']} for {res['batches']} batches, counted {c5}")
+            else:
+                serve_dssfn.main(argv)
+            with np.load(logits) as z:
+                served[label] = (z["requests"], z["logits"])
+        (xa, la), (xb, lb) = served["checkpoint"], served["phase5"]
+        if not (np.array_equal(xa, xb) and np.array_equal(la, lb) and np.isfinite(la).all()):
+            raise AssertionError("(c) the checkpoint's export serves other logits than phase 5's")
+        out["export_serve"] = {"source": os.path.basename(source), "batches": res["batches"],
+                               "kernel_launches": res["kernel_launches"],
+                               "p50_ms": res["latency_ms"]["p50"]}
+        print(
+            f"elastic (c) export_from_checkpoint -> {os.path.basename(source)}; served "
+            f"{SLICE_REQUESTS} requests in {res['batches']} batches of bucket 32, "
+            f"{res['kernel_launches']} matmul_relu launches ({layers} a forward); logits equal "
+            f"phase 5's artifact's bit for bit on {card}", flush=True)
+
+    # (d) The checkpoint I/O.
+    for label, tim in (("(a)", tim_a), ("(b)", tim_b)):
+        for sv in tim.saves:
+            print(
+                f"elastic (d) {label} save {sv['path']}: {sv['bytes']} bytes, host fetch "
+                f"{sv['fetch_ms']:.1f} ms, save_pytree (savez + fsync) {sv['save_ms']:.1f} ms "
+                f"({sv['bytes'] / sv['save_ms'] / 1e6:.3f} GB/s) on {card}", flush=True)
+        for ld in tim.loads:
+            print(f"elastic (d) {label} load {ld['path']} onto {ld['device']}: {ld['ms']:.1f} ms; "
+                  f"latest_checkpoint scans {['%.1f' % t for t in tim.scans]} ms on {card}",
+                  flush=True)
+    print(f"elastic (d) trains: kill {run1['wall_time_s']:.3f} s + resume "
+          f"{run2['wall_time_s']:.3f} s, guarded with one rollback {run3['wall_time_s']:.3f} s, "
+          f"against phase 5's {run_d['wall_time_s']:.3f} s on {card}", flush=True)
+    print(json.dumps({"elastic": out}), flush=True)
+    return launches
+
+
 # flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
 # 120 over 8 KV heads, window 4096; also with KV at 32 heads, the earlier
 # slices' headline) and Zamba2-2.7B's shared attention (32 heads of 80):
@@ -2762,9 +3045,12 @@ def main() -> int:
     gossip_launches = gossip_slice(torch, card, exact)
     policy_launches = policy_slice(torch, card, exact)
     fault_launches = fault_slice(torch, card, exact)
+    elastic_launches = elastic_slice(torch, np, card, exact)
     del exact
     for k in train_launches:
-        train_launches[k] += gossip_launches[k] + policy_launches[k] + fault_launches[k]
+        train_launches[k] += (gossip_launches[k] + policy_launches[k] + fault_launches[k]
+                              + elastic_launches[k])
+    launches += elastic_launches["matmul_relu"]
     flash_cases = flash_kernel_cases(torch)
     flash_launches = inference_slice(torch, np, card)
     torch.cuda.empty_cache()

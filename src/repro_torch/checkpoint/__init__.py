@@ -1,6 +1,7 @@
 from repro_torch.checkpoint.store import (
     CheckpointCorruptError,
     is_valid_checkpoint,
+    load_pytree,
     load_pytree_flat,
     save_pytree,
 )
@@ -8,6 +9,7 @@ from repro_torch.checkpoint.store import (
 __all__ = [
     "CheckpointCorruptError",
     "is_valid_checkpoint",
+    "load_pytree",
     "load_pytree_flat",
     "save_pytree",
 ]

@@ -14,6 +14,10 @@ Crash-safety contract (the same as ``repro``'s):
   sidecar is complete too.
 - :func:`load_pytree_flat` re-raises every corruption mode as
   :class:`CheckpointCorruptError` naming the file and the defect.
+
+:func:`load_pytree` restores a file into a template's structure, dtypes
+and devices; :func:`load_pytree_flat` needs no template (elastic resume
+rebuilds its state from the flat mapping).
 """
 from __future__ import annotations
 
@@ -183,3 +187,34 @@ def is_valid_checkpoint(path: str) -> bool:
     except CheckpointCorruptError:
         return False
     return True
+
+
+def _restore_like(like: Any, prefix: str, flat: dict[str, torch.Tensor]) -> Any:
+    """``like``'s structure with each leaf replaced by ``flat``'s leaf at
+    the same tree path, in the template leaf's dtype (and device, for a
+    tensor)."""
+    def child(key: str) -> str:
+        return f"{prefix}/{key}" if prefix else key
+
+    if isinstance(like, dict):
+        return type(like)(
+            (k, _restore_like(v, child(str(k)), flat)) for k, v in like.items()
+        )
+    if isinstance(like, (list, tuple)):
+        items = [_restore_like(v, child(str(i)), flat) for i, v in enumerate(like)]
+        return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
+    leaf = flat[prefix]
+    if isinstance(like, torch.Tensor):
+        return leaf.to(device=like.device, dtype=like.dtype)
+    return np.asarray(leaf.numpy(), dtype=np.asarray(like).dtype)
+
+
+def load_pytree(path: str, like: Any) -> Any:
+    """Restore a checkpoint into ``like``'s structure (nested dicts, lists
+    and tuples): each leaf comes back in the dtype of ``like``'s leaf at
+    the same tree path, a tensor leaf also on its device, a numpy or
+    scalar leaf as a numpy array.  bf16 leaves come back from their uint16
+    bits.  Raises :class:`CheckpointCorruptError` where the file is bad or
+    lacks a leaf of ``like``."""
+    flat = load_pytree_flat(path, expect_keys=_flatten_with_paths(like))
+    return _restore_like(like, "", flat)

@@ -26,11 +26,16 @@ graph::
 gossip policy; ``membership`` masks its graph to the active workers
 (``Masked``/``Membership``); ``wire_dtype`` narrows its link payloads.
 
+Elastic training: ``checkpoint_dir``/``checkpoint_every``/``resume``/
+``stop_after_layer`` give layer-wise checkpoints in ``repro``'s schema (a
+resumed run reproduces the uninterrupted run's iterates exactly, and a
+checkpoint of either package resumes in the other), and
+``guard_divergence``/``max_rollbacks`` the divergence guard.
+
 Training runs on the device the data lies on.  Every field of the
-reference's spec is here; those whose machinery is not ported yet (the
-mesh backend, checkpoints and the divergence guard) raise
-``NotImplementedError`` naming the ROADMAP item that brings them, rather
-than being ignored.
+reference's spec is here; the mesh backend, whose machinery is not
+ported yet, raises ``NotImplementedError`` naming the ROADMAP item that
+brings it, rather than being ignored.
 """
 from __future__ import annotations
 
@@ -152,11 +157,22 @@ class TrainSpec:
     #: string such as ``"1101"``) masking the gossip policy's graph to the
     #: active workers (``topology.Masked``).
     membership: Membership | str | None = None
+    #: Checkpoint directory for elastic resume; None never touches disk.
     checkpoint_dir: str | None = None
+    #: Save state after every N completed layers (requires
+    #: ``checkpoint_dir``).
     checkpoint_every: int = 1
+    #: Restore the latest ``checkpoint_dir`` checkpoint before training.
     resume: bool = False
+    #: Complete this layer index, checkpoint, and return the partial
+    #: model (the crash half of a kill/resume drill).
     stop_after_layer: int | None = None
+    #: Numerical self-healing: monitor each layer solve for non-finite
+    #: iterates / objective blow-up, and on divergence roll back to the
+    #: last complete checkpoint with a perturbed RNG key instead of
+    #: crashing (``layerwise.train_decentralized_ssfn``).
     guard_divergence: bool = False
+    #: Divergence-rollback budget (RuntimeError once spent).
     max_rollbacks: int = 2
 
     def __post_init__(self):
@@ -172,15 +188,6 @@ class TrainSpec:
             raise _unported(f"backend {type(self.backend).__name__}", "item 5")
         if self.mesh is not None:
             raise _unported("mesh=", "item 5")
-        if (
-            self.checkpoint_dir is not None or self.checkpoint_every != 1
-            or self.resume or self.stop_after_layer is not None
-            or self.guard_divergence or self.max_rollbacks != 2
-        ):
-            raise _unported(
-                "checkpointing, resume, stop_after_layer and the divergence "
-                "guard", "item 6",
-            )
         # Policies the port does not have raise here, not at train time.
         self.resolve_policy()
 
@@ -271,13 +278,15 @@ def train(
     generator: torch.Generator | None = None,
     *,
     r: Sequence[torch.Tensor] | None = None,
+    key=None,
 ) -> TrainResult:
     """Run layer-wise consensus-ADMM training as described by ``spec``.
 
     x_workers: (M, P, J_m) column-stacked inputs per worker.
     t_workers: (M, Q, J_m) one-hot targets per worker.
-    generator / r: the shared random matrices {R_l}, drawn from the
-        generator or given (see ``layerwise.train_decentralized_ssfn``).
+    generator / key / r: the shared random matrices {R_l}, drawn from the
+        generator or the threefry key, or given; the run's key is what a
+        checkpoint stores (see ``layerwise.train_decentralized_ssfn``).
     """
     backend = spec.resolve_backend()
     policy = spec.resolve_policy()
@@ -287,11 +296,17 @@ def train(
             f"{backend.num_workers} workers"
         )
     params, log = layerwise_lib.train_decentralized_ssfn(
-        x_workers, t_workers, spec.cfg, generator, r=r,
+        x_workers, t_workers, spec.cfg, generator, r=r, key=key,
         backend=backend,
         policy=policy,
         size_estimation_tol=spec.size_estimation_tol,
         trace_every=spec.trace_every,
+        checkpoint_dir=spec.checkpoint_dir,
+        checkpoint_every=spec.checkpoint_every,
+        resume=spec.resume,
+        stop_after_layer=spec.stop_after_layer,
+        guard_divergence=spec.guard_divergence,
+        max_rollbacks=spec.max_rollbacks,
     )
     return TrainResult(params=params, log=log, backend=backend, policy=policy, spec=spec)
 

@@ -37,14 +37,28 @@ spec leaves out; ``--wire-dtype bf16|f16`` narrows the link payloads;
 ``--no-compress`` runs B serial rounds instead of one H^B schedule;
 ``--membership 1101`` masks the graph to the active workers.
 
+``--checkpoint-dir D`` saves the training state in ``repro``'s checkpoint
+schema after every ``--checkpoint-every`` layers; ``--stop-after-layer
+l`` completes layer l, checkpoints and exits, and ``--resume`` continues
+from the deepest complete checkpoint in D, bit for bit like the
+uninterrupted run.  ``--guard-divergence`` rolls a diverging layer back
+to the last checkpoint with a perturbed key (``--max-rollbacks`` times
+at most)::
+
+    python -m repro_torch.launch.train_dssfn --device cpu --layers 3 \\
+        --checkpoint-dir /tmp/ck --stop-after-layer 1
+    python -m repro_torch.launch.train_dssfn --device cpu --layers 3 \\
+        --checkpoint-dir /tmp/ck --resume
+
 It runs on ``cuda`` unless ``--device cpu`` is given (the CPU takes the
 kernels' plain versions).  The data is the planted-teacher problem of
 ``repro_torch.data`` drawn from ``--seed`` and the random matrices from
-``--seed + 1``, on the run's device.  The result dict has ``repro``'s
-keys, plus ``device``, ``kernel_launches`` (the CUDA kernel launches
-per kernel during training and test evaluation) and
-``consensus_error`` (each layer's ADMM consensus error at its last
-iteration; None without traces).  ``--export-artifact``
+``--seed + 1``, on the run's device; the checkpoints store that seed's
+threefry key, ``PRNGKey(seed + 1)``, as ``repro``'s launcher does.  The
+result dict has ``repro``'s keys, plus ``device``, ``kernel_launches``
+(the CUDA kernel launches per kernel during training and test
+evaluation) and ``consensus_error`` (each layer's ADMM consensus error
+at its last iteration; None without traces).  ``--export-artifact``
 writes the trained stack in ``repro``'s serving format, which
 ``repro_torch.launch.serve_dssfn`` (or ``repro``'s) serves;
 ``--export-features`` records a frozen feature-extractor spec in it.
@@ -106,6 +120,46 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--membership", default=None,
         help="active-worker slot mask as a 1/0 string (e.g. 1101): masks "
         "the gossip graph to the active workers",
+    )
+    ap.add_argument(
+        "--checkpoint-dir",
+        default=None,
+        help="directory for elastic-resume checkpoints (state saved after "
+        "each --checkpoint-every layers); default: no checkpointing",
+    )
+    ap.add_argument(
+        "--checkpoint-every",
+        type=int,
+        default=1,
+        help="checkpoint after every N completed layers (with "
+        "--checkpoint-dir)",
+    )
+    ap.add_argument(
+        "--resume",
+        action="store_true",
+        help="restore the latest --checkpoint-dir checkpoint and continue "
+        "from its next layer (bit-exact vs the uninterrupted run)",
+    )
+    ap.add_argument(
+        "--stop-after-layer",
+        type=int,
+        default=None,
+        help="complete this layer index, checkpoint, and exit (the crash "
+        "half of a kill/resume drill)",
+    )
+    ap.add_argument(
+        "--guard-divergence",
+        action="store_true",
+        help="monitor each layer solve for divergence (non-finite or "
+        "exploding objective) and roll back to the last complete "
+        "checkpoint with a perturbed RNG key instead of training on",
+    )
+    ap.add_argument(
+        "--max-rollbacks",
+        type=int,
+        default=2,
+        help="divergence-rollback budget before the run raises "
+        "(with --guard-divergence)",
     )
     ap.add_argument(
         "--trace-every", type=int, default=1,
@@ -199,6 +253,12 @@ def train_one(kind: str, args, data, xw, tw, cfg, generator) -> dict:
         cfg=cfg, backend=kind, workers=args.workers, policy=build_policy(args),
         wire_dtype=args.wire_dtype, trace_every=args.trace_every,
         membership=args.membership,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+        stop_after_layer=args.stop_after_layer,
+        guard_divergence=args.guard_divergence,
+        max_rollbacks=args.max_rollbacks,
     )
     before = _launch_counts()
     t0 = time.perf_counter()

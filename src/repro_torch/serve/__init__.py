@@ -4,7 +4,8 @@ Centralized equivalence makes the stack that M workers trained one
 feed-forward network; this package serves it:
 
 - :mod:`repro_torch.serve.export` — ``repro``'s artifact format
-  (``export_artifact`` / ``load_artifact`` / ``is_valid_artifact``);
+  (``export_artifact`` / ``export_from_checkpoint`` / ``load_artifact``
+  / ``is_valid_artifact``);
 - :mod:`repro_torch.serve.engine` — :class:`ServeEngine`, device-resident
   weights and one cached forward program per (shape bucket, dtype),
   every propagation through the CUDA ``matmul_relu`` kernel on the card;
@@ -33,6 +34,7 @@ from repro_torch.serve.export import (
     ArtifactCorruptError,
     ServeArtifact,
     export_artifact,
+    export_from_checkpoint,
     is_valid_artifact,
     load_artifact,
 )
@@ -53,6 +55,7 @@ __all__ = [
     "ServeEngine",
     "TERMINAL_STATES",
     "export_artifact",
+    "export_from_checkpoint",
     "is_valid_artifact",
     "load_artifact",
     "pack_fifo",

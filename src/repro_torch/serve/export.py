@@ -12,6 +12,10 @@ and manifest LAST, so a manifest at its final name is the commit point
 and implies complete weights.  The format and version are ``repro``'s,
 so an artifact exported by either package serves in the other.
 
+:func:`export_artifact` takes an in-memory ``SSFNParams`` or a
+``dssfn.TrainResult``; :func:`export_from_checkpoint` converts a training
+checkpoint (either package's) without rebuilding a trainer.
+
 :func:`load_artifact` re-raises every defect (truncated npz, missing
 sidecar or manifest, schema drift, a weight-shape chain that cannot
 assemble into an SSFN) as :class:`ArtifactCorruptError`;
@@ -182,6 +186,57 @@ def export_artifact(
         lambda f: f.write(json.dumps(manifest, indent=2).encode()),
     )
     return path
+
+
+def export_from_checkpoint(
+    checkpoint: str, path: str, *, features: str | None = None
+) -> str:
+    """Convert a training checkpoint (a ``--checkpoint-dir`` directory,
+    whose deepest complete checkpoint is taken, or a single
+    ``dssfn_layer_NNN.npz``) into a serving artifact; returns ``path``.
+
+    Reads the flat state ``layerwise._save_checkpoint`` (or ``repro``'s)
+    wrote, with no trainer and no backend.  The checkpoint's own
+    ``layer_next`` scalar determines how many readouts exist; the random
+    matrices are taken verbatim from its ``r/*`` entries (the divergence
+    guard may have redrawn them, so the key alone does not determine
+    them).  A corrupt or foreign file raises :class:`ArtifactCorruptError`.
+    """
+    from repro_torch.core.layerwise import latest_checkpoint
+
+    ckpt_path = checkpoint
+    if os.path.isdir(checkpoint):
+        ckpt_path = latest_checkpoint(checkpoint)
+        if ckpt_path is None:
+            raise FileNotFoundError(
+                f"no complete checkpoint under {checkpoint!r}"
+            )
+    try:
+        flat = load_pytree_flat(ckpt_path)
+    except CheckpointCorruptError as e:
+        raise ArtifactCorruptError(
+            ckpt_path, f"source checkpoint is corrupt ({e.detail})"
+        ) from e
+    if "layer_next" not in flat:
+        raise ArtifactCorruptError(
+            ckpt_path, "not a dSSFN training checkpoint (no layer_next)"
+        )
+    num_readouts = int(flat["layer_next"])
+    missing = [k for k in _weight_keys(num_readouts) if k not in flat]
+    if missing:
+        raise ArtifactCorruptError(
+            ckpt_path,
+            f"checkpoint lacks weight entries {missing} (checkpoints of "
+            "the older schema stored no r/*; re-train or pass SSFNParams "
+            "to export_artifact)",
+        )
+    params = SSFNParams(
+        o=tuple(flat[f"o/{i}"] for i in range(num_readouts)),
+        r=tuple(flat[f"r/{i}"] for i in range(num_readouts - 1)),
+    )
+    return export_artifact(
+        path, params, features=features, source=os.path.abspath(ckpt_path)
+    )
 
 
 def load_artifact(path: str) -> ServeArtifact:

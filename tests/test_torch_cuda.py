@@ -569,6 +569,34 @@ def test_card_training_run_equals_cpu_run(cuda):
     assert np.array_equal(card_log.jitter_levels, cpu_log.jitter_levels)
 
 
+@pytest.mark.cuda
+def test_card_resume_restores_onto_the_card_bit_for_bit(cuda, tmp_path):
+    """A card run stopped after layer 1 and resumed restores its state
+    onto the card (no step runs on the host) and equals the uninterrupted
+    card run bit for bit."""
+    from repro_torch import prng
+    from repro_torch.core import layerwise
+
+    cfg, xw, tw, r, _ = _train_inputs(cuda)
+    key = prng.PRNGKey(1)
+    full, full_log = layerwise.train_decentralized_ssfn(xw, tw, cfg, r=r, key=key)
+    ck = str(tmp_path / "ck")
+    layerwise.train_decentralized_ssfn(xw, tw, cfg, r=r, key=key, checkpoint_dir=ck,
+                                       stop_after_layer=1)
+    state = layerwise._load_checkpoint(layerwise.latest_checkpoint(ck), device=cuda,
+                                       dtype=cfg.dtype)
+    assert state["y_workers"].is_cuda and all(o.is_cuda for o in state["o_list"])
+    assert all(ri.is_cuda for ri in state["r_list"])
+    p0 = pg_mod.launch_count()
+    res, log = layerwise.train_decentralized_ssfn(xw, tw, cfg, r=r, key=key, checkpoint_dir=ck,
+                                                  resume=True)
+    assert pg_mod.launch_count() == p0 + cfg.num_layers - 1
+    assert all(o.is_cuda for o in res.o) and all(ri.is_cuda for ri in res.r)
+    assert all(torch.equal(a, b) for a, b in zip(res.o, full.o))
+    assert log.comm_scalars == full_log.comm_scalars
+    assert np.array_equal(log.admm_objective, full_log.admm_objective)
+
+
 # ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------

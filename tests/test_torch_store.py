@@ -183,3 +183,79 @@ def test_shape_mismatch_is_corrupt(saved):
         json.dump(meta, f)
     with pytest.raises(tstore.CheckpointCorruptError, match="shape"):
         tstore.load_pytree_flat(saved)
+
+
+# ---------------------------------------------------------------------------
+# load_pytree(like=): a template's structure, dtypes and devices
+# ---------------------------------------------------------------------------
+
+def test_load_pytree_round_trips_nested_dicts_and_lists(tmp_path):
+    """Nested dicts, lists and tuples come back in the template's
+    structure, each leaf in its template leaf's dtype: int64 and uint32
+    scalars and keys, f64 and f32 tensors, numpy leaves as numpy."""
+    rng = np.random.default_rng(4)
+    state = {
+        "duals": [torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+                  for _ in range(2)],
+        "stale": (torch.zeros((2, 3, 5), dtype=torch.float64), torch.tensor(1, dtype=torch.int32)),
+        "key": np.array([0, 7], np.uint32),
+        "comm": np.int64(123456789),
+        "nested": {"b": {"c": torch.arange(4, dtype=torch.int64)}, "a": [np.float64(1 / 3)]},
+    }
+    path = str(tmp_path / "tpl.npz")
+    tstore.save_pytree(path, state)
+    back = tstore.load_pytree(path, state)
+    assert isinstance(back["duals"], list) and isinstance(back["stale"], tuple)
+    assert list(back) == list(state) and list(back["nested"]) == ["b", "a"]
+    for a, b in zip(state["duals"], back["duals"]):
+        assert b.dtype == torch.float32 and torch.equal(a, b)
+    assert back["stale"][0].dtype == torch.float64 and torch.equal(back["stale"][1], state["stale"][1])
+    assert back["key"].dtype == np.uint32 and np.array_equal(back["key"], state["key"])
+    assert back["comm"].dtype == np.int64 and back["comm"] == state["comm"]
+    assert torch.equal(back["nested"]["b"]["c"], state["nested"]["b"]["c"])
+    assert back["nested"]["a"][0] == state["nested"]["a"][0]
+    # A template leaf's dtype wins over the file's; a missing leaf raises.
+    cast = tstore.load_pytree(path, {"duals": [torch.zeros(1, dtype=torch.float64)] * 2})
+    assert cast["duals"][1].dtype == torch.float64
+    assert torch.equal(cast["duals"][1], state["duals"][1].double())
+    with pytest.raises(tstore.CheckpointCorruptError, match="missing required"):
+        tstore.load_pytree(path, {"absent": torch.zeros(1)})
+
+
+def test_load_pytree_restores_bf16_templates(tmp_path):
+    a16 = torch.from_numpy(np.random.default_rng(5).standard_normal((4, 6)).astype(np.float32))
+    a16 = a16.to(torch.bfloat16)
+    path = str(tmp_path / "bf.npz")
+    tstore.save_pytree(path, {"w": a16, "s": [a16[0]]})
+    back = tstore.load_pytree(path, {"w": torch.zeros(1, dtype=torch.bfloat16),
+                                     "s": [torch.zeros(1, dtype=torch.bfloat16)]})
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16), a16.view(torch.int16))
+    assert torch.equal(back["s"][0].view(torch.int16), a16[0].view(torch.int16))
+
+
+@pytest.mark.parametrize("writer", ["repro", "port"])
+def test_load_pytree_reads_the_other_package_bit_for_bit(writer, tmp_path):
+    """A file written by one package loads into the other's template: the
+    port's tensors from repro's file, repro's arrays from the port's."""
+    tree = _tree(6)
+    a16 = tree["o"]["0"].astype(ml_dtypes.bfloat16)
+    path = str(tmp_path / "x.npz")
+    jtree = {"o": {k: jnp.asarray(v) for k, v in tree["o"].items()},
+             "r": [jnp.asarray(v) for v in tree["r"]],
+             "layer_next": jnp.asarray(tree["layer_next"]), "bf": jnp.asarray(a16)}
+    ttree = dict(_torch_tree(tree), bf=torch.from_numpy(tree["o"]["0"]).to(torch.bfloat16))
+    if writer == "repro":
+        jstore.save_pytree(path, jtree)
+        back = tstore.load_pytree(path, ttree)
+        got = {k: v.view(torch.int16).numpy().view(np.uint16) if v.dtype == torch.bfloat16
+               else v.numpy() for k, v in tstore._flatten_with_paths(back).items()}
+    else:
+        tstore.save_pytree(path, ttree)
+        back = jstore.load_pytree(path, jtree)
+        got = {k: np.asarray(v) for k, v in tstore._flatten_with_paths(back).items()}
+        got["bf"] = got["bf"].view(np.uint16)
+    want = dict(_flat_numpy(tree), bf=a16.view(np.uint16))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k

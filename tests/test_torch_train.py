@@ -15,6 +15,7 @@ equivalence report's fields within 1e-3 of repro's; everything counted
 (communication scalars, jitter levels, partitions) exactly equal.
 """
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -28,7 +29,7 @@ from repro.core import ssfn as js
 from repro.data import make_classification as j_make
 from repro.data import partition_by_spec as j_partition
 from repro.data import partition_workers as j_part
-from repro_torch import dssfn
+from repro_torch import dssfn, prng
 from repro_torch.convert import dataset_from_numpy, r_from_numpy
 from repro_torch.core import equivalence, layerwise, ssfn
 from repro_torch.core.policy import ExactMean
@@ -190,7 +191,9 @@ def test_generator_or_r_exactly_one(runs):
         layerwise.train_decentralized_ssfn(xw, tw, cfg, torch.Generator(), r=r)
     with pytest.raises(ValueError, match="shapes"):
         layerwise.train_decentralized_ssfn(xw, tw, cfg, r=r[:2])
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="exactly one"):
+        layerwise.train_decentralized_ssfn(xw, tw, cfg, torch.Generator(), key=prng.PRNGKey(1))
+    with pytest.raises(ValueError, match="PRNG key"):
         layerwise.train_decentralized_ssfn(xw, tw, cfg, r=r, checkpoint_dir="/nowhere")
 
 
@@ -213,12 +216,6 @@ def test_facade_trains_like_the_loop(runs):
 UNPORTED = [
     dict(backend="mesh"),
     dict(mesh=object()),
-    dict(checkpoint_dir="/tmp/ckpt"),
-    dict(checkpoint_every=2),
-    dict(resume=True),
-    dict(stop_after_layer=1),
-    dict(guard_divergence=True),
-    dict(max_rollbacks=3),
 ]
 
 
@@ -308,6 +305,42 @@ def _unported_id(kw):
 def test_train_spec_rejects_unported_fields(runs, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         dssfn.TrainSpec(cfg=runs["cfg"], workers=M, **kw)
+
+
+#: The elastic-training fields, each trained alone (checkpoint_dir set
+#: wherever the field needs one).
+ELASTIC = [
+    dict(checkpoint_dir=True),
+    dict(checkpoint_every=2),
+    dict(resume=True),
+    dict(stop_after_layer=1),
+    dict(guard_divergence=True),
+    dict(max_rollbacks=3),
+]
+
+
+@pytest.mark.parametrize("kw", ELASTIC, ids=lambda kw: next(iter(kw)))
+def test_train_spec_trains_elastic_fields_like_reference(runs, kw, tmp_path):
+    """Each field trains in both packages from the same data, R and key:
+    readouts within the readout bar, the same checkpoint files."""
+    dirs = {}
+    if set(kw) & {"checkpoint_dir", "checkpoint_every", "resume"}:
+        dirs = {"port": str(tmp_path / "port"), "repro": str(tmp_path / "repro")}
+    jspec = jdssfn.TrainSpec(cfg=js.SSFNConfig(**GEOM), workers=M,
+                             **{**kw, "checkpoint_dir": dirs.get("repro")})
+    jres = jdssfn.train(jspec, *jspec.partition_data(runs["data"].x_train, runs["data"].t_train),
+                        jax.random.PRNGKey(1))
+    spec = dssfn.TrainSpec(cfg=runs["cfg"], workers=M, **{**kw, "checkpoint_dir": dirs.get("port")})
+    res = dssfn.train(spec, *spec.partition_data(runs["td"].x_train, runs["td"].t_train),
+                      r=runs["r"], key=prng.PRNGKey(1))
+    assert len(res.params.o) == len(jres.params.o) == (2 if "stop_after_layer" in kw else 4)
+    for l, (a, b) in enumerate(zip(res.params.o, jres.params.o)):
+        assert _rel(a.numpy(), b) <= GAP, l
+    assert res.log.rollbacks == jres.log.rollbacks == 0
+    assert res.log.comm_scalars == jres.log.comm_scalars
+    if dirs:
+        assert sorted(os.listdir(dirs["port"])) == sorted(os.listdir(dirs["repro"]))
+        assert os.listdir(dirs["port"])
 
 
 def test_train_spec_rejects_unknown_backend(runs):
