@@ -30,6 +30,32 @@ Phases, each of which raises (non-zero exit) on any failed check:
    exported with the port's ``export_artifact`` and served through
    ``repro_torch.launch.serve_dssfn.main``; the logits are held against
    a float64 numpy forward of the same weights.
+4b. The hardened runtime at full width (phase 4's stack, through
+   ``repro_torch.serve.ServeRuntime``).  (a) A wall-clock stream through
+   ``serve_dssfn.main --runtime`` (512 single-sample requests 100 µs
+   apart, a timer flush every 200 µs, max batch 32): all completed, no
+   breaker open and no ``degraded_reasons``, 20 ``matmul_relu`` launches
+   a batch, logits against float64; p50, p99, throughput and mean batch
+   beside phase 4's ``MicroBatcher``; then three more such streams
+   straight through ``ServeRuntime``, each split into the submitter's
+   wait for the runtime's lock, the wait from arrival to the batch's
+   forward and the forward to completion.  (b) Four submitter threads x
+   128 requests race the timer thread in bucket 32: every handle
+   terminal, every result bit-equal to its own ``engine.forward``.
+   (c) ``repro``'s seeded ``ManualClock`` chaos drill
+   (``fail=0.25:burst=4:seed=7``, 400 requests, a NaN in every 25th) on
+   784-row requests in bucket 32: the stats and per-handle outcomes of
+   the port's CPU run of the same drill, its event kinds less the CPU's
+   ``degrade`` records, no ``degraded_reasons``, every batch served
+   through the kernel (20 launches each, after the breaker's opens as
+   before them), each completed result bit-equal to its own forward and
+   the logits against float64.  (d) Reload under fire: a
+   ``corrupt_artifact`` copy refused (``stale-weights``, results
+   unchanged bit for bit), then a second seeded stack swapped in and
+   served bit-equal to a fresh engine, also to a request that arrives as
+   a card tensor.  It also times the runtime's host cost per batch of 32
+   single-sample requests against a direct forward.  A
+   ``{"runtime": ...}`` line carries the numbers.
 5. The training slice at full width: Table-I MNIST geometry (P=784,
    Q=10, n=1020, L=20, K=100, J=60000 train and 10000 test of the port's
    planted-teacher data) trained through
@@ -200,6 +226,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -605,8 +632,9 @@ def forward_breakdown(torch, engine, bucket: int, reps: int = 20) -> dict:
             "device_ms": device_ms}
 
 
-def serve_slice(torch, np, card: str) -> int:
-    """Serve the full-width stack; returns the main path's launch count."""
+def serve_slice(torch, np, card: str) -> tuple[int, dict]:
+    """Serve the full-width stack; returns the main path's launch count
+    and the launcher's result."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import ssfn
     from repro_torch.kernels.matmul_relu import launch_count, reset_launch_count
@@ -691,7 +719,421 @@ def serve_slice(torch, np, card: str) -> int:
         f"kernel_launches {res['kernel_launches']} on {card}",
         flush=True,
     )
-    return main_path_launches
+    return main_path_launches, res
+
+
+# Phase 4b: the hardened runtime.  The seeded drill is ``repro``'s
+# ``tests/test_serve_runtime.py::test_chaos_drill_end_to_end`` (400
+# requests, a NaN in every 25th, 0.5 ms of virtual time a request, a tick
+# every 4), here on 784-row requests.
+RUNTIME_REQUESTS = 512
+RUNTIME_THREADS = 4
+RUNTIME_JOIN_S = 120.0
+DRILL_REQUESTS = 400
+DRILL_CHAOS = "fail=0.25:burst=4:seed=7"
+DRILL_RUNTIME = dict(
+    max_batch=32, max_pending_samples=32, default_deadline_s=0.02,
+    max_retries=1, backoff_base_s=1e-3, breaker_threshold=2,
+    breaker_cooldown_s=0.05, drain_timeout_s=10.0,
+)
+OVERHEAD_REPS = 30
+RUNTIME_STREAMS = 3      # more wall-clock streams like (a), instrumented
+
+
+def chaos_drill(np, serve, engine):
+    """The seeded ManualClock drill through ``engine``; returns the
+    runtime, the injector and the (request, handle) pairs."""
+    clock = serve.ManualClock()
+    chaos = serve.parse_chaos(DRILL_CHAOS)
+    rt = serve.ServeRuntime(engine, clock=clock, chaos=chaos, **DRILL_RUNTIME).start()
+    rng = np.random.default_rng(11)
+    entries = []
+    for i in range(DRILL_REQUESTS):
+        x = rng.standard_normal((SLICE["P"], 1)).astype(np.float32)
+        if i % 25 == 12:
+            x[0, 0] = np.nan
+        entries.append((x, rt.submit(x)))
+        clock.advance(5e-4)
+        if (i + 1) % 4 == 0:
+            rt.tick()
+    rt.drain()
+    return rt, chaos, entries
+
+
+def recording_engine(serve, launch_count):
+    """A ``ServeEngine`` that records, for each forward, its start on the
+    monotonic clock (``WallClock``'s) and the kernel launches it made."""
+
+    class RecordingEngine(serve.ServeEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.calls: list[tuple[float, int]] = []
+
+        def forward(self, x):
+            start, before = time.monotonic(), launch_count()
+            out = super().forward(x)
+            self.calls.append((start, launch_count() - before))
+            return out
+
+    return RecordingEngine
+
+
+class TimedLock:
+    """Stands in for a runtime's lock and times each acquire that
+    ``thread`` makes (the submitter's wait for the timer's flush)."""
+
+    def __init__(self, lock, thread):
+        self._lock, self._thread, self.waits = lock, thread, []
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self._lock.acquire()
+        if threading.current_thread() is self._thread:
+            self.waits.append(time.perf_counter() - t0)
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
+def pct(vals, p):
+    """The launcher's percentile: the sorted value at rank p% (ms)."""
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(round(p / 100 * (len(vals) - 1))))] * 1e3
+
+
+def runtime_stream(torch, np, serve, engine, seed: int) -> dict:
+    """One stream of (a)'s shape straight through ``ServeRuntime``: where
+    each request's time goes.  Per submit, the wait for the runtime's
+    lock and the whole call; per completed request, the wait from
+    arrival to its batch's forward and the forward to completion."""
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.standard_normal((SLICE["P"], 1)).astype(np.float32))
+          for _ in range(RUNTIME_REQUESTS)]
+    rt = serve.ServeRuntime(engine, max_batch=32, flush_interval_s=200e-6)
+    lock = rt._lock = TimedLock(rt._lock, threading.current_thread())
+    rt.start()
+    engine.calls.clear()
+    submit_s, handles = [], []
+    t0 = time.perf_counter()
+    for x in xs:
+        t1 = time.perf_counter()
+        handles.append(rt.submit(x))
+        submit_s.append(time.perf_counter() - t1)
+        rt.clock.sleep(100e-6)
+    rt.drain()
+    wall = time.perf_counter() - t0
+    if not all(h.ok() for h in handles) or rt.stats["breaker_opens"]:
+        raise AssertionError(f"(a) stream {seed}: {rt.snapshot()['stats']}")
+    starts = sorted(t for t, _ in engine.calls)
+    queue_s, service_s = [], []
+    for h in handles:
+        start = max(t for t in starts if t <= h.completed_at)
+        queue_s.append(start - h.submitted_at)
+        service_s.append(h.completed_at - start)
+    s = rt.stats
+    return {
+        "p50_ms": pct([h.latency_s for h in handles], 50),
+        "p99_ms": pct([h.latency_s for h in handles], 99),
+        "throughput_samples_per_s": len(handles) / wall, "wall_s": wall,
+        "batches": s["batches"], "mean_batch": s["batch_samples"] / s["batches"],
+        "lock_wait_ms_p50": pct(lock.waits, 50), "lock_wait_ms_p99": pct(lock.waits, 99),
+        "lock_wait_share": sum(lock.waits) / wall,
+        "submit_ms_p50": pct(submit_s, 50), "submit_share": sum(submit_s) / wall,
+        "queue_ms_p50": pct(queue_s, 50), "service_ms_p50": pct(service_s, 50),
+        "kernel_launches": sum(n for _, n in engine.calls),
+    }
+
+
+def runtime_overhead(torch, np, serve, engine) -> dict:
+    """The runtime's host cost per batch on the card: the host clock
+    around 32 single-sample submits (the last one flushes: validation,
+    packing, the host concat, one copy to the card, the forward, one
+    synchronize, the scatter) against the same 32 columns concatenated
+    and forwarded directly and synchronized; medians, in turns."""
+    rng = np.random.default_rng(31)
+    cols = [rng.standard_normal((SLICE["P"], 1)).astype(np.float32) for _ in range(32)]
+    rt = serve.ServeRuntime(engine, clock=serve.ManualClock(), max_batch=32).start()
+    t_rt, t_fw = [], []
+    for _ in range(OVERHEAD_REPS):
+        t0 = time.perf_counter()
+        handles = [rt.submit(c) for c in cols]
+        t_rt.append((time.perf_counter() - t0) * 1e3)
+        if not all(h.ok() for h in handles):
+            raise AssertionError("overhead batch not served")
+        t0 = time.perf_counter()
+        engine.forward(np.concatenate(cols, axis=1))
+        torch.cuda.synchronize()
+        t_fw.append((time.perf_counter() - t0) * 1e3)
+    rt.drain()
+    t_rt.sort()
+    t_fw.sort()
+    mid = OVERHEAD_REPS // 2
+    return {"runtime_batch_ms_p50": t_rt[mid], "forward_ms_p50": t_fw[mid],
+            "host_cost_ms": t_rt[mid] - t_fw[mid]}
+
+
+def runtime_slice(torch, np, card: str, micro: dict) -> int:
+    """Phase 4b: the full-width stack served through ``ServeRuntime`` in
+    four drills; returns their ``matmul_relu`` launches."""
+    import repro_torch.serve as serve
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels.matmul_relu import launch_count, reset_launch_count
+    from repro_torch.launch import serve_dssfn
+
+    o_list, r_list = random_stack(np)
+    p, q, layers = SLICE["P"], SLICE["Q"], SLICE["L"]
+    report = {"card": card}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "stack")
+        serve.export_artifact(path, params_from_numpy(o_list, r_list, device="cpu"))
+
+        # (a) A healthy wall-clock stream through the launcher.
+        logits_path = os.path.join(tmp, "runtime_logits.npz")
+        reset_launch_count()
+        res = serve_dssfn.main([
+            "--artifact", path, "--runtime", "--requests", str(RUNTIME_REQUESTS),
+            "--request-size", "1", "--batch-bucket", ",".join(map(str, SLICE_BUCKETS)),
+            "--max-batch", "32", "--flush-every-us", "200", "--arrival-us", "100",
+            "--seed", "0", "--save-logits", logits_path,
+        ])
+        launches_a = launch_count()
+        s = res["snapshot"]["stats"]
+        if (res["device"] != "cuda" or res["completed"] != RUNTIME_REQUESTS
+                or res["failed"] or res["rejected"] or res["expired"]):
+            raise AssertionError(
+                f"(a) on {res['device']}: {res['completed']} completed, {res['failed']} "
+                f"failed, {res['rejected']} rejected, {res['expired']} expired"
+            )
+        if s["breaker_opens"] or res["degraded_reasons"]:
+            raise AssertionError(
+                f"(a) the healthy stream opened the breaker: {s['breaker_opens']} "
+                f"opens, degraded {res['degraded_reasons']}"
+            )
+        # The launcher's warmup runs each bucket up to --max-batch once.
+        warmup = layers * sum(b <= 32 for b in SLICE_BUCKETS)
+        if (res["kernel_launches"] != layers * s["batches"]
+                or launches_a != res["kernel_launches"] + warmup):
+            raise AssertionError(
+                f"(a) {res['kernel_launches']} launches ({launches_a} counted) for "
+                f"{s['batches']} batches of {layers} layers"
+            )
+        with np.load(logits_path) as z:
+            x, logits = z["requests"], z["logits"]
+        ref = forward_f64(np, o_list, r_list, x)
+        err_a = float(np.abs(logits - ref).max())
+        scale = float(np.abs(ref).max())
+        if logits.shape != (q, RUNTIME_REQUESTS) or not err_a <= STACK_TOL * scale:
+            raise AssertionError(f"(a) logits {logits.shape} vs float64: {err_a:.3e}")
+        lat = res["latency_ms"]
+        report["a"] = {
+            "completed": res["completed"], "batches": s["batches"],
+            "mean_batch": s["batch_samples"] / s["batches"],
+            "p50_ms": lat["p50"], "p99_ms": lat["p99"], "wall_s": res["wall_time_s"],
+            "throughput_samples_per_s": res["completed"] / res["wall_time_s"],
+            "kernel_launches": res["kernel_launches"], "max_abs_err": err_a,
+            "micro_batcher": {"p50_ms": micro["latency_ms"]["p50"],
+                              "p99_ms": micro["latency_ms"]["p99"],
+                              "throughput_samples_per_s": micro["throughput_samples_per_s"],
+                              "mean_batch": micro["mean_batch_size"]},
+        }
+        print(
+            f"4b(a) runtime, wall clock: {RUNTIME_REQUESTS} requests, {s['batches']} "
+            f"batches (mean {report['a']['mean_batch']:.2f}), p50 {lat['p50']:.3f} ms "
+            f"p99 {lat['p99']:.3f} ms, {report['a']['throughput_samples_per_s']:.0f} "
+            f"samples/s; phase 4 MicroBatcher p50 {micro['latency_ms']['p50']:.3f} ms "
+            f"p99 {micro['latency_ms']['p99']:.3f} ms, "
+            f"{micro['throughput_samples_per_s']:.0f} samples/s (mean "
+            f"{micro['mean_batch_size']:.2f}); logits vs float64 {err_a:.3e}",
+            flush=True,
+        )
+        engine = recording_engine(serve, launch_count)(
+            serve.load_artifact(path), buckets=SLICE_BUCKETS)
+        for b in SLICE_BUCKETS:
+            if b <= 32:
+                engine.forward(np.zeros((p, b), np.float32))
+        torch.cuda.synchronize()
+        reset_launch_count()
+        streams = [runtime_stream(torch, np, serve, engine, seed=100 + k)
+                   for k in range(RUNTIME_STREAMS)]
+        launches_s = launch_count()
+        if launches_s != sum(st["kernel_launches"] for st in streams) or any(
+                st["kernel_launches"] != layers * st["batches"] for st in streams):
+            raise AssertionError(f"(a) streams: {launches_s} launches for {streams}")
+        report["a"]["streams"] = streams
+        for k, st in enumerate(streams):
+            print(
+                f"4b(a) stream {k}: p50 {st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms, "
+                f"{st['throughput_samples_per_s']:.0f} samples/s, mean batch "
+                f"{st['mean_batch']:.2f}; per submit: lock wait p50 "
+                f"{st['lock_wait_ms_p50']:.3f} ms p99 {st['lock_wait_ms_p99']:.3f} ms "
+                f"({100 * st['lock_wait_share']:.1f}% of the stream), call p50 "
+                f"{st['submit_ms_p50']:.3f} ms ({100 * st['submit_share']:.1f}%); "
+                f"per request: arrival to forward p50 {st['queue_ms_p50']:.3f} ms, "
+                f"forward to done p50 {st['service_ms_p50']:.3f} ms",
+                flush=True,
+            )
+
+        # (b) Four submitter threads race the timer thread, bucket 32.
+        engine = serve.ServeEngine(serve.load_artifact(path), buckets=(32,))
+        engine.forward(np.zeros((p, 32), np.float32))
+        torch.cuda.synchronize()
+        rng = np.random.default_rng(21)
+        xs = [rng.standard_normal((p, 1)).astype(np.float32) for _ in range(RUNTIME_REQUESTS)]
+        handles = [None] * len(xs)
+        rt = serve.ServeRuntime(engine, max_batch=32, max_pending_samples=4096,
+                                max_pending_requests=4096, flush_interval_s=200e-6).start()
+
+        def submitter(first):
+            for i in range(first, len(xs), RUNTIME_THREADS):
+                handles[i] = rt.submit(xs[i])
+
+        threads = [threading.Thread(target=submitter, args=(k,)) for k in range(RUNTIME_THREADS)]
+        reset_launch_count()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=RUNTIME_JOIN_S)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"(b) a submitter thread outlived {RUNTIME_JOIN_S} s")
+        rt.drain()
+        wall_b = time.perf_counter() - t0
+        launches_b = launch_count()
+        sb = rt.snapshot()["stats"]
+        if rt._timer is not None or not all(h is not None and h.done() for h in handles):
+            raise AssertionError("(b) a handle or the timer thread was left behind")
+        if sb["completed"] != len(xs) or launches_b != layers * sb["batches"]:
+            raise AssertionError(
+                f"(b) {sb['completed']} completed, {launches_b} launches for "
+                f"{sb['batches']} batches"
+            )
+        for x, h in zip(xs, handles):
+            if not torch.equal(h.result(), engine.forward(x)):
+                raise AssertionError("(b) a raced result differs from its own forward")
+        report["b"] = {"completed": sb["completed"], "batches": sb["batches"],
+                       "mean_batch": sb["batch_samples"] / sb["batches"],
+                       "wall_s": wall_b, "kernel_launches": launches_b}
+        print(f"4b(b) {RUNTIME_THREADS} threads x {len(xs) // RUNTIME_THREADS} requests vs "
+              f"the timer: {sb['completed']} completed in {sb['batches']} batches, "
+              f"{wall_b:.3f} s, each bit-equal to its own forward", flush=True)
+
+        # (c) The seeded ManualClock chaos drill: the port's CPU run sets
+        # the expected stats and events, then the card runs it.  The CPU
+        # run records repro's degrade events; the card's route stays the
+        # kernel, so its events are the CPU's without them.
+        cpu_rt, cpu_chaos, cpu_entries = chaos_drill(
+            np, serve, serve.ServeEngine(serve.load_artifact(path), buckets=(32,), device="cpu"))
+        engine = recording_engine(serve, launch_count)(serve.load_artifact(path), buckets=(32,))
+        engine.forward(np.zeros((p, 32), np.float32))
+        torch.cuda.synchronize()
+        engine.calls.clear()
+        reset_launch_count()
+        rt, chaos, entries = chaos_drill(np, serve, engine)
+        launches_c = launch_count()
+        sc = rt.snapshot()["stats"]
+        kinds = [e["kind"] for e in rt.events]
+        cpu_kinds = [e["kind"] for e in cpu_rt.events]
+        if sc != cpu_rt.snapshot()["stats"] or kinds != [k for k in cpu_kinds if k != "degrade"]:
+            raise AssertionError(
+                f"(c) card drill differs from the CPU drill: {sc} vs "
+                f"{cpu_rt.snapshot()['stats']}, events {kinds} vs {cpu_kinds}"
+            )
+        if ([(h.status, h.error) for _, h in entries]
+                != [(h.status, h.error) for _, h in cpu_entries]
+                or chaos.injected_failures != cpu_chaos.injected_failures):
+            raise AssertionError("(c) per-handle outcomes or injected faults differ from the CPU")
+        if (sc["breaker_opens"] < 1 or rt.degraded_reasons
+                or "kernels-disabled" not in cpu_rt.degraded_reasons):
+            raise AssertionError(
+                f"(c) {sc['breaker_opens']} opens; degraded {rt.degraded_reasons} on the "
+                f"card, {cpu_rt.degraded_reasons} on the CPU"
+            )
+        if (len(engine.calls) != sc["batches"]
+                or any(n != layers for _, n in engine.calls)
+                or launches_c != layers * sc["batches"]):
+            raise AssertionError(
+                f"(c) {launches_c} launches in {len(engine.calls)} forwards for "
+                f"{sc['batches']} batches of {layers} layers"
+            )
+        first_open = next(e["t"] for e in rt.events
+                          if e["kind"] == "breaker" and "-> open" in e["detail"])
+        ref_engine = serve.ServeEngine(serve.load_artifact(path), buckets=(32,))
+        done = [(x, h) for x, h in entries if h.ok()]
+        for x, h in done:
+            if not torch.equal(h.result(), ref_engine.forward(x)):
+                raise AssertionError("(c) a completed handle differs from its own forward")
+        n_after = sum(h.completed_at > first_open for _, h in done)
+        if n_after == 0:
+            raise AssertionError("(c) no result was served after the first open")
+        xc = np.concatenate([x for x, _ in done], axis=1)
+        got = torch.cat([h.result() for _, h in done], dim=1).float().cpu().numpy()
+        ref = forward_f64(np, o_list, r_list, xc)
+        err_c = float(np.abs(got - ref).max())
+        if not err_c <= STACK_TOL * float(np.abs(ref).max()):
+            raise AssertionError(f"(c) logits vs float64: {err_c:.3e}")
+        report["c"] = {"stats": sc, "events": len(kinds), "cpu_events": len(cpu_kinds),
+                       "results_after_first_open": n_after, "t_first_open": first_open,
+                       "kernel_launches": launches_c, "max_abs_err": err_c,
+                       "injected_failures": chaos.injected_failures}
+        print(
+            f"4b(c) chaos drill on the card = the CPU drill: {sc['completed']} completed "
+            f"/ {sc['failed']} failed / {sc['expired']} expired / {sc['rejected']} "
+            f"rejected, {sc['breaker_opens']} opens, {sc['breaker_closes']} closes; "
+            f"{len(kinds)} events (the CPU's {len(cpu_kinds)} less its degrade); every one "
+            f"of {sc['batches']} batches through the kernel ({launches_c} launches), "
+            f"{n_after} of {len(done)} results after the first open at "
+            f"t={first_open:.4f} s; each bit-equal to its own forward, vs float64 "
+            f"{err_c:.3e}", flush=True,
+        )
+
+        # (d) Reload under fire: keep the last good weights, then swap.
+        engine = serve.ServeEngine(serve.load_artifact(path), buckets=(32,))
+        rt = serve.ServeRuntime(engine, clock=serve.ManualClock(), max_batch=32).start()
+        x = np.random.default_rng(41).standard_normal((p, 32)).astype(np.float32)
+        bad = os.path.join(tmp, "bad")
+        shutil.copytree(path, bad)
+        serve.corrupt_artifact(bad)
+        path2 = os.path.join(tmp, "stack2")
+        o2, r2 = random_stack(np, seed=1)
+        serve.export_artifact(path2, params_from_numpy(o2, r2, device="cpu"))
+        reset_launch_count()
+        h0 = rt.submit(x)
+        kept = rt.reload(bad)
+        stale = "stale-weights" in rt.degraded_reasons and rt.state == "DEGRADED"
+        h1 = rt.submit(x)
+        swapped = rt.reload(path2)
+        h2 = rt.submit(x)
+        h3 = rt.submit(torch.from_numpy(x).cuda())   # admitted with one host copy
+        rt.drain()
+        launches_d = launch_count()
+        fresh = serve.ServeEngine(serve.load_artifact(path2), buckets=(32,)).forward(x)
+        if kept or not stale or not torch.equal(h1.result(), h0.result()):
+            raise AssertionError("(d) the corrupt reload did not keep the last good weights")
+        if not swapped or rt.degraded_reasons or not torch.equal(h2.result(), fresh):
+            raise AssertionError("(d) the good reload did not serve the new stack")
+        if not torch.equal(h3.result(), h2.result()) or rt.stats["rejected_poison"]:
+            raise AssertionError("(d) a request on the card was not served like its host copy")
+        if torch.equal(h2.result(), h0.result()) or launches_d != 4 * layers:
+            raise AssertionError(f"(d) unchanged results or {launches_d} launches")
+        report["d"] = {"corrupt_reload": kept, "good_reload": swapped,
+                       "kernel_launches": launches_d}
+        print("4b(d) reload: the corrupt copy refused (stale-weights, results bit-equal), "
+              "the second stack swapped in and served bit-equal to a fresh engine, "
+              "also to a request that arrived on the card", flush=True)
+
+        report["overhead"] = runtime_overhead(torch, np, serve, engine)
+        ov = report["overhead"]
+        print(f"4b runtime host cost per batch of 32 single-sample requests: "
+              f"{ov['runtime_batch_ms_p50']:.3f} ms through the runtime against "
+              f"{ov['forward_ms_p50']:.3f} ms forwarded directly: "
+              f"{ov['host_cost_ms']:.3f} ms (p50s, host clock) on {card}", flush=True)
+
+    launches = launches_a + launches_s + launches_b + launches_c + launches_d
+    report["kernel_launches"] = launches
+    print(json.dumps({"runtime": report}), flush=True)
+    return launches
 
 
 # Table-I MNIST geometry (paper §III-B; repro's benchmarks/common.py):
@@ -3040,7 +3482,8 @@ def main() -> int:
 
     cases = kernel_cases(torch, np)
     gram_cases, prop_cases = gram_kernel_cases(torch)
-    launches = serve_slice(torch, np, card)
+    launches, micro = serve_slice(torch, np, card)
+    launches += runtime_slice(torch, np, card, micro)
     train_launches, exact = train_slice(torch, card)
     gossip_launches = gossip_slice(torch, card, exact)
     policy_launches = policy_slice(torch, card, exact)

@@ -14,6 +14,21 @@ latency, throughput, coalescing stats, the engine's bucket-program counts
 ``kernel_launches``, the CUDA ``matmul_relu`` launches the timed stream
 made.  It runs on ``cuda`` unless ``--device cpu`` is given.
 
+``--runtime`` serves through :class:`repro_torch.serve.ServeRuntime`
+instead: bounded admission, deadlines, retry + circuit breaker, a
+lifecycle with ``drain()``.  With ``--manual-clock``, ``--chaos`` (a
+``parse_chaos`` spec) and ``--poison-rate`` it is the chaos drill, which
+replays ``repro``'s drill from the same seed; the run reports the
+terminal counts, the runtime's snapshot, ``degraded_reasons``
+(``kernels-disabled`` on the CPU once the breaker has opened, as
+``repro`` reports it; on the card the route stays the kernel) and
+``kernel_launches``, and checks that every handle reached a terminal
+state::
+
+    python -m repro_torch.launch.serve_dssfn --artifact /tmp/stack \
+        --runtime --manual-clock --requests 400 --max-pending-samples 64 \
+        --deadline-ms 50 --chaos fail=0.3:burst=4:seed=7
+
 ``--features`` overrides nothing: the artifact records its own extractor
 spec; the flag only *verifies* the artifact matches what the operator
 expects.
@@ -77,7 +92,64 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument(
         "--save-logits", default=None,
         help="optional .npz path for the served stream: 'requests' (P, N) "
-        "and 'logits' (Q, N), columns in request order",
+        "and 'logits' (Q, N), columns in request order (with --runtime, "
+        "the completed requests only)",
+    )
+
+    rt = ap.add_argument_group("hardened runtime (--runtime)")
+    rt.add_argument(
+        "--runtime", action="store_true",
+        help="serve through ServeRuntime (bounded admission, deadlines, "
+        "retry + circuit breaker, drain) instead of the bare batcher",
+    )
+    rt.add_argument(
+        "--manual-clock", action="store_true",
+        help="drive the runtime on a deterministic ManualClock (ticks "
+        "between submits) — the reproducible chaos-drill mode",
+    )
+    rt.add_argument(
+        "--max-pending-samples", type=int, default=None,
+        help="admission bound: load-shed submits beyond this many queued "
+        "samples (default: 8x max_batch)",
+    )
+    rt.add_argument(
+        "--max-pending-requests", type=int, default=None,
+        help="admission bound on queued request count",
+    )
+    rt.add_argument(
+        "--deadline-ms", type=float, default=None,
+        help="default per-request deadline; expired requests are shed "
+        "pre-flush, never served",
+    )
+    rt.add_argument(
+        "--flush-every-us", type=float, default=None,
+        help="wall-clock timer thread flush interval (ignored with "
+        "--manual-clock; ticks are explicit there)",
+    )
+    rt.add_argument("--retries", type=int, default=2,
+                    help="engine retries per batch before failure handling")
+    rt.add_argument("--breaker-threshold", type=int, default=3,
+                    help="consecutive batch failures that open the breaker")
+    rt.add_argument("--breaker-cooldown-ms", type=float, default=250.0,
+                    help="open -> half-open cooldown")
+    rt.add_argument(
+        "--chaos", default=None,
+        help="seeded fault-injection spec, e.g. fail=0.3:burst=4:seed=7 "
+        "(see repro_torch.serve.parse_chaos)",
+    )
+    rt.add_argument(
+        "--poison-rate", type=float, default=0.0,
+        help="fraction of synthetic requests poisoned with NaN (must be "
+        "rejected at admission)",
+    )
+    rt.add_argument(
+        "--arrival-us", type=float, default=0.0,
+        help="inter-arrival time of the synthetic stream (manual clock "
+        "advances by this per submit; wall clock sleeps)",
+    )
+    rt.add_argument(
+        "--tick-every", type=int, default=4,
+        help="manual-clock mode: call runtime.tick() every N submits",
     )
     return ap.parse_args(argv)
 
@@ -87,6 +159,130 @@ def _percentile(sorted_vals: list[float], p: float) -> float:
         return 0.0
     idx = min(len(sorted_vals) - 1, int(round(p / 100.0 * (len(sorted_vals) - 1))))
     return sorted_vals[idx]
+
+
+def _write_out(args, results: dict) -> None:
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=2)
+
+
+def _save_logits(path: str, xs, logits) -> None:
+    """'requests' (P, N) and 'logits' (Q, N), columns in request order."""
+    import numpy as np
+    import torch
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(
+        path,
+        requests=torch.cat(xs, dim=1).numpy(),
+        logits=torch.cat(logits, dim=1).float().cpu().numpy(),
+    )
+
+
+def _drive_runtime(args, engine, xs, rng) -> dict:
+    """The hardened-runtime drive path: a synthetic open-loop stream with
+    optional poison, chaos and deadlines; every handle must end terminal
+    and the runtime must drain to STOPPED."""
+    from repro_torch.kernels.matmul_relu import launch_count
+    from repro_torch.serve import ManualClock, ServeRuntime, WallClock, parse_chaos
+
+    clock = ManualClock() if args.manual_clock else WallClock()
+    chaos = parse_chaos(args.chaos) if args.chaos else None
+    runtime = ServeRuntime(
+        engine,
+        clock=clock,
+        max_batch=args.max_batch,
+        max_pending_samples=args.max_pending_samples,
+        max_pending_requests=args.max_pending_requests,
+        default_deadline_s=(
+            args.deadline_ms * 1e-3 if args.deadline_ms is not None else None
+        ),
+        flush_interval_s=(
+            args.flush_every_us * 1e-6
+            if args.flush_every_us is not None else None
+        ),
+        max_retries=args.retries,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_ms * 1e-3,
+        chaos=chaos,
+    ).start()
+    if chaos is not None:
+        print(chaos.describe(), flush=True)
+
+    launches_before = launch_count()
+    t0 = time.perf_counter()
+    handles = []
+    for i, x in enumerate(xs):
+        if args.poison_rate and rng.random() < args.poison_rate:
+            x = x.clone()
+            x[0, 0] = float("nan")
+        handles.append(runtime.submit(x))
+        if args.arrival_us:
+            clock.sleep(args.arrival_us * 1e-6)
+        if args.manual_clock and args.tick_every and (i + 1) % args.tick_every == 0:
+            runtime.tick()
+    runtime.drain()
+    wall = time.perf_counter() - t0
+    kernel_launches = launch_count() - launches_before
+
+    if not all(h.done() for h in handles):
+        raise RuntimeError("non-terminal handles after drain")
+    snap = runtime.snapshot()
+    if snap["state"] != "STOPPED":
+        raise RuntimeError(f"drain left state {snap['state']}")
+
+    completed = sorted(h.latency_s for h in handles if h.ok())
+    info = engine.cache_info()
+    # Bisection may use smaller buckets mid-stream; the bound that must
+    # hold is still one program per (bucket, dtype).
+    if info["lowerings"] > 2 * len(engine.buckets):
+        raise RuntimeError(
+            f"{info['lowerings']} lowerings for {len(engine.buckets)} buckets"
+        )
+    results = {
+        "artifact": engine.artifact.describe(),
+        "device": str(engine.device),
+        "mode": "runtime",
+        "clock": "manual" if args.manual_clock else "wall",
+        "chaos": args.chaos,
+        "requests": args.requests,
+        "request_size": args.request_size,
+        "wall_time_s": wall,
+        "completed": sum(h.ok() for h in handles),
+        "failed": sum(h.status == "failed" for h in handles),
+        "rejected": sum(h.status == "rejected" for h in handles),
+        "expired": sum(h.status == "expired" for h in handles),
+        "latency_ms": {
+            "p50": _percentile(completed, 50) * 1e3,
+            "p99": _percentile(completed, 99) * 1e3,
+        },
+        "kernel_launches": kernel_launches,
+        "degraded_reasons": snap["degraded_reasons"],
+        "snapshot": snap,
+        "compile": info,
+    }
+    s = snap["stats"]
+    print(
+        f"runtime drill on {engine.device}: {results['completed']} completed / "
+        f"{results['failed']} failed / {results['rejected']} rejected / "
+        f"{results['expired']} expired of {args.requests} "
+        f"(shed_rate={snap['shed_rate']:.3f} "
+        f"deadline_hit_rate={snap['deadline_hit_rate']:.3f}) "
+        f"breaker opens={s['breaker_opens']} closes={s['breaker_closes']} "
+        f"retries={s['retries']} quarantined={s['quarantined']} "
+        f"final_state={snap['state']} degraded={snap['degraded_reasons']} "
+        f"kernel_launches={kernel_launches}",
+        flush=True,
+    )
+    if args.save_logits:
+        done = [(x, h) for x, h in zip(xs, handles) if h.ok()]
+        if done:
+            _save_logits(args.save_logits, [x for x, _ in done],
+                         [h.result() for _, h in done])
+    _write_out(args, results)
+    return results
 
 
 def main(argv=None) -> dict:
@@ -137,6 +333,9 @@ def main(argv=None) -> dict:
             engine.forward(torch.zeros((p_req, b), dtype=torch.float32))
     synchronize(engine.device)
     warm_lowerings = engine.lowerings
+
+    if args.runtime:
+        return _drive_runtime(args, engine, xs, rng)
 
     batcher = MicroBatcher(
         engine, max_batch=args.max_batch, max_wait_us=args.max_wait_us
@@ -200,17 +399,8 @@ def main(argv=None) -> dict:
     )
 
     if args.save_logits:
-        os.makedirs(os.path.dirname(args.save_logits) or ".", exist_ok=True)
-        logits = torch.cat([h.result() for h in handles], dim=1)
-        np.savez(
-            args.save_logits,
-            requests=torch.cat(xs, dim=1).numpy(),
-            logits=logits.float().cpu().numpy(),
-        )
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=2)
+        _save_logits(args.save_logits, xs, [h.result() for h in handles])
+    _write_out(args, results)
     return results
 
 

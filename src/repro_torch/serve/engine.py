@@ -22,7 +22,9 @@ assembled weights, then the readout ``O_L y_L``:
   them in place and rejects shape or feature changes.
 - **Kernel routing.**  There is no switch: on the card every propagation
   launches the hand-written ``matmul_relu`` kernel; on the CPU it takes
-  the plain version.
+  the plain version.  The runtime's circuit breaker leaves the route as
+  it is (``repro``'s switches its engine to einsum; see
+  :mod:`repro_torch.serve.runtime`).
 """
 from __future__ import annotations
 
