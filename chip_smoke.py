@@ -143,6 +143,28 @@ Phases, each of which raises (non-zero exit) on any failed check:
    bytes, host fetch and ``save_pytree`` (savez and fsync) ms, the
    resume's load ms and each drill's train time beside phase 5's.  An
    ``{"elastic": ...}`` line carries the numbers.
+5f. ``MeshBackend`` over ``torch.distributed`` at full width (phase 5's
+   geometry and seed; each train traces its layers' last iteration).
+   (a) ExactMean through ``train_dssfn.main --backend mesh --ranks 4
+   --dist-backend gloo``: four ranks of five workers share the card,
+   each staging its messages through pinned host memory; 4 ``gram`` and
+   80 ``propagate_gram`` launches summed over the ranks, each layer's
+   readout gap to phase 5's simulated run printed and held to 1e-4 at
+   layers 0-2, the equivalence bars against phase 5's centralized run,
+   the eq.-15 scalars equal to phase 5's.  (b) ``gossip:52:4``, 3 layers
+   (depth cut), the simulated run and the mesh twice: readouts within
+   1e-4, each layer's final consensus error within 1e-4 x max|O_l|, the
+   point-to-point messages, permutes and bytes the schedule predicts,
+   the second mesh run bit-equal to the first.  (c) One NCCL rank holding
+   all 20 workers, 3 layers: within 1e-4 of phase 5's readouts, its NCCL
+   all-reduces counted.  (d) (a)'s stack served through ``ServeEngine``
+   (20 ``matmul_relu`` launches; bit-equal to its ``ssfn.predict``,
+   within 1e-4 x max of its float64 forward, and off phase 5's logits by
+   no more than the two runs' readouts account for), then the chaos
+   drill's mesh leg on the card, its stats and outcomes the CPU drill's.
+   (e) Per rank: train time, train ms per ADMM iteration, host ms in the
+   transport and of it the wait for the card, beside phase 5's.  A
+   ``{"mesh": ...}`` line carries the numbers.
 6. Kernel vs plain: ``flash_attention`` at the full-width H2O-Danube3-4B
    shapes — (1, 32, 8192, 120) and (1, 32, 4096, 120) with the 4096
    window, in bf16 and f32, and (1, 32, 8192, 120) over KV at 8 heads, as
@@ -2302,6 +2324,253 @@ def elastic_slice(torch, np, card: str, exact: dict) -> dict:
     return launches
 
 
+# Phase 5f: MeshBackend over torch.distributed at full width.  W=4 gloo
+# ranks of 5 workers each share the one card (NCCL refuses two ranks on
+# one card), each rank staging its messages through pinned host memory;
+# NCCL runs as one rank holding all 20 workers.  Bars: readouts within
+# 1e-4 of the simulated run at layers 0-2 (MESH_GAP, the reference's
+# sim-vs-mesh bar, tests/test_multidevice.py:128-131; the deeper layers
+# are printed), the equivalence bars, and bit-equal repeats.  The trains
+# trace only each layer's last iteration (--trace-every K: its objective
+# and consensus error are what the checks read; the iterates do not
+# depend on tracing), so an iteration's only collective is its mix.
+MESH_RANKS = 4
+MESH_GAP = 1e-4
+MESH_BAR_LAYERS = 3
+MESH_DEPTH = 3          # (b) and (c): depth cut, width full
+
+
+def mesh_argv(artifact: str, ranks: int, dist: str, *extra: str) -> list[str]:
+    return train_argv(TRAIN["M"], artifact) + [
+        "--backend", "mesh", "--ranks", str(ranks), "--dist-backend", dist,
+        "--trace-every", str(TRAIN["K"]), *extra]
+
+
+def rel_gaps(torch, got, want) -> list[float]:
+    f64 = torch.float64
+    return [float(torch.linalg.vector_norm(a.to(f64) - b.to(f64))
+                  / torch.linalg.vector_norm(b.to(f64))) for a, b in zip(got, want)]
+
+
+def predicted_messages(perms, m: int, ranks: int) -> tuple[int, int]:
+    """(point-to-point messages, rows) that crossing a rank boundary takes
+    for one mix over ``perms``, summed over the ranks: a rank sends one
+    message to each other rank that holds a destination of its rows."""
+    block = m // ranks
+    msgs = rows = 0
+    for perm in perms:
+        pairs = [(s // block, d // block) for s, d in perm if s // block != d // block]
+        msgs += len(set(pairs))
+        rows += len(pairs)
+    return msgs, rows
+
+
+def mesh_slice(torch, np, card: str, exact: dict) -> dict:
+    """Phase 5f: (a) ExactMean under --backend mesh on 4 gloo ranks,
+    20 layers; (b) the paper's gossip on the same ranks, 3 layers, beside
+    the simulated run, twice; (c) one NCCL rank holding all 20 workers;
+    (d) (a)'s stack served and drilled; (e) where the time goes.  Returns
+    each kernel's launches over the phase."""
+    from repro_torch.core import equivalence, ssfn, topology
+    from repro_torch.core.policy import RingGossip
+    from repro_torch.kernels import matmul_relu
+    from repro_torch.launch import train_dssfn
+    from repro_torch import serve
+
+    m, q, k, layers = TRAIN["M"], TRAIN["Q"], TRAIN["K"], TRAIN["L"]
+    run_d, run_c, dec, cen, data = (exact[x] for x in ("run_d", "run_c", "dec", "cen", "data"))
+    launches = {"gram": 0, "propagate_gram": 0, "matmul_relu": 0}
+    out = {"card": card, "ranks": MESH_RANKS}
+
+    def count(label, run, ranks, depth):
+        got = run["kernel_launches"]
+        if got["gram"] != ranks or got["propagate_gram"] != ranks * depth:
+            raise AssertionError(f"5f{label}: kernel launches {got} summed over {ranks} "
+                                 f"rank(s); expected {ranks} gram, {ranks * depth} "
+                                 "propagate_gram")
+        for key in launches:
+            launches[key] += got[key]
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        # (a) ExactMean, 20 layers, 4 gloo ranks on the card.
+        path_a = os.path.join(tmp, "mesh_exact")
+        res = train_dssfn.main(mesh_argv(path_a, MESH_RANKS, "gloo"))
+        run = res["runs"][0]
+        count("(a)", run, MESH_RANKS, layers)
+        params = card_params(torch, path_a)
+        if not all(bool(torch.isfinite(o).all()) for o in params.o):
+            raise AssertionError("5f(a): non-finite readouts")
+        gaps = rel_gaps(torch, params.o, dec.o)
+        if not max(gaps[:MESH_BAR_LAYERS]) <= MESH_GAP:
+            raise AssertionError(f"5f(a) readouts vs phase 5's simulated run: {gaps[:3]} "
+                                 f"> {MESH_GAP} at layers 0-2")
+        if run["comm_scalars"] != run_d["comm_scalars"]:
+            raise AssertionError(f"5f(a) eq.-15 scalars {run['comm_scalars']} != "
+                                 f"{run_d['comm_scalars']}")
+        rep = equivalence.compare(cen, params, data.x_test, q)
+        acc_gap = abs(run["test_accuracy"] - run_c["test_accuracy"])
+        check_equivalence("5f(a)", rep, acc_gap)
+        print(f"5f(a) {run['backend']}: {run['wall_time_s']:.3f} s (phase 5 "
+              f"{run_d['wall_time_s']:.3f} s), launches {run['kernel_launches']} summed over "
+              f"{run['ranks']} ranks, collectives {run['collective_counts']}; readout gaps to "
+              f"phase 5's simulated run by layer {['%.2e' % g for g in gaps]}; test accuracy "
+              f"{run['test_accuracy']:.4f} (phase 5 {run_d['test_accuracy']:.4f}); against "
+              f"the centralized run agreement {rep.agreement:.4f}, accuracy gap "
+              f"{acc_gap:.4f}; eq.-15 scalars {run['comm_scalars']} == phase 5's on {card}",
+              flush=True)
+        out["a"] = {"wall_s": run["wall_time_s"], "gaps": gaps, "agreement": rep.agreement,
+                    "acc_gap": acc_gap, "test_accuracy": run["test_accuracy"],
+                    "kernel_launches": run["kernel_launches"],
+                    "collective_counts": run["collective_counts"],
+                    "collective_bytes": run["collective_bytes"], "per_rank": run["per_rank"]}
+
+        # (b) The paper's gossip network, 3 layers: the simulated run,
+        # then the mesh twice.
+        rounds = topology.gossip_rounds_for_tolerance(
+            topology.circular_mixing_matrix(m, GOSSIP_DEGREE), GOSSIP_TOL)
+        spec = f"gossip:{rounds}:{GOSSIP_DEGREE}"
+        perms = RingGossip(rounds, GOSSIP_DEGREE)._compressed_schedule_or_none(m).perms
+        msgs_mix, rows_mix = predicted_messages(perms, m, MESH_RANKS)
+        gossip = ["--layers", str(MESH_DEPTH), "--consensus", spec,
+                  "--trace-every", str(k)]
+        path_s = os.path.join(tmp, "sim_gossip")
+        run_s = train_dssfn.main(train_argv(m, path_s) + gossip)["runs"][0]
+        count("(b) simulated", run_s, 1, MESH_DEPTH)
+        runs_b = []
+        for i in range(2):
+            path = os.path.join(tmp, f"mesh_gossip_{i}")
+            run_b = train_dssfn.main(mesh_argv(path, MESH_RANKS, "gloo", *gossip))["runs"][0]
+            count(f"(b) mesh {i + 1}", run_b, MESH_RANKS, MESH_DEPTH)
+            runs_b.append((run_b, card_params(torch, path)))
+        (run_b, params_b), (run_b2, params_b2) = runs_b
+        gaps_b = rel_gaps(torch, params_b.o, card_params(torch, path_s).o)
+        if not max(gaps_b) <= MESH_GAP:
+            raise AssertionError(f"5f(b) mesh vs simulated readouts {gaps_b}")
+        if not all(torch.equal(a, b) for a, b in zip(params_b.o, params_b2.o)):
+            raise AssertionError("5f(b) the second mesh run differs from the first")
+        mixes = k * (MESH_DEPTH + 1)
+        permutes = MESH_RANKS * mixes * len(perms)
+        # Layer 0's messages are Q x P, the later layers' Q x n, f32.
+        want_bytes = k * rows_mix * q * 4 * (TRAIN["P"] + MESH_DEPTH * TRAIN["n"])
+        if (run_b["messages"] != mixes * msgs_mix
+                or run_b["collective_counts"].get("collective-permute") != permutes
+                or run_b["collective_bytes"].get("collective-permute") != want_bytes):
+            raise AssertionError(
+                f"5f(b) {run_b['messages']} messages, {run_b['collective_counts']}, "
+                f"{run_b['collective_bytes']} over {mixes} mixes; the schedule predicts "
+                f"{msgs_mix} messages a mix, {permutes} permutes, {want_bytes} bytes")
+        cerr = consensus_errors(run_b["consensus_error"], params_b.o)
+        print(f"5f(b) {spec} on {MESH_RANKS} gloo ranks, {MESH_DEPTH} layers: mesh "
+              f"{run_b['wall_time_s']:.3f} s and {run_b2['wall_time_s']:.3f} s, simulated "
+              f"{run_s['wall_time_s']:.3f} s; readout gaps {['%.2e' % g for g in gaps_b]}; "
+              f"final consensus error <= {cerr:.3e} x max|O_l|; {len(perms)} hops a mix, "
+              f"{msgs_mix} cross-rank messages ({rows_mix} rows) a mix as the schedule "
+              f"predicts, {want_bytes} bytes in all; the second mesh run bit-equal to the "
+              f"first on {card}", flush=True)
+        out["b"] = {"wall_s": [run_b["wall_time_s"], run_b2["wall_time_s"]],
+                    "sim_wall_s": run_s["wall_time_s"], "gaps": gaps_b, "cerr": cerr,
+                    "hops": len(perms), "messages_per_mix": msgs_mix,
+                    "rows_per_mix": rows_mix, "per_rank": run_b["per_rank"]}
+
+        # (c) NCCL: one rank holding all 20 workers, ExactMean, 3 layers.
+        res_c = train_dssfn.main(mesh_argv(os.path.join(tmp, "mesh_nccl"), 1, "nccl",
+                                           "--layers", str(MESH_DEPTH)))
+        run_c3 = res_c["runs"][0]
+        count("(c)", run_c3, 1, MESH_DEPTH)
+        params_c = card_params(torch, os.path.join(tmp, "mesh_nccl"))
+        gaps_c = rel_gaps(torch, params_c.o, dec.o[:MESH_DEPTH + 1])
+        n_ar = run_c3["collective_counts"].get("all-reduce", 0)
+        # A mix an iteration, and the two trace sums at each layer's last.
+        if not (max(gaps_c) <= MESH_GAP and n_ar == (k + 2) * (MESH_DEPTH + 1)
+                and "transport=nccl" in run_c3["backend"]):
+            raise AssertionError(f"5f(c) {run_c3['backend']}: gaps {gaps_c}, "
+                                 f"{n_ar} NCCL all-reduces")
+        print(f"5f(c) {run_c3['backend']}: {run_c3['wall_time_s']:.3f} s, {n_ar} NCCL "
+              f"all-reduces (a mix an iteration, two trace sums a layer), "
+              f"{run_c3['collective_counts']}; readout gaps to phase 5's "
+              f"{['%.2e' % g for g in gaps_c]} on {card}", flush=True)
+        out["c"] = {"wall_s": run_c3["wall_time_s"], "gaps": gaps_c,
+                    "collective_counts": run_c3["collective_counts"]}
+
+        # (d) (a)'s stack served: the net it trained (bit for bit its own
+        # ssfn.predict, and its float64 forward within STACK_TOL), and
+        # phase 5's logits off by what the two runs' readouts make them
+        # differ in float64, within STACK_TOL more.  Then the drill's mesh
+        # leg on the card.
+        xb = data.x_test[:, :32].contiguous()
+        engine = serve.ServeEngine(serve.load_artifact(path_a), buckets=(32,))
+        engine.forward(np.zeros((TRAIN["P"], 32), np.float32))
+        torch.cuda.synchronize()
+        matmul_relu.reset_launch_count()
+        logits = engine.forward(xb.cpu())
+        torch.cuda.synchronize()
+        n_fwd = matmul_relu.launch_count()
+        own = ssfn.predict(params, xb, q)
+        x64 = xb.double().cpu().numpy()
+        f64_mesh = forward_f64(np, [o.cpu().numpy() for o in params.o],
+                               [r.cpu().numpy() for r in params.r], x64)
+        f64_dec = forward_f64(np, [o.cpu().numpy() for o in dec.o],
+                              [r.cpu().numpy() for r in dec.r], x64)
+        got = logits.double().cpu().numpy()
+        scale = float(np.abs(f64_dec).max())
+        err_own = float(np.abs(got - f64_mesh).max())
+        err_dec = float(np.abs(got - f64_dec).max())
+        trained = float(np.abs(f64_mesh - f64_dec).max())
+        if not (n_fwd == layers and torch.equal(logits.to(own.device), own)
+                and err_own <= STACK_TOL * scale
+                and err_dec <= trained + STACK_TOL * scale):
+            raise AssertionError(
+                f"5f(d) {n_fwd} launches; logits vs float64 {err_own:.3e}, vs phase 5's "
+                f"{err_dec:.3e} where the readouts account for {trained:.3e} (max {scale:.3e})")
+        cpu_rt, _, cpu_entries = chaos_drill(
+            np, serve, serve.ServeEngine(serve.load_artifact(path_a), buckets=(32,),
+                                         device="cpu"))
+        matmul_relu.reset_launch_count()
+        rt, _, entries = chaos_drill(np, serve, engine)
+        n_drill = matmul_relu.launch_count()
+        sd = rt.snapshot()["stats"]
+        kinds = [e["kind"] for e in rt.events]
+        if (sd != cpu_rt.snapshot()["stats"]
+                or kinds != [x["kind"] for x in cpu_rt.events if x["kind"] != "degrade"]
+                or [h.status for _, h in entries] != [h.status for _, h in cpu_entries]
+                or n_drill != layers * sd["batches"]):
+            raise AssertionError(f"5f(d) card drill {sd}, {n_drill} launches; CPU drill "
+                                 f"{cpu_rt.snapshot()['stats']}")
+        launches["matmul_relu"] += n_fwd + n_drill
+        print(f"5f(d) (a)'s stack served: {n_fwd} matmul_relu launches a forward, logits "
+              f"bit-equal to its ssfn.predict, {err_own / scale:.3e} x max from its float64 "
+              f"forward, {err_dec / scale:.3e} x max from phase 5's (its readouts alone "
+              f"{trained / scale:.3e}); the drill's "
+              f"mesh leg: {sd['completed']} completed in {sd['batches']} batches, "
+              f"{n_drill} launches, stats and outcomes equal to the CPU drill's on {card}",
+              flush=True)
+        out["d"] = {"logit_gap_f64": err_own / scale, "logit_gap_phase5": err_dec / scale,
+                    "readouts_account": trained / scale, "drill": sd}
+
+    # (e) Where the time goes: per rank of (a) and (b), its train, that
+    # train over its (L+1) K iterations, and the host time inside the
+    # transport, with the part each staged copy spent waiting for the
+    # card's queue; beside phase 5's train (traced every iteration) and
+    # its layer-1 ADMM.
+    bd = exact["breakdown"]
+    print(f"5f(e) phase 5 simulated: {run_d['wall_time_s'] / ((layers + 1) * k) * 1e3:.3f} "
+          f"ms an iteration (train over its {(layers + 1) * k}), layer-1 ADMM "
+          f"{bd['admm_ms'] / k:.3f} ms traced, {bd['admm_untraced_ms'] / k:.3f} untraced; "
+          f"(b)'s simulated train {out['b']['sim_wall_s'] / ((MESH_DEPTH + 1) * k) * 1e3:.3f} "
+          f"ms an iteration on {card}", flush=True)
+    for label, depth in (("a", layers), ("b", MESH_DEPTH)):
+        iters = (depth + 1) * k
+        for r in out[label]["per_rank"]:
+            print(f"5f(e) ({label}) rank {r['rank']}: train {r['wall_time_s']:.3f} s, "
+                  f"{r['wall_time_s'] / iters * 1e3:.3f} ms an ADMM iteration (train over its "
+                  f"{iters}); in the transport {r['transport_host_s'] / iters * 1e3:.3f} ms "
+                  f"an iteration, of it {r['transport_sync_s'] / iters * 1e3:.3f} waiting "
+                  f"for the card before a staged copy; {r['messages']} point-to-point "
+                  f"messages on {card}", flush=True)
+    print(json.dumps({"mesh": out}), flush=True)
+    return launches
+
+
 # flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
 # 120 over 8 KV heads, window 4096; also with KV at 32 heads, the earlier
 # slices' headline) and Zamba2-2.7B's shared attention (32 heads of 80):
@@ -3489,11 +3758,12 @@ def main() -> int:
     policy_launches = policy_slice(torch, card, exact)
     fault_launches = fault_slice(torch, card, exact)
     elastic_launches = elastic_slice(torch, np, card, exact)
+    mesh_launches = mesh_slice(torch, np, card, exact)
     del exact
     for k in train_launches:
         train_launches[k] += (gossip_launches[k] + policy_launches[k] + fault_launches[k]
-                              + elastic_launches[k])
-    launches += elastic_launches["matmul_relu"]
+                              + elastic_launches[k] + mesh_launches[k])
+    launches += elastic_launches["matmul_relu"] + mesh_launches["matmul_relu"]
     flash_cases = flash_kernel_cases(torch)
     flash_launches = inference_slice(torch, np, card)
     torch.cuda.empty_cache()

@@ -206,8 +206,13 @@ def worker_admm_iterations(
 
     ``trace_every`` gates the convergence traces, which cost a sum over
     every worker's residual: 0 computes none, N >= 1 traces every N-th
-    iteration.  The iterates do not depend on it.  Traces are worker
-    0's view, as the reference reports them.
+    iteration.  The iterates do not depend on it.  Each traced iteration
+    reduces over the workers four times through the backend (the
+    objective and primal sums, the consensus error's mean and max; the
+    error's two are skipped under an exact policy), so with
+    ``trace_every=0`` the loop's only communication is the policy's
+    mixes.  The dual residual is the first held worker's: worker 0's,
+    as the reference reports it (on a mesh, rank 0's).
 
     When the policy declares a ``communication_interval`` of N > 1
     (``AsyncGossip(interval=N)``), every N-th iteration mixes and the
@@ -244,8 +249,8 @@ def worker_admm_iterations(
             else:
                 dev = (avg - backend.exact_mean(avg)).abs().amax(dim=(-2, -1))
                 cerr = backend.pmax(dev)[0]
-            obj = ((t_m - torch.matmul(z, y_m)) ** 2).sum(dim=(-2, -1)).sum()
-            primal = torch.sqrt(((o - z) ** 2).sum(dim=(-2, -1)).sum())
+            obj = ctx.total(((t_m - torch.matmul(z, y_m)) ** 2).sum(dim=(-2, -1)))
+            primal = torch.sqrt(ctx.total(((o - z) ** 2).sum(dim=(-2, -1))))
             dual = torch.linalg.vector_norm(z[0] - z_prev[0])
             traced.append((obj, primal, dual, cerr))
     if not traced:
@@ -312,9 +317,12 @@ def admm_ridge_consensus(
     """Run K iterations of consensus ADMM (paper Algorithm 1, lines 5-10).
 
     y_workers: (M, n, J_m) per-worker feature matrices (equal shard sizes,
-        the paper's uniform division of the training set).
-    t_workers: (M, Q, J_m) per-worker targets.
+        the paper's uniform division of the training set); under a
+        ``MeshBackend`` the rank's (M/W, n, J_m) block.
+    t_workers: (M, Q, J_m) per-worker targets (the rank's block).
     backend: where the M workers run; defaults to ``SimulatedBackend(M)``.
+        ``o_star`` and ``jitter`` are every worker's (gathered), the
+        other per-worker outputs the held block.
     policy: how they reach consensus; defaults to the backend's policy.
     consensus_fn: the legacy batched (M, Q, n) -> (M, Q, n) averaging
         primitive for simulations with an arbitrary dense mixing matrix H
@@ -350,9 +358,9 @@ def admm_ridge_consensus(
     if backend is None:
         backend = SimulatedBackend(y_workers.shape[0])
     m = y_workers.shape[0]
-    if m != backend.num_workers:
+    if m != backend.local_workers:
         raise ValueError(
-            f"y_workers has {m} worker shards, backend expects {backend.num_workers}"
+            f"y_workers has {m} worker shards, backend expects {backend.local_workers}"
         )
     policy = policy if policy is not None else backend.policy
     policy.validate(backend.num_workers)
@@ -379,8 +387,9 @@ def admm_ridge_consensus(
         policy=policy,
     )
     return ADMMResult(
-        o_star=z_w[0], o_workers=o_w, lam=lam_w,
-        trace=None if traces is None else ADMMTrace(*traces), jitter=jitter_w,
+        o_star=backend.gather_workers(z_w)[0], o_workers=o_w, lam=lam_w,
+        trace=None if traces is None else ADMMTrace(*traces),
+        jitter=backend.gather_workers(jitter_w),
     )
 
 

@@ -5,8 +5,11 @@ Port of ``repro/core/backend.py`` (:class:`ConsensusBackend` and
 ``(M, ...)`` tensors and talks to peers only through the collectives on
 the backend (reductions over dim 0).  :class:`SimulatedBackend` keeps all
 M workers on one device as the leading dimension and calls the program
-once; the reference vmaps it instead.  ``MeshBackend`` (one worker per
-process over ``torch.distributed``) waits for ROADMAP Queue 1 item 5.
+once; the reference vmaps it instead.  :class:`MeshBackend` runs the
+program in W processes over ``torch.distributed`` (the reference's
+``shard_map`` over a ``workers`` mesh): each rank holds a contiguous
+block of M/W workers, and only messages and reductions cross between
+ranks (:class:`repro_torch.core.policy.MeshContext`).
 
 Program record
 --------------
@@ -27,7 +30,13 @@ from typing import Any, Callable, Hashable
 
 import torch
 
-from repro_torch.core.policy import ConsensusContext, ConsensusPolicy, ExactMean
+from repro_torch.core.policy import (
+    ConsensusContext,
+    ConsensusPolicy,
+    ExactMean,
+    MeshContext,
+    parse_policy,
+)
 
 Tensor = torch.Tensor
 
@@ -94,9 +103,28 @@ class ConsensusBackend(abc.ABC):
             self.lowerings += 1
         return fn(*stacked_args, *replicated)
 
+    @property
+    def local_workers(self) -> int:
+        """The workers this process holds: the leading dim of the stacked
+        operands :meth:`run` takes."""
+        return self.num_workers
+
     def shard_workers(self, x: Tensor) -> Tensor:
         """Place a stacked (M, ...) tensor in this backend's worker layout."""
         return x
+
+    def gather_workers(self, x: Tensor) -> Tensor:
+        """The full ``(M, ...)`` stack of a value this process holds a
+        block of (used at a layer's end, never inside the ADMM loop)."""
+        return x
+
+    def barrier(self) -> None:
+        """Return once every process of the backend has reached it."""
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes what the run saves (one does)."""
+        return True
 
     def cache_info(self) -> dict:
         """Program-record counters in the reference's normalized schema:
@@ -111,10 +139,10 @@ class ConsensusBackend(abc.ABC):
 
     def _check_stacked(self, stacked_args) -> None:
         for a in stacked_args:
-            if a.shape[0] != self.num_workers:
+            if a.shape[0] != self.local_workers:
                 raise ValueError(
                     f"stacked operand has leading dim {a.shape[0]}, "
-                    f"backend has {self.num_workers} workers"
+                    f"backend holds {self.local_workers} workers"
                 )
 
     # ------------------------------------------------------------------
@@ -151,3 +179,124 @@ class SimulatedBackend(ConsensusBackend):
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self.num_workers = int(num_workers)
         self._init_consensus(policy)
+
+
+class MeshBackend(ConsensusBackend):
+    """Real SPMD workers: the program runs in every rank of a
+    :class:`repro_torch.launch.mesh.WorkerGroup`, each rank on its own
+    block of M/W workers.
+
+    ``num_workers`` is the global M.  :meth:`run` takes and returns the
+    rank's ``(M/W, ...)`` blocks; :meth:`shard_workers` cuts a full
+    ``(M, ...)`` stack to them (and passes a block through);
+    :meth:`gather_workers` all-gathers a block back to the full stack.
+    ``psum``, ``pmax`` and ``exact_mean`` are collectives, and a policy's
+    mix runs on :class:`~repro_torch.core.policy.MeshContext`.  The
+    transport counts what it carries (:meth:`collective_counts`, named
+    like the reference's ``lowering_stats``).  ``group=None`` takes
+    :func:`repro_torch.launch.mesh.make_worker_group`'s default: the
+    ``torchrun`` group, or one rank holding one worker.
+    """
+
+    def __init__(self, group=None, *, policy: ConsensusPolicy | None = None):
+        from repro_torch.launch.mesh import WorkerGroup, make_worker_group
+
+        if group is None:
+            group = make_worker_group()
+        if not isinstance(group, WorkerGroup):
+            raise TypeError(
+                f"group must be a WorkerGroup (launch.mesh.make_worker_group), "
+                f"got {type(group).__name__}"
+            )
+        self.group = group
+        self.num_workers = group.num_workers
+        self._init_consensus(policy)
+        self._ctx = MeshContext(
+            self.num_workers, rank=group.rank, ranks=group.size, transport=group.transport,
+        )
+
+    def ctx(self) -> MeshContext:
+        return self._ctx
+
+    @property
+    def local_workers(self) -> int:
+        return self.group.local_workers
+
+    @property
+    def rows(self) -> slice:
+        """The global indices of the workers this rank holds."""
+        return self.group.rows
+
+    @property
+    def is_writer(self) -> bool:
+        return self.group.rank == 0
+
+    def shard_workers(self, x: Tensor) -> Tensor:
+        if x.shape[0] == self.num_workers:
+            return x[self.rows]
+        if x.shape[0] == self.local_workers:
+            return x
+        raise ValueError(
+            f"stacked operand has leading dim {x.shape[0]}; this rank takes "
+            f"all {self.num_workers} workers or its block of {self.local_workers}"
+        )
+
+    def gather_workers(self, x: Tensor) -> Tensor:
+        return self.group.transport.all_gather(x)
+
+    def barrier(self) -> None:
+        self.group.transport.barrier()
+
+    def collective_counts(self) -> dict:
+        """Collectives this rank has issued, by kind (a gossip hop is one
+        ``collective-permute``, as in the reference's lowering)."""
+        return {k: v for k, v in self.group.transport.stats.counts.items() if v}
+
+    def collective_bytes(self) -> dict:
+        """Bytes this rank has put on the wire, by kind (a hop's rows that
+        stay in the rank move by a local index and are not counted)."""
+        return {k: v for k, v in self.group.transport.stats.bytes.items() if v}
+
+    def reset_collective_counts(self) -> None:
+        self.group.transport.reset()
+
+    def describe(self) -> str:
+        return (
+            f"{type(self).__name__}(M={self.num_workers}, "
+            f"policy={self.policy.describe()}, ranks={self.group.size}, "
+            f"transport={self.group.transport.describe()})"
+        )
+
+
+def make_backend(
+    kind: str,
+    num_workers: int | None = None,
+    *,
+    mesh=None,
+    policy: ConsensusPolicy | str | None = None,
+    degree: int = 1,
+) -> ConsensusBackend:
+    """CLI-friendly factory: kind in {'simulated', 'mesh'}.
+
+    ``policy`` is a ConsensusPolicy or a ``parse_policy`` spec string
+    (``degree`` fills a ring degree the spec leaves out); ``mesh`` a
+    :class:`repro_torch.launch.mesh.WorkerGroup` for the mesh backend
+    (default: :func:`~repro_torch.launch.mesh.make_worker_group` of
+    ``num_workers``)."""
+    if isinstance(policy, str):
+        policy = parse_policy(policy, degree=degree)
+    if kind == "simulated":
+        if num_workers is None:
+            raise ValueError("simulated backend requires num_workers")
+        return SimulatedBackend(num_workers, policy=policy)
+    if kind == "mesh":
+        if mesh is None:
+            from repro_torch.launch.mesh import make_worker_group
+
+            mesh = make_worker_group(num_workers)
+        if num_workers is not None and mesh.num_workers != num_workers:
+            raise ValueError(
+                f"num_workers={num_workers} but the group has {mesh.num_workers} workers"
+            )
+        return MeshBackend(mesh, policy=policy)
+    raise ValueError(f"unknown backend kind {kind!r}; expected 'simulated' or 'mesh'")

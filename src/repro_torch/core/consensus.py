@@ -49,6 +49,14 @@ do).  Each permutation's index tensor is built once per device
    receiver even over a dead link, as the reference's does (it is the
    vulnerable baseline); the screened steps select with ``torch.where``.
 
+Every function that moves messages takes a ``ctx`` (a
+``policy.ConsensusContext``): its ``ppermute`` and ``gather_steps`` move
+them, and its ``local_rows`` cuts a per-worker value made for all M
+workers (a link gate, an up-mask) to the workers ``x`` holds.  Without a
+``ctx`` ``x`` holds every worker and a hop is a gather over dim 0, as in
+the simulated context; under ``MeshBackend`` ``x`` is a rank's block and
+the hops cross between ranks.
+
 ``make_consensus_fn`` (the legacy batched dense-H factory) is deprecated
 and warns, as the reference's does.
 """
@@ -111,6 +119,19 @@ def ppermute(x: Tensor, perm) -> Tensor:
     return x.index_select(0, _perm_index(tuple(perm), x.shape[0], x.device))
 
 
+def gather_steps(x: Tensor, perms) -> Tensor:
+    """``ppermute(x, perm)`` for each of ``perms`` at once, ``(steps, M,
+    ...)``: one ``index_select`` over dim 0 of the stacked ``x``."""
+    index = _perms_index(tuple(perms), x.shape[0], x.device)
+    return x.index_select(0, index).view((len(perms),) + tuple(x.shape))
+
+
+def _hop(x: Tensor, perm, ctx) -> Tensor:
+    """One ``ppermute`` through ``ctx`` (a ``policy.ConsensusContext``),
+    or over the whole stack ``x`` when there is none."""
+    return ppermute(x, perm) if ctx is None else ctx.ppermute(x, perm)
+
+
 def exact_average(x_workers: Tensor) -> Tensor:
     """(1/M) sum over the leading (worker) dim, broadcast back to all."""
     return x_workers.mean(dim=0, keepdim=True).expand_as(x_workers)
@@ -145,22 +166,24 @@ def _ring_perms(degree: int, num_nodes: int) -> list:
     return perms
 
 
-def ring_gossip_step(x: Tensor, degree: int, num_nodes: int) -> Tensor:
+def ring_gossip_step(x: Tensor, degree: int, num_nodes: int, *, ctx=None) -> Tensor:
     """One degree-d circular gossip round over the stacked ``x``:
     h_ij = 1/(2d+1) equal weights (paper §III), forward then backward
-    hop per distance, summed onto the worker's own value."""
+    hop per distance, summed onto the worker's own value.  ``ctx`` (a
+    ``policy.ConsensusContext``) moves the messages; without one ``x``
+    holds every worker."""
     acc = x
     for perm in _ring_perms(degree, num_nodes):
-        acc = acc + ppermute(x, perm)
+        acc = acc + _hop(x, perm, ctx)
     return acc / (2 * degree + 1)
 
 
 def ring_gossip_average(
-    x: Tensor, degree: int, num_nodes: int, num_rounds: int
+    x: Tensor, degree: int, num_nodes: int, num_rounds: int, *, ctx=None
 ) -> Tensor:
     """B rounds of degree-d ring gossip."""
     for _ in range(num_rounds):
-        x = ring_gossip_step(x, degree, num_nodes)
+        x = ring_gossip_step(x, degree, num_nodes, ctx=ctx)
     return x
 
 
@@ -170,6 +193,7 @@ def schedule_gossip_step(
     *,
     self_value: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One gossip round of an arbitrary doubly-stochastic H, as the
     static permutation steps of a ``topology.ExchangeSchedule``:
@@ -186,7 +210,9 @@ def schedule_gossip_step(
     every received message is widened back and accumulated in the
     input's precision, and the worker's own contribution never leaves
     full precision.  None, or the input's own dtype, keeps the
-    full-width path.
+    full-width path.  ``ctx`` (a ``policy.ConsensusContext``) moves the
+    messages, one ``ppermute`` a hop; without one ``x`` holds every
+    worker.
     """
     own = x if self_value is None else self_value
     narrow = (
@@ -199,16 +225,16 @@ def schedule_gossip_step(
         # shortcut would accumulate at wire precision.
         acc = schedule.self_weight * own
         for perm, w in zip(schedule.perms, schedule.weights):
-            acc = acc + w * ppermute(wire, perm).to(own.dtype)
+            acc = acc + w * _hop(wire, perm, ctx).to(own.dtype)
         return acc
     if schedule.uniform:
         acc = own
         for perm in schedule.perms:
-            acc = acc + ppermute(x, perm)
+            acc = acc + _hop(x, perm, ctx)
         return acc / (len(schedule.perms) + 1)
     acc = schedule.self_weight * own
     for perm, w in zip(schedule.perms, schedule.weights):
-        acc = acc + w * ppermute(x, perm)
+        acc = acc + w * _hop(x, perm, ctx)
     return acc
 
 
@@ -218,10 +244,11 @@ def schedule_gossip_average(
     num_rounds: int,
     *,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """B rounds of exchange-schedule gossip."""
     for _ in range(num_rounds):
-        x = schedule_gossip_step(x, schedule, wire_dtype=wire_dtype)
+        x = schedule_gossip_step(x, schedule, wire_dtype=wire_dtype, ctx=ctx)
     return x
 
 
@@ -263,27 +290,28 @@ def lossy_gossip_apply(
     wsum: Tensor,
     *,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One lossy round with its link draws given (:func:`lossy_link_weights`,
-    as tensors on ``x``'s device):
+    as tensors on ``x``'s device, for every worker):
 
         x' = (self_weight * x + sum_i coef_i * ppermute(wire, perm_i)) / wsum
 
-    Every step's message is gathered in one ``index_select`` and scaled
-    in one product; the products are added in step order."""
+    Every step's message is gathered at once (``ctx.gather_steps``, or
+    one ``index_select`` over the whole stack without a ``ctx``) and
+    scaled in one product; the products are added in step order."""
     narrow = (
         None if wire_dtype is None
         else _TORCH_WIRE_DTYPES[canonical_wire_dtype(wire_dtype)]
     )
+    if ctx is not None:
+        coef, wsum = ctx.local_rows(coef, 1), ctx.local_rows(wsum)
     acc = schedule.self_weight * x
     if schedule.perms:
         wire = x if narrow is None else x.to(narrow)
         steps = len(schedule.perms)
-        index = _perms_index(tuple(schedule.perms), x.shape[0], x.device)
-        msgs = wire.index_select(0, index).view((steps,) + tuple(x.shape))
-        if narrow is not None:
-            msgs = msgs.to(x.dtype)
-        scaled = coef.view((steps,) + _worker_shape(x)) * msgs
+        msgs = _gather_steps(wire, schedule, x.dtype, ctx)
+        scaled = coef.reshape((steps,) + _worker_shape(x)) * msgs
         for i in range(steps):
             acc = acc + scaled[i]
     return acc / wsum.view(_worker_shape(x))
@@ -296,6 +324,7 @@ def lossy_schedule_gossip_step(
     drop_prob: float,
     key,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One exchange-schedule gossip round over a lossy network: each
     incoming step fails independently with probability ``drop_prob`` and
@@ -304,11 +333,12 @@ def lossy_schedule_gossip_step(
     :func:`schedule_gossip_step` up to float association).  ``key`` is
     the stacked per-worker keys, (M, 2) (each node observes its own link
     failures); the draws are made on the host.  ``wire_dtype`` narrows
-    the link payloads as in :func:`schedule_gossip_step`."""
+    the link payloads as in :func:`schedule_gossip_step`; with a ``ctx``
+    ``key`` is every worker's."""
     coef, wsum = lossy_link_weights(schedule, drop_prob, key)
     coef = torch.from_numpy(coef).to(x.device)
     wsum = torch.from_numpy(wsum).to(x.device)
-    return lossy_gossip_apply(x, schedule, coef, wsum, wire_dtype=wire_dtype)
+    return lossy_gossip_apply(x, schedule, coef, wsum, wire_dtype=wire_dtype, ctx=ctx)
 
 
 def _narrow_dtype(wire_dtype: str | None):
@@ -318,14 +348,14 @@ def _narrow_dtype(wire_dtype: str | None):
     )
 
 
-def _gather_steps(wire: Tensor, schedule, dtype) -> Tensor:
+def _gather_steps(wire: Tensor, schedule, dtype, ctx=None) -> Tensor:
     """Every step's received message at once, ``(steps, M, ...)``: one
-    ``index_select`` over the worker dim, widened back to ``dtype``."""
-    steps = len(schedule.perms)
-    if not steps:
+    ``index_select`` over the worker dim (``ctx.gather_steps`` with a
+    ``ctx``), widened back to ``dtype``."""
+    if not schedule.perms:
         return wire.new_empty((0,) + tuple(wire.shape), dtype=dtype)
-    index = _perms_index(tuple(schedule.perms), wire.shape[0], wire.device)
-    msgs = wire.index_select(0, index).view((steps,) + tuple(wire.shape))
+    msgs = gather_steps(wire, schedule.perms) if ctx is None else ctx.gather_steps(
+        wire, schedule.perms)
     return msgs.to(dtype)
 
 
@@ -369,20 +399,24 @@ def faulty_gossip_apply(
     *,
     transmit: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One faulty round with its link gates given
-    (:func:`faulty_link_weights`, on ``x``'s device):
+    (:func:`faulty_link_weights`, on ``x``'s device, for every worker):
 
         x' = self_weight * x + sum_k coef_k * recv_k + lost * x
 
     the products added in step order.  ``transmit`` is what peers
-    receive; each worker's own term is the fresh ``x``."""
+    receive; each worker's own term is the fresh ``x``.  ``ctx`` moves
+    the messages and says which workers ``x`` holds."""
     narrow = _narrow_dtype(wire_dtype)
+    if ctx is not None:
+        coef, lost = ctx.local_rows(coef, 1), ctx.local_rows(lost)
     out = x if transmit is None else transmit
     acc = schedule.self_weight * x
     if schedule.perms:
         wire = out if narrow is None else out.to(narrow)
-        scaled = _per_step(coef, x) * _gather_steps(wire, schedule, x.dtype)
+        scaled = _per_step(coef, x) * _gather_steps(wire, schedule, x.dtype, ctx)
         for i in range(len(schedule.perms)):
             acc = acc + scaled[i]
     return acc + lost.view(_worker_shape(x)) * x
@@ -395,6 +429,7 @@ def faulty_schedule_gossip_step(
     *,
     transmit: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One exchange-schedule gossip round under a shared fault mask.
 
@@ -420,7 +455,7 @@ def faulty_schedule_gossip_step(
     alive = torch.as_tensor(alive).to(device=x.device, dtype=x.dtype)
     coef, lost = faulty_link_weights(schedule, alive)
     return faulty_gossip_apply(
-        x, schedule, coef, lost, transmit=transmit, wire_dtype=wire_dtype
+        x, schedule, coef, lost, transmit=transmit, wire_dtype=wire_dtype, ctx=ctx,
     )
 
 
@@ -431,6 +466,7 @@ def _receive_screened(
     *,
     transmit: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ):
     """Gather one payload per schedule step for every worker, screening
     each incoming message before it can touch an aggregate.
@@ -447,20 +483,21 @@ def _receive_screened(
 
     ``transmit`` substitutes what peers receive; the receiver's own ``x``
     stays fresh.  The gate selects with ``torch.where``, so non-finite
-    values never enter a multiply.
+    values never enter a multiply.  ``alive`` is every worker's; ``ctx``
+    moves the messages and says which workers ``x`` holds.
     """
     narrow = _narrow_dtype(wire_dtype)
     out = x if transmit is None else transmit
     wire = out if narrow is None else out.to(narrow)
-    steps, m = len(schedule.perms), x.shape[0]
-    msgs = _gather_steps(wire, schedule, x.dtype)
+    steps, m = len(schedule.perms), schedule.num_workers
+    msgs = _gather_steps(wire, schedule, x.dtype, ctx)
     ok = torch.isfinite(msgs)
     ok = ok.flatten(2).all(dim=-1) if ok.ndim > 2 else ok
     if alive is not None and steps:
         alive = alive.to(x.dtype)
         index = _perms_index(tuple(schedule.perms), m, x.device)
         up = (alive * alive.index_select(0, index).view(steps, m)) > 0.5
-        ok = ok & up
+        ok = ok & (up if ctx is None else ctx.local_rows(up, 1))
     payloads = torch.where(_per_step(ok, x), msgs, x)
     return payloads, ok, schedule.weights, schedule.self_weight
 
@@ -511,6 +548,7 @@ def trimmed_mean_schedule_gossip_step(
     alive: Tensor | None = None,
     transmit: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One robust gossip round: screened trimmed-mean aggregation.
 
@@ -532,7 +570,7 @@ def trimmed_mean_schedule_gossip_step(
             "trimmed-mean gossip needs a uniform equal-weight schedule"
         )
     payloads, ok, _, _ = _receive_screened(
-        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype,
+        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype, ctx=ctx,
     )
     steps = payloads.shape[0]
     s = steps + 1
@@ -566,6 +604,7 @@ def median_schedule_gossip_step(
     alive: Tensor | None = None,
     transmit: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One robust gossip round: coordinate-wise median of the screened
     neighborhood stack (own value first), the maximal-breakdown member
@@ -574,7 +613,7 @@ def median_schedule_gossip_step(
     if not schedule.uniform:
         raise ValueError("median gossip needs a uniform equal-weight schedule")
     payloads, _, _, _ = _receive_screened(
-        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype,
+        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype, ctx=ctx,
     )
     return _median0(torch.cat([x[None], payloads], dim=0))
 
@@ -587,6 +626,7 @@ def clipped_schedule_gossip_step(
     alive: Tensor | None = None,
     transmit: Tensor | None = None,
     wire_dtype: str | None = None,
+    ctx=None,
 ) -> Tensor:
     """One robust gossip round with norm-clipped incoming payloads
     (centered clipping): each screened payload's deviation from self is
@@ -601,7 +641,7 @@ def clipped_schedule_gossip_step(
     if tau <= 0.0:
         raise ValueError(f"clip radius tau must be > 0, got {tau}")
     payloads, _, weights, self_weight = _receive_screened(
-        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype,
+        x, schedule, alive, transmit=transmit, wire_dtype=wire_dtype, ctx=ctx,
     )
     acc = self_weight * x
     if weights:

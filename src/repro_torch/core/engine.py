@@ -68,7 +68,10 @@ def fused_layer_step(
     """One dSSFN layer step for all M workers as one backend program.
 
     y_workers: (M, n_{l-1}, J_m) previous-layer features (the layer input
-        x at l=0), stacked per worker.
+        x at l=0), stacked per worker; under a ``MeshBackend`` the rank's
+        (M/W, ...) block, over which the rank's ``propagate_gram`` runs.
+        ``o_star`` and ``jitter`` come back gathered from every worker,
+        ``o_workers``, ``lam`` and ``y_workers`` as the held block.
     w: the layer weight W_l = [V_Q O_{l-1} ; R_l] shared by every worker,
         or None at l=0 (solve directly on the input features).
     policy: consensus strategy for the ADMM iterations (default: the
@@ -76,9 +79,9 @@ def fused_layer_step(
     trace_every: convergence-trace stride (``admm.worker_admm_iterations``).
     """
     m = y_workers.shape[0]
-    if m != backend.num_workers:
+    if m != backend.local_workers:
         raise ValueError(
-            f"y_workers has {m} worker shards, backend expects {backend.num_workers}"
+            f"y_workers has {m} worker shards, backend expects {backend.local_workers}"
         )
     policy = policy if policy is not None else backend.policy
     policy.validate(backend.num_workers)
@@ -121,7 +124,8 @@ def fused_layer_step(
         replicated=() if w is None else (w,), key=key, policy=policy,
     )
     return LayerStepResult(
-        o_star=z_w[0], o_workers=o_w, lam=lam_w, y_workers=y_next,
+        o_star=backend.gather_workers(z_w)[0], o_workers=o_w, lam=lam_w,
+        y_workers=y_next,
         trace=None if traces is None else admm_lib.ADMMTrace(*traces),
-        jitter=jitter_w,
+        jitter=backend.gather_workers(jitter_w),
     )

@@ -25,6 +25,12 @@ rollback redraws the not-yet-consumed random matrices from
 ``prng.fold_in(key, 7 + rollbacks)``.  A checkpoint save fetches the
 layer features to the host, the loop's one large transfer; a resume puts
 the restored state on the run's device in ``cfg.dtype``.
+
+Under a ``MeshBackend`` every rank runs this loop on its block of the
+workers; each layer's readout and jitter levels come back gathered, so
+every rank holds the whole model and makes the same decisions.  A
+checkpoint gathers the per-worker leaves, rank 0 writes it, and every
+rank resumes its own rows of it.
 """
 from __future__ import annotations
 
@@ -97,21 +103,29 @@ def _save_checkpoint(
     directory: str, *, layer_next: int, key, y_workers, o_list,
     step: engine_lib.LayerStepResult, dev_traces, comm: int,
     prev_cost: float | None, active_mask: np.ndarray,
-    r_list=None, jitter_list=None,
+    r_list=None, jitter_list=None, backend: ConsensusBackend | None = None,
 ) -> str:
     """Elastic-resume state after ``layer_next`` completed layers, in the
     reference's schema leaf for leaf: layer features, per-layer readouts,
     the last solve's worker primals/duals, the threefry key words, the
     random matrices ACTUALLY used (a rollback redraws them, so the key
     alone no longer determines them), membership, the jitter levels and
-    the traces so far.  Every leaf is fetched to the host first."""
+    the traces so far.  Every leaf is fetched to the host first.  Under a
+    ``MeshBackend`` every rank gathers the per-worker leaves, rank 0
+    alone writes, and no rank returns before the file is complete."""
+    gather = backend.gather_workers if backend is not None else (lambda x: x)
+    per_worker = [gather(t) for t in (y_workers, step.o_workers, step.lam)]
+    if backend is not None and not backend.is_writer:
+        backend.barrier()
+        return checkpoint_path(directory, layer_next)
+    y_workers, o_workers, lam = per_worker
     state = {
         "layer_next": np.int64(layer_next),
         "key": prng.key_data(key),
         "y_workers": _host(y_workers),
         "o": {str(i): _host(o) for i, o in enumerate(o_list)},
-        "o_workers": _host(step.o_workers),
-        "lam": _host(step.lam),
+        "o_workers": _host(o_workers),
+        "lam": _host(lam),
         "comm": np.int64(comm),
         "prev_cost": np.float64(np.nan if prev_cost is None else prev_cost),
         "membership": np.asarray(active_mask, np.float64),
@@ -128,6 +142,8 @@ def _save_checkpoint(
         }
     path = checkpoint_path(directory, layer_next)
     store_lib.save_pytree(path, state)
+    if backend is not None:
+        backend.barrier()
     return path
 
 
@@ -275,8 +291,9 @@ def train_decentralized_ssfn(
 ) -> tuple[ssfn_lib.SSFNParams, LayerwiseLog]:
     """Train dSSFN on M workers, on the device ``x_workers`` lies on.
 
-    x_workers: (M, P, J_m) column-stacked inputs per worker (disjoint shards).
-    t_workers: (M, Q, J_m) one-hot targets per worker.
+    x_workers: (M, P, J_m) column-stacked inputs per worker (disjoint shards);
+        under a ``MeshBackend`` all M or the rank's block of them.
+    t_workers: (M, Q, J_m) one-hot targets per worker (likewise).
     generator / key / r: where the shared random matrices R_1..R_L come
         from: drawn from ``generator`` (``ssfn.init_random_matrices``,
         PyTorch's numbers), drawn from the threefry ``key`` (a
@@ -514,7 +531,7 @@ def train_decentralized_ssfn(
                 y_workers=y_workers, o_list=o_list, step=step,
                 dev_traces=dev_traces, comm=comm, prev_cost=prev_cost,
                 active_mask=_active_mask(policy, num_workers),
-                r_list=r_list, jitter_list=jitter_list,
+                r_list=r_list, jitter_list=jitter_list, backend=engine_backend,
             )
         if stopping:
             break

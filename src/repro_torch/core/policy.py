@@ -14,9 +14,12 @@ asynchronous gossip under a seeded fault model (:class:`FaultModel`,
 The paper's Algorithm 1 is parameterized by *how* the workers average;
 everything else is invariant.  A policy's ``mix(x, state, ctx)`` runs
 inside the worker program and communicates only through ``ctx``.  In the
-port the M workers are the leading dimension of a tensor, ``(M, ...)``,
-so a collective is a reduction over dim 0 whose result every worker
-sees, and a ``ppermute`` hop is a gather over dim 0.
+port the workers are the leading dimension of a tensor: all M of them
+under :class:`ConsensusContext` (``SimulatedBackend``), where a
+collective is a reduction over dim 0 whose result every worker sees and
+a ``ppermute`` hop is a gather over dim 0, or one rank's block of them
+under :class:`MeshContext` (``MeshBackend``), where the reductions and
+the hops cross between ranks.
 
 ==================================  ==============================  ==========
 policy                              exchanges/round                 wire bits
@@ -80,10 +83,15 @@ Tensor = torch.Tensor
 
 @dataclass(frozen=True)
 class ConsensusContext:
-    """Collectives available to a policy inside the worker program: each
-    reduces over the worker dimension (dim 0) of a stacked ``(M, ...)``
-    tensor and hands every worker the result, stacked again, or (for
-    ``ppermute``) moves each worker's slice to another worker."""
+    """Every data-moving primitive a policy may use inside the worker
+    program.  The reductions reduce over the worker dimension (dim 0) of
+    a stacked tensor and hand every worker the result, stacked again;
+    ``ppermute`` and ``gather_steps`` move each worker's slice to another
+    worker.  This context holds all M workers in one ``(M, ...)`` stack
+    (:class:`SimulatedBackend`'s); :class:`MeshContext` holds one rank's
+    block of them.  ``num_workers`` is always the global M, and a value
+    made for every worker on the host (a fault mask, a link gate, a
+    per-worker key) is cut to the held workers with :meth:`local_rows`."""
 
     num_workers: int
 
@@ -96,13 +104,104 @@ class ConsensusContext:
     def pmax(self, x: Tensor) -> Tensor:
         return x.amax(dim=0, keepdim=True).expand_as(x)
 
+    def total(self, v: Tensor) -> Tensor:
+        """The sum of a per-worker value ``v`` over every worker, as a 0-d
+        tensor."""
+        return v.sum()
+
     def ppermute(self, x: Tensor, perm) -> Tensor:
         """``out[dst] = x[src]`` for each ``(src, dst)`` pair of ``perm``,
         a permutation of the workers."""
         return consensus_lib.ppermute(x, perm)
 
+    def gather_steps(self, x: Tensor, perms) -> Tensor:
+        """Every permutation's received message at once, ``(steps,
+        m_local, ...)``: ``ppermute(x, perm)`` for each of ``perms``."""
+        return consensus_lib.gather_steps(x, perms)
+
+    def local_rows(self, t, dim: int = 0):
+        """The held workers' rows of a global per-worker value (``(M,
+        ...)``, or ``(steps, M)`` with ``dim=1``); all of them here."""
+        return t
+
     def worker_index(self, device: torch.device | str | None = None) -> Tensor:
         return torch.arange(self.num_workers, device=device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _mesh_plan(perms: tuple, num_workers: int, rank: int, ranks: int, device: torch.device):
+    """A rank's :func:`repro_torch.launch.mesh.exchange_plan` for
+    ``perms``, with the pool index on ``device``."""
+    from repro_torch.launch.mesh import exchange_plan
+
+    index, recv_rows, send_rows = exchange_plan(perms, num_workers, rank, ranks)
+    sends = {p: torch.from_numpy(np.asarray(r, np.int64)).to(device)
+             for p, r in send_rows.items()}
+    return torch.from_numpy(index).to(device), recv_rows, sends
+
+
+@dataclass(frozen=True, eq=False)
+class MeshContext(ConsensusContext):
+    """One rank's view of the workers under ``MeshBackend``: it holds the
+    contiguous block ``rows`` of M/W workers as an ``(M/W, ...)`` stack,
+    and only messages and reductions cross to the other ranks, through
+    ``transport`` (:class:`repro_torch.launch.mesh.Transport`).
+
+    A reduction sums (or maxes) the held workers, then reduces across the
+    ranks in one ``all_reduce``; the mean divides by the global M.  A hop
+    moves the rows whose source and destination share this rank with a
+    local ``index_select`` and the others point to point, only along the
+    permutation's cross-rank pairs; eq. 15 still counts every worker's
+    exchanges, the wire carries only the cross-rank part."""
+
+    rank: int = 0
+    ranks: int = 1
+    transport: Any = None
+
+    @property
+    def local_workers(self) -> int:
+        return self.num_workers // self.ranks
+
+    @property
+    def rows(self) -> slice:
+        lo = self.rank * self.local_workers
+        return slice(lo, lo + self.local_workers)
+
+    def pmean(self, x: Tensor) -> Tensor:
+        total = self.transport.all_reduce(x.sum(dim=0, keepdim=True))
+        return exact_div(total, self.num_workers).expand_as(x)
+
+    def psum(self, x: Tensor) -> Tensor:
+        return self.transport.all_reduce(x.sum(dim=0, keepdim=True)).expand_as(x)
+
+    def pmax(self, x: Tensor) -> Tensor:
+        return self.transport.all_reduce(x.amax(dim=0, keepdim=True), "max").expand_as(x)
+
+    def total(self, v: Tensor) -> Tensor:
+        return self.transport.all_reduce(v.sum().reshape(1))[0]
+
+    def ppermute(self, x: Tensor, perm) -> Tensor:
+        return self.gather_steps(x, (perm,))[0]
+
+    def gather_steps(self, x: Tensor, perms) -> Tensor:
+        perms = tuple(tuple(p) for p in perms)
+        index, recv_rows, sends = _mesh_plan(
+            perms, self.num_workers, self.rank, self.ranks, x.device
+        )
+        msgs = {p: x.index_select(0, rows) for p, rows in sends.items()}
+        pool = x
+        if recv_rows or msgs:
+            got = self.transport.exchange(msgs, recv_rows, like=x)
+            pool = torch.cat([x] + [got[p] for p in sorted(got)], dim=0)
+        nbytes = sum(m.numel() * m.element_size() for m in msgs.values())
+        self.transport.count("collective-permute", len(perms), nbytes)
+        return pool.index_select(0, index).view((len(perms),) + tuple(x.shape))
+
+    def local_rows(self, t, dim: int = 0):
+        return t[(slice(None),) * dim + (self.rows,)]
+
+    def worker_index(self, device: torch.device | str | None = None) -> Tensor:
+        return torch.arange(self.rows.start, self.rows.stop, device=device)
 
 
 def _cycle_exchanges(
@@ -334,18 +433,20 @@ class Gossip(ConsensusPolicy):
         if sched is not None:
             # One mix with H^B: the whole B-round schedule as one
             # minimal-depth weighted hop sequence.
-            return consensus_lib.schedule_gossip_step(x, sched, wire_dtype=wd), state
+            return consensus_lib.schedule_gossip_step(
+                x, sched, wire_dtype=wd, ctx=ctx
+            ), state
         scheds = _cycle_schedules(self.topology, ctx)
         if len(scheds) == 1:
             # The bit-identity path for Ring (ring_gossip_average's hops).
             out = consensus_lib.schedule_gossip_average(
-                x, scheds[0], self.rounds, wire_dtype=wd
+                x, scheds[0], self.rounds, wire_dtype=wd, ctx=ctx
             )
         else:
             out = x
             for b in range(self.rounds):
                 out = consensus_lib.schedule_gossip_step(
-                    out, scheds[b % len(scheds)], wire_dtype=wd
+                    out, scheds[b % len(scheds)], wire_dtype=wd, ctx=ctx
                 )
         return out, state
 
@@ -487,12 +588,12 @@ class QuantizedGossip(ConsensusPolicy):
         steps = 1 if self.topology is None else self.rounds
         key, subs = _key_chain(state.tobytes(), ctx.num_workers, steps, x.device)
         if self.topology is None:
-            return ctx.pmean(self._quantize(x, subs[0])), key
+            return ctx.pmean(self._quantize(x, ctx.local_rows(subs[0]))), key
         scheds = _cycle_schedules(self.topology, ctx)
         for b in range(self.rounds):
-            q = self._quantize(x, subs[b])
+            q = self._quantize(x, ctx.local_rows(subs[b]))
             x = consensus_lib.schedule_gossip_step(
-                q, scheds[b % len(scheds)], self_value=x
+                q, scheds[b % len(scheds)], self_value=x, ctx=ctx
             )
         return x, key
 
@@ -590,7 +691,7 @@ class LossyGossip(ConsensusPolicy):
         key, rounds = _lossy_draws(self, state.tobytes(), ctx.num_workers, x.device)
         for b, (coef, wsum) in enumerate(rounds):
             x = consensus_lib.lossy_gossip_apply(
-                x, scheds[b % len(scheds)], coef, wsum, wire_dtype=wd
+                x, scheds[b % len(scheds)], coef, wsum, wire_dtype=wd, ctx=ctx
             )
         return x, key
 
@@ -677,7 +778,7 @@ class StaleMixing(ConsensusPolicy):
             return ctx.pmean(msg) + exact_div(fresh - msg, ctx.num_workers)
         sched = self.topology.exchange_schedule(ctx.num_workers)
         return consensus_lib.schedule_gossip_step(
-            msg, sched, self_value=fresh, wire_dtype=wd
+            msg, sched, self_value=fresh, wire_dtype=wd, ctx=ctx
         )
 
     def init_state(self, x, ctx):
@@ -896,14 +997,19 @@ class FaultModel:
         return x + param * noise.to(x.dtype)
 
     def transmit_for(self, x: Tensor, *, iteration: int, round_idx: int,
-                     replay: Tensor | None = None) -> Tensor:
+                     replay: Tensor | None = None,
+                     ctx: ConsensusContext | None = None) -> Tensor:
         """What each worker of the stacked ``x`` puts on the wire: the
         corrupted payload on Byzantine slots, its own value elsewhere
         (selected with ``torch.where``, so non-finite attack values never
-        leak into honest transmissions)."""
+        leak into honest transmissions).  ``ctx`` says which workers ``x``
+        holds (default: all of them)."""
         if not self.byzantine:
             return x
-        byz = _member_tensor(self.byzantine, x.shape[0], x.device)
+        if ctx is None:
+            byz = _member_tensor(self.byzantine, x.shape[0], x.device)
+        else:
+            byz = ctx.local_rows(_member_tensor(self.byzantine, ctx.num_workers, x.device))
         bad = self.corrupted_payload(
             x, iteration=iteration, round_idx=round_idx, replay=replay
         )
@@ -1087,7 +1193,9 @@ class AsyncGossip(ConsensusPolicy):
         strag_idx = 1 if faults.stragglers else None
         replay_idx = (2 if faults.stragglers else 1) if faults.replay_depth else None
         if faults.stragglers:
-            strag = _member_tensor(faults.stragglers, ctx.num_workers, x.device)
+            strag = ctx.local_rows(
+                _member_tensor(faults.stragglers, ctx.num_workers, x.device)
+            )
             # Stragglers replay the value transmitted `straggle` calls
             # ago; everyone else sends fresh.
             transmit = x + strag.to(x.dtype).view(consensus_lib._worker_shape(x)) * (
@@ -1099,7 +1207,7 @@ class AsyncGossip(ConsensusPolicy):
             # Healthy + fresh + single graph: the serial Gossip path, so a
             # disabled fault model is bit-identical to Gossip(compress=False).
             out = consensus_lib.schedule_gossip_average(
-                x, scheds[0], self.rounds, wire_dtype=wd
+                x, scheds[0], self.rounds, wire_dtype=wd, ctx=ctx
             )
         else:
             phase = t % len(scheds)
@@ -1118,14 +1226,18 @@ class AsyncGossip(ConsensusPolicy):
                     tx = faults.transmit_for(
                         out if tx is None else tx,
                         iteration=iteration, round_idx=b, replay=replay_val,
+                        ctx=ctx,
                     )
                 if gates is None:
                     # A null fault model sends fresh values: tx is None.
-                    out = consensus_lib.schedule_gossip_step(out, sched, wire_dtype=wd)
+                    out = consensus_lib.schedule_gossip_step(
+                        out, sched, wire_dtype=wd, ctx=ctx
+                    )
                 else:
                     coef, lost = gates[b]
                     out = consensus_lib.faulty_gossip_apply(
                         out, sched, coef, lost, transmit=tx, wire_dtype=wd,
+                        ctx=ctx,
                     )
         new_state = [t + 1]
         for idx in (strag_idx, replay_idx):
@@ -1227,7 +1339,7 @@ class _RobustGossipMixin:
             # Healthy network: the serial Gossip path (robust estimation
             # engages only under a non-null fault model).
             out = consensus_lib.schedule_gossip_average(
-                x, scheds[0], self.rounds, wire_dtype=wd
+                x, scheds[0], self.rounds, wire_dtype=wd, ctx=ctx
             )
         else:
             phase = t % len(scheds)
@@ -1238,13 +1350,15 @@ class _RobustGossipMixin:
             for b in range(self.rounds):
                 sched = scheds[(phase + b) % len(scheds)]
                 if faults.is_null:
-                    out = consensus_lib.schedule_gossip_step(out, sched, wire_dtype=wd)
+                    out = consensus_lib.schedule_gossip_step(
+                        out, sched, wire_dtype=wd, ctx=ctx
+                    )
                     continue
                 tx = faults.transmit_for(
-                    out, iteration=t, round_idx=b, replay=replay_val
+                    out, iteration=t, round_idx=b, replay=replay_val, ctx=ctx
                 ) if faults.byzantine else None
                 out = self._aggregate(
-                    out, sched, None if alive is None else alive[b], tx, wd
+                    out, sched, None if alive is None else alive[b], tx, wd, ctx
                 )
         if faults.replay_depth:
             return out, (t + 1, _push(state[1], x))
@@ -1293,9 +1407,10 @@ class TrimmedMeanGossip(_RobustGossipMixin, ConsensusPolicy):
                 f"> {2 * self.f} payloads; {phase.describe()} gives {stack}"
             )
 
-    def _aggregate(self, out, sched, alive, tx, wd):
+    def _aggregate(self, out, sched, alive, tx, wd, ctx):
         return consensus_lib.trimmed_mean_schedule_gossip_step(
             out, sched, trim=self.f, alive=alive, transmit=tx, wire_dtype=wd,
+            ctx=ctx,
         )
 
 
@@ -1324,9 +1439,9 @@ class MedianGossip(_RobustGossipMixin, ConsensusPolicy):
                 f"{phase.describe()} compiles to weighted hops"
             )
 
-    def _aggregate(self, out, sched, alive, tx, wd):
+    def _aggregate(self, out, sched, alive, tx, wd, ctx):
         return consensus_lib.median_schedule_gossip_step(
-            out, sched, alive=alive, transmit=tx, wire_dtype=wd,
+            out, sched, alive=alive, transmit=tx, wire_dtype=wd, ctx=ctx,
         )
 
 
@@ -1352,9 +1467,10 @@ class ClippedGossip(_RobustGossipMixin, ConsensusPolicy):
             raise ValueError(f"clip radius tau must be > 0, got {self.tau}")
         self._robust_post_init()
 
-    def _aggregate(self, out, sched, alive, tx, wd):
+    def _aggregate(self, out, sched, alive, tx, wd, ctx):
         return consensus_lib.clipped_schedule_gossip_step(
             out, sched, tau=self.tau, alive=alive, transmit=tx, wire_dtype=wd,
+            ctx=ctx,
         )
 
 

@@ -203,22 +203,30 @@ PARTITIONS = ("iid", "noniid")
 
 
 def partition_by_spec(
-    x: Tensor, t: Tensor, num_workers: int, spec: str = "iid"
+    x: Tensor, t: Tensor, num_workers: int, spec: str = "iid",
+    *, rows: slice | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Partition specs: ``iid | noniid[:alpha]``, the single dispatcher
-    behind ``train_dssfn --partition`` and ``TrainSpec(partition=...)``."""
+    behind ``train_dssfn --partition`` and ``TrainSpec(partition=...)``.
+    ``rows`` keeps only those workers' shards (a mesh rank's block,
+    ``MeshBackend.rows``); the shards are the same as in the full
+    partition."""
     name, _, rest = spec.partition(":")
     if name == "iid":
         if rest:
             raise ValueError(f"bad partition spec {spec!r}: iid takes no args")
-        return partition_workers(x, t, num_workers)
-    if name == "noniid":
+        xw, tw = partition_workers(x, t, num_workers)
+    elif name == "noniid":
         try:
             alpha = float(rest) if rest else 1.0
-            return partition_workers_noniid(x, t, num_workers, alpha=alpha)
+            xw, tw = partition_workers_noniid(x, t, num_workers, alpha=alpha)
         except ValueError as e:
             raise ValueError(f"bad partition spec {spec!r}: {e}") from e
-    raise ValueError(
-        f"unknown partition {name!r}; expected one of {PARTITIONS} "
-        f"(spec {spec!r})"
-    )
+    else:
+        raise ValueError(
+            f"unknown partition {name!r}; expected one of {PARTITIONS} "
+            f"(spec {spec!r})"
+        )
+    if rows is None:
+        return xw, tw
+    return xw[rows].contiguous(), tw[rows].contiguous()

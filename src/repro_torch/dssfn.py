@@ -33,9 +33,17 @@ checkpoint of either package resumes in the other), and
 ``guard_divergence``/``max_rollbacks`` the divergence guard.
 
 Training runs on the device the data lies on.  Every field of the
-reference's spec is here; the mesh backend, whose machinery is not
-ported yet, raises ``NotImplementedError`` naming the ROADMAP item that
-brings it, rather than being ignored.
+reference's spec is here.  ``backend="mesh"`` (or a ``MeshBackend``)
+runs the workers in the ranks of a ``torch.distributed`` group, each on
+its block of them: ``mesh=`` takes a
+:func:`repro_torch.launch.mesh.make_worker_group` result, and without
+one the backend joins the ``torchrun`` group or builds a one-rank group
+in this process.  Each rank calls :func:`train` with the full stacks or
+its block (``partition_data`` cuts the block when ``mesh`` is given)::
+
+    group = make_worker_group(8)                      # under torchrun
+    spec = dssfn.TrainSpec(cfg=cfg, backend="mesh", mesh=group, workers=8)
+    result = dssfn.train(spec, *spec.partition_data(x, t), key=key)
 """
 from __future__ import annotations
 
@@ -46,19 +54,12 @@ import torch
 
 from repro_torch.core import layerwise as layerwise_lib
 from repro_torch.core import ssfn as ssfn_lib
-from repro_torch.core.backend import ConsensusBackend, SimulatedBackend
+from repro_torch.core.backend import ConsensusBackend, MeshBackend, SimulatedBackend
 from repro_torch.core.consensus import canonical_wire_dtype
 from repro_torch.core.policy import ConsensusPolicy, ExactMean, Gossip, parse_policy
 from repro_torch.core.topology import Masked, Membership, Topology, parse_topology
 
 _BACKEND_KINDS = ("simulated", "mesh")
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item}); "
-        "the port trains with backend='simulated'"
-    )
 
 
 def parse_spec(
@@ -150,6 +151,9 @@ class TrainSpec:
     #: ADMM convergence-trace stride: 1 = every iteration, 0 = none,
     #: N > 1 = every N-th iteration.
     trace_every: int = 1
+    #: The worker group of ``backend="mesh"``
+    #: (``repro_torch.launch.mesh.make_worker_group``); None joins the
+    #: ``torchrun`` group or builds a one-rank group in this process.
     mesh: object | None = None
     #: Self-size-estimation stop tolerance (paper §I); None = fixed depth.
     size_estimation_tol: float | None = None
@@ -182,13 +186,20 @@ class TrainSpec:
                     f"unknown backend kind {self.backend!r}; expected one of "
                     f"{_BACKEND_KINDS} or a ConsensusBackend instance"
                 )
-            if self.backend == "mesh":
-                raise _unported("backend='mesh' (MeshBackend)", "item 5")
-        elif not isinstance(self.backend, SimulatedBackend):
-            raise _unported(f"backend {type(self.backend).__name__}", "item 5")
+        elif not isinstance(self.backend, ConsensusBackend):
+            raise TypeError(
+                f"backend must be a kind string or a ConsensusBackend, got "
+                f"{type(self.backend).__name__}"
+            )
         if self.mesh is not None:
-            raise _unported("mesh=", "item 5")
-        # Policies the port does not have raise here, not at train time.
+            from repro_torch.launch.mesh import WorkerGroup
+
+            if not isinstance(self.mesh, WorkerGroup):
+                raise TypeError(
+                    "mesh= takes a WorkerGroup (launch.mesh.make_worker_group), "
+                    f"got {type(self.mesh).__name__}"
+                )
+        # Spec errors raise here, not at train time.
         self.resolve_policy()
 
     def resolve_membership(self) -> Membership | None:
@@ -242,25 +253,37 @@ class TrainSpec:
     def resolve_backend(self) -> ConsensusBackend:
         if isinstance(self.backend, ConsensusBackend):
             return self.backend
+        if self.backend == "mesh":
+            group = self.mesh
+            if group is None:
+                from repro_torch.launch.mesh import make_worker_group
+
+                group = make_worker_group(self.workers)
+            return MeshBackend(group, policy=self.resolve_policy())
         if self.workers is None:
             raise ValueError("simulated backend requires spec.workers")
         return SimulatedBackend(self.workers, policy=self.resolve_policy())
 
     def partition_data(self, x, t):
         """Shard column-stacked (P, J) data into this spec's (M, P, J/M)
-        worker layout under the spec's ``partition`` scheme."""
+        worker layout under the spec's ``partition`` scheme; with a mesh
+        group (``mesh=``, or a ``MeshBackend``), only this rank's block."""
         from repro_torch.data import partition_by_spec
 
         workers = self.workers
         if workers is None:
             if isinstance(self.backend, ConsensusBackend):
                 workers = self.backend.num_workers
+            elif self.mesh is not None:
+                workers = self.mesh.num_workers
             else:
                 raise ValueError(
                     "partition_data needs spec.workers (or a backend "
                     "instance that knows its worker count)"
                 )
-        return partition_by_spec(x, t, workers, self.partition)
+        group = self.backend.group if isinstance(self.backend, MeshBackend) else self.mesh
+        rows = group.rows if group is not None else None
+        return partition_by_spec(x, t, workers, self.partition, rows=rows)
 
 
 class TrainResult(NamedTuple):
@@ -282,8 +305,9 @@ def train(
 ) -> TrainResult:
     """Run layer-wise consensus-ADMM training as described by ``spec``.
 
-    x_workers: (M, P, J_m) column-stacked inputs per worker.
-    t_workers: (M, Q, J_m) one-hot targets per worker.
+    x_workers: (M, P, J_m) column-stacked inputs per worker; on a mesh
+        rank all M or the rank's block.
+    t_workers: (M, Q, J_m) one-hot targets per worker (likewise).
     generator / key / r: the shared random matrices {R_l}, drawn from the
         generator or the threefry key, or given; the run's key is what a
         checkpoint stores (see ``layerwise.train_decentralized_ssfn``).

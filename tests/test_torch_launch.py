@@ -175,12 +175,22 @@ def test_train_cli_defaults_to_cuda(monkeypatch):
 @pytest.mark.parametrize("flag", [["--backend", "mesh"], ["--backend", "both"],
                                   ["--consensus", "quantized:4"]])
 def test_train_cli_refuses_unported_modes(flag):
-    """The mesh backends raise naming their ROADMAP item; the quantized
-    policy, once such a refusal, now trains on the CPU with repro's
-    eq.-15 bytes (4 bits a scalar)."""
+    """The modes the launcher once refused now train on the CPU: the mesh
+    backends in two gloo ranks (``--backend both`` beside the simulated
+    run, within 1e-4 of it: the ranks sum their workers first, then each
+    other's), and the quantized policy with repro's eq.-15 bytes (4 bits
+    a scalar)."""
     if flag[0] == "--backend":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            train_dssfn.main(TRAIN_ARGS + flag)
+        res = train_dssfn.main(TRAIN_ARGS + flag + ["--ranks", "2"])
+        run = res["runs"][-1]
+        assert run["kind"] == "mesh" and run["ranks"] == 2
+        assert run["dist_backend"] == "gloo" and run["device"] == "cpu"
+        assert run["comm_scalars"] == 6 * (16 + 40 + 40) * 20
+        assert 0.0 <= run["test_accuracy"] <= 1.0
+        if flag[1] == "both":
+            assert [r["kind"] for r in res["runs"]] == ["simulated", "mesh"]
+            assert res["parity"]["max_readout_rel_gap"] < 1e-4
+            assert res["parity"]["rel_objective_gap"] < 1e-4
         return
     from repro.launch import train_dssfn as jlaunch
 

@@ -6,8 +6,9 @@ Two groups:
   ``device="cpu"``: clocks, terminal states, bounded admission, poison,
   deadlines, retry and backoff, bisection quarantine, the circuit
   breaker, reload under fire, drain, the timer
-  thread raced by submitters (bounded joins) and the seeded chaos drill.
-  The drill's ``mesh`` leg waits for ROADMAP Queue 1 item 5.
+  thread raced by submitters (bounded joins) and the seeded chaos drill,
+  whose ``mesh`` leg serves a stack trained under a one-rank
+  ``MeshBackend``.
 - Parity with ``repro``: the same requests on the same ``ManualClock``
   schedule through both packages' runtimes give the same stats, event
   kinds, per-handle statuses and reasons and injected fault counts, and
@@ -764,14 +765,43 @@ def test_chaos_drill_end_to_end(trained_artifact):
     assert torch.equal(engine.forward(xfull), tssfn.predict(art.params, xfull, 3))
 
 
-def test_chaos_drill_mesh_leg_waits_for_item_5():
-    """``repro``'s drill also serves a stack trained under the mesh
-    backend; the port's ``MeshBackend`` is ROADMAP Queue 1 item 5."""
-    cfg = tssfn.SSFNConfig(
-        input_dim=8, num_classes=3, num_layers=2, hidden=20, admm_iters=30
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        tdssfn.TrainSpec(cfg=cfg, backend="mesh")
+def test_chaos_drill_mesh_leg_waits_for_item_5(tmp_path):
+    """The drill's mesh leg (``tests/test_serve_runtime.py:571-600``): a
+    stack trained under a one-rank ``MeshBackend`` (one worker of 64
+    samples, as ``repro``'s ``MeshBackend(make_worker_mesh(1))``), within
+    1e-4 of ``repro``'s mesh-trained stack, exported and drilled: the
+    seeded drill's counts, every handle terminal, every completed result
+    bit-equal to its own forward."""
+    from repro.core.backend import MeshBackend as JMeshBackend
+    from repro.launch.mesh import make_worker_mesh
+    from repro_torch import prng
+    from repro_torch.core.backend import MeshBackend
+    from repro_torch.launch.mesh import make_worker_group
+
+    kw = dict(input_dim=8, num_classes=3, num_layers=2, hidden=20, admm_iters=30)
+    rng = np.random.default_rng(0)
+    xw = rng.standard_normal((1, 8, 64)).astype(np.float32)
+    tw = np.eye(3, dtype=np.float32)[rng.integers(0, 3, (1, 64))].transpose(0, 2, 1).copy()
+    spec = tdssfn.TrainSpec(cfg=tssfn.SSFNConfig(**kw),
+                            backend=MeshBackend(make_worker_group(1, device="cpu")))
+    result = tdssfn.train(spec, torch.from_numpy(xw), torch.from_numpy(tw),
+                          key=prng.PRNGKey(1))
+    jspec = jdssfn.TrainSpec(cfg=jssfn.SSFNConfig(**kw), backend=JMeshBackend(make_worker_mesh(1)))
+    jresult = jdssfn.train(jspec, xw, tw, jax.random.PRNGKey(1))
+    for a, b in zip(result.params.o, jresult.params.o):
+        b = np.asarray(b, np.float64)
+        assert np.linalg.norm(a.numpy() - b) <= 1e-4 * np.linalg.norm(b)
+    path = str(tmp_path / "mesh_stack")
+    export_artifact(path, result)
+    engine = ServeEngine(path, buckets=(32,), device="cpu")
+    rt, chaos, entries = _chaos_drill(tserve, engine)
+    assert all(h.done() for _, h in entries)
+    assert {k: rt.stats[k] for k in DRILL_STATS} == DRILL_STATS
+    assert chaos.injected_failures > 0
+    done = [(x, h) for x, h in entries if h.ok()]
+    assert len(done) == DRILL_STATS["completed"]
+    for x, h in done:
+        assert torch.equal(h.result(), engine.forward(x))
 
 
 def test_chaos_injector_deterministic():
