@@ -165,6 +165,22 @@ Phases, each of which raises (non-zero exit) on any failed check:
    (e) Per rank: train time, train ms per ADMM iteration, host ms in the
    transport and of it the wait for the card, beside phase 5's.  A
    ``{"mesh": ...}`` line carries the numbers.
+5g. The port's static checker, spmdlint (``repro_torch.analysis``).  (a)
+   ``python -m repro_torch.launch.lint_dssfn --all-grammar --device cuda
+   --format json`` as a subprocess: exit 0 and ``"count": 0`` over all six
+   checks, its wire probe on 8 gloo ranks sharing the card, host-staged
+   (their kernel launches are the subprocesses' and are not counted
+   here).  (b) Layer 1's fused step at Table-I width (phase 5's inputs:
+   M=20, n=1020, Q=10, J_m=3000, K=100, f32) on a ``SimulatedBackend``,
+   recorded under ExactMean and ``gossip:3:wire=bf16``: zero findings,
+   one ``propagate_gram`` record accumulating in f32, every factorization
+   under ``guarded_cholesky``.  (c) ``check_serve_contract`` on phase 4's
+   stack at buckets 1 and 32, f32: zero findings, 20 ``matmul_relu``
+   records a bucket, ``cache_info()`` unchanged; the same stack in bf16
+   reports ``numerics-accum``.  (d) Phase 2's ``matmul_relu`` bucket-1
+   and bucket-128 times (the recorder hook now in every wrapper) beside
+   ``PERF.md``'s earlier ones, and a ``{"lint": ...}`` line with each
+   check's wall time, findings and the record's call counts.
 6. Kernel vs plain: ``flash_attention`` at the full-width H2O-Danube3-4B
    shapes — (1, 32, 8192, 120) and (1, 32, 4096, 120) with the 4096
    window, in bf16 and f32, and (1, 32, 8192, 120) over KV at 8 heads, as
@@ -2571,6 +2587,151 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
     return launches
 
 
+# Phase 5g: the port's spmdlint (repro_torch.analysis, launch/lint_dssfn.py).
+# (a) runs the CLI over the whole grammar as a user would, its wire probe
+# on 8 gloo ranks sharing the card; (b) records layer 1's fused step at
+# Table-I width (phase 5's inputs) under two policies; (c) holds phase 4's
+# serving stack to the serve contract in f32, and its bf16 twin to the
+# numerics rule's mutation.  PERF.md §6 row 1's bucket times before the
+# kernels' recorder hook (measured on one H100), beside phase 2's now.
+LINT_SPECS = ("exact", "gossip:3:wire=bf16")
+LINT_BUCKETS = (1, 32)
+ROW1_US = {1: 5.01, 128: 12.85}
+
+
+def lint_slice(torch, np, card: str, exact: dict, cases: list) -> dict:
+    """Phase 5g: (a) ``lint_dssfn --all-grammar --device cuda`` as a
+    subprocess, zero findings; (b) numerics of layer 1's fused step at
+    full width under ExactMean and a bf16-wire gossip, one
+    ``propagate_gram`` record each accumulating in f32 and every
+    factorization guarded, zero findings; (c) ``check_serve_contract`` on
+    phase 4's stack, f32 zero findings with 20 ``matmul_relu`` records a
+    bucket and ``cache_info()`` unchanged, bf16 ``numerics-accum``; (d) a
+    ``{"lint": ...}`` line.  Returns the in-process launches."""
+    from repro_torch import analysis, dssfn
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import engine
+    from repro_torch.core.backend import SimulatedBackend
+    from repro_torch.kernels import gram, matmul_relu, propagate_gram
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.export import ARTIFACT_VERSION, ServeArtifact
+
+    out: dict = {"card": card}
+    for mod in (gram, propagate_gram, matmul_relu):
+        mod.reset_launch_count()
+
+    # (a) The CLI, every check over every grammar entry, on the card.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lint_dssfn", "--all-grammar",
+         "--device", "cuda", "--format", "json"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+        capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"5g(a) lint_dssfn exit {proc.returncode}:\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    if report["count"] != 0:
+        raise AssertionError(f"5g(a) lint_dssfn findings: {report['findings']}")
+    out["a"] = {"wall_s": wall, "count": report["count"],
+                "specs": len(analysis.ALL_GRAMMAR),
+                "wire_specs": len(analysis.grammar_specs(wire_only=True))}
+    print(f"5g(a) lint_dssfn --all-grammar --device cuda: exit 0, {report['count']} findings "
+          f"over {len(analysis.ALL_GRAMMAR)} specs (wire probe on 8 gloo ranks sharing the "
+          f"card) in {wall:.2f} s on {card}", flush=True)
+
+    # (b) Layer 1's fused step at Table-I width, recorded.
+    cfg, xw, tw, w1 = exact["cfg"], exact["xw"], exact["tw"], exact["w1"]
+    out["b"] = {}
+    for spec in LINT_SPECS:
+        policy = dssfn.parse_spec(spec)
+        t0 = time.perf_counter()
+        with analysis.recording() as record:
+            step = engine.fused_layer_step(
+                SimulatedBackend(xw.shape[0], policy=policy), xw.contiguous(), tw, w1,
+                mu=cfg.mul, eps_radius=cfg.eps_radius, num_iters=cfg.admm_iters)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        found = analysis.lint_record(record, subject=spec)
+        kernels = record.kernels()
+        guarded = [c.guarded for c in record.calls
+                   if c.name in analysis.numerics.FACTORIZATIONS]
+        if found:
+            raise AssertionError(f"5g(b) {spec}: findings {found}")
+        if [(k.name, k.accum_dtype) for k in kernels] != [("kernel:propagate_gram", "f32")]:
+            raise AssertionError(f"5g(b) {spec}: kernel records {kernels}")
+        if not guarded or not all(guarded):
+            raise AssertionError(f"5g(b) {spec}: factorizations guarded {guarded}")
+        if not bool(torch.isfinite(step.o_star).all()):
+            raise AssertionError(f"5g(b) {spec}: non-finite o_star")
+        counts = record.counts()
+        out["b"][spec] = {"wall_s": wall, "calls": len(record.calls), "counts": counts,
+                          "kernel": kernels[0].render(), "factorizations": len(guarded)}
+        print(f"5g(b) layer 1 (M={xw.shape[0]}, n={w1.shape[0]}, J_m={xw.shape[2]}, "
+              f"K={cfg.admm_iters}) under {spec}: 0 findings, {len(record.calls)} calls "
+              f"recorded, {kernels[0].render()}, {len(guarded)} factorization(s) all under "
+              f"guarded_cholesky, recorded step {wall:.3f} s on {card}", flush=True)
+        del step, record
+
+    # (c) Phase 4's stack against the serve contract.
+    o_list, r_list = random_stack(np)
+
+    def stack_engine(dtype):
+        artifact = ServeArtifact(
+            params=params_from_numpy(o_list, r_list, device="cpu"),
+            num_classes=SLICE["Q"], input_dim=SLICE["P"], activation="relu", features=None,
+            version=ARTIFACT_VERSION, manifest={"source": "chip_smoke phase 5g"})
+        return ServeEngine(artifact, buckets=LINT_BUCKETS, dtype=dtype)
+
+    eng = stack_engine(torch.float32)
+    eng.forward(torch.zeros(SLICE["P"], 2))
+    before = eng.cache_info()
+    records = {}
+    for bucket in LINT_BUCKETS:
+        kernels = eng.lowering_texts(bucket=bucket)["program"].kernels()
+        records[bucket] = len(kernels)
+        if [k.name for k in kernels] != ["kernel:matmul_relu"] * SLICE["L"] or any(
+                k.accum_dtype != "f32" for k in kernels):
+            raise AssertionError(f"5g(c) bucket {bucket}: kernel records {kernels}")
+    t0 = time.perf_counter()
+    found = analysis.check_serve_contract(eng, subject="serve:table-i")
+    wall_f32 = time.perf_counter() - t0
+    if found or eng.cache_info() != before:
+        raise AssertionError(f"5g(c) f32: findings {found}, cache_info {before} -> "
+                             f"{eng.cache_info()}")
+    t0 = time.perf_counter()
+    found16 = analysis.check_serve_contract(stack_engine(torch.bfloat16),
+                                            subject="serve:table-i-bf16", buckets=(1,))
+    wall_bf16 = time.perf_counter() - t0
+    if sorted({f.check for f in found16}) != ["numerics-accum"]:
+        raise AssertionError(f"5g(c) bf16: expected numerics-accum, got {found16}")
+    out["c"] = {"f32_findings": 0, "kernel_records": records, "cache_info": before,
+                "wall_f32_s": wall_f32, "bf16_checks": sorted({f.check for f in found16}),
+                "bf16_ops": sorted({f.details["op"] for f in found16}), "wall_bf16_s": wall_bf16}
+    print(f"5g(c) serve contract, Table-I stack, buckets {list(LINT_BUCKETS)}: f32 0 findings, "
+          f"{records} matmul_relu records by bucket (accumulating f32), cache_info unchanged, "
+          f"{wall_f32:.3f} s; bf16: {out['c']['bf16_checks']} on {out['c']['bf16_ops']}, "
+          f"{wall_bf16:.3f} s on {card}", flush=True)
+
+    # (d) Phase 2's bucket times, now with the recorder hook in every
+    # wrapper, beside PERF.md §6 row 1's.
+    by_key = {c["key"]: c for c in cases}
+    out["matmul_relu_us"] = {
+        b: {"now": by_key[((1020, 1020), b, "float32")]["ms"] * 1e3, "row1": ROW1_US[b]}
+        for b in ROW1_US}
+    launches = {"gram": gram.launch_count(), "propagate_gram": propagate_gram.launch_count(),
+                "matmul_relu": matmul_relu.launch_count()}
+    out["launches"] = launches
+    for b, v in out["matmul_relu_us"].items():
+        print(f"5g(d) matmul_relu w(1020,1020) bucket {b} f32 with the recorder hook: "
+              f"{v['now']:.2f} us (PERF.md row 1 before it: {v['row1']:.2f} us) on {card}",
+              flush=True)
+    print(json.dumps({"lint": out}, default=str), flush=True)
+    return launches
+
+
 # flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
 # 120 over 8 KV heads, window 4096; also with KV at 32 heads, the earlier
 # slices' headline) and Zamba2-2.7B's shared attention (32 heads of 80):
@@ -3759,11 +3920,13 @@ def main() -> int:
     fault_launches = fault_slice(torch, card, exact)
     elastic_launches = elastic_slice(torch, np, card, exact)
     mesh_launches = mesh_slice(torch, np, card, exact)
+    lint_launches = lint_slice(torch, np, card, exact, cases)
     del exact
     for k in train_launches:
         train_launches[k] += (gossip_launches[k] + policy_launches[k] + fault_launches[k]
-                              + elastic_launches[k] + mesh_launches[k])
-    launches += elastic_launches["matmul_relu"] + mesh_launches["matmul_relu"]
+                              + elastic_launches[k] + mesh_launches[k] + lint_launches[k])
+    launches += (elastic_launches["matmul_relu"] + mesh_launches["matmul_relu"]
+                 + lint_launches["matmul_relu"])
     flash_cases = flash_kernel_cases(torch)
     flash_launches = inference_slice(torch, np, card)
     torch.cuda.empty_cache()

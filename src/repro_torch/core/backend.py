@@ -20,7 +20,11 @@ part jit's own dispatch keys on), and reports it through
 :meth:`cache_info` in the reference's schema: ``lowerings`` counts
 distinct programs, ``cache_hits`` the calls of a program already seen.
 An L-layer train thus reports one "lowering" per distinct layer shape,
-as the reference's compile-count test asserts.
+as the reference's compile-count test asserts.  :meth:`lowering_texts`
+and :meth:`lowering_stats` run a program once under
+:func:`repro_torch.analysis.numerics.recording` and join the same
+record, where the reference lowers without running: they return the
+calls it made and the collectives the transport carried for it.
 """
 from __future__ import annotations
 
@@ -39,6 +43,26 @@ from repro_torch.core.policy import (
 )
 
 Tensor = torch.Tensor
+
+
+def _reject_legacy_kwargs(name: str, kwargs: dict) -> None:
+    """The ``mode=`` string aliases are gone, as in the reference: fail
+    with a migration hint (a clean ``TypeError``, the unknown-keyword
+    contract) instead of silently accepting configuration that no longer
+    does anything."""
+    legacy = sorted(k for k in kwargs if k in ("mode", "degree", "num_rounds"))
+    if legacy:
+        raise TypeError(
+            f"{name}() no longer accepts {', '.join(legacy)}: the string-"
+            "mode aliases were removed. Pass policy=ExactMean() for "
+            "mode='exact', policy=RingGossip(rounds=num_rounds, "
+            "degree=degree) for mode='gossip', or a spec string such as "
+            "'gossip:4:2' (repro_torch.core.policy.parse_policy)."
+        )
+    if kwargs:
+        raise TypeError(
+            f"{name}() got unexpected keyword argument(s) {sorted(kwargs)}"
+        )
 
 
 class ConsensusBackend(abc.ABC):
@@ -67,6 +91,20 @@ class ConsensusBackend(abc.ABC):
         self.lowerings = 0
         self.cache_hits = 0
 
+    # Legacy attribute views over the policy (the reference's pre-policy
+    # API surface).
+    @property
+    def mode(self) -> str:
+        return self.policy.mode_name
+
+    @property
+    def degree(self) -> int:
+        return getattr(self.policy, "degree", 1)
+
+    @property
+    def num_rounds(self) -> int:
+        return getattr(self.policy, "rounds", 1)
+
     def ctx(self) -> ConsensusContext:
         """The collectives handle policies mix through."""
         return ConsensusContext(self.num_workers)
@@ -87,11 +125,26 @@ class ConsensusBackend(abc.ABC):
         policy: the consensus policy this program runs under, when it is
             not the backend default; part of the program's identity.
         """
+        return self._call(fn, stacked_args, replicated, key, policy, collective=True)
+
+    def map_workers(
+        self,
+        fn: Callable[..., Any],
+        *stacked_args: Tensor,
+        replicated: tuple = (),
+        key: Hashable | None = None,
+    ) -> Any:
+        """Like :meth:`run` for a purely local ``fn``, one that makes no
+        collective; on a mesh a collective in it raises."""
+        return self._call(fn, stacked_args, replicated, key, None, collective=False)
+
+    def _call(self, fn, stacked_args, replicated, key, policy, *, collective: bool):
         self._check_stacked(stacked_args)
         signature = (
             key if key is not None else fn,
             len(stacked_args),
             len(replicated),
+            collective,
             policy,
             tuple((tuple(a.shape), a.dtype) for a in (*stacked_args, *replicated)),
         )
@@ -101,7 +154,79 @@ class ConsensusBackend(abc.ABC):
         else:
             self._programs[signature] = 1
             self.lowerings += 1
-        return fn(*stacked_args, *replicated)
+        if collective:
+            return fn(*stacked_args, *replicated)
+        before = self._transport_stats()
+        out = fn(*stacked_args, *replicated)
+        if before is not None and self._transport_delta(before)["collective_counts"]:
+            raise RuntimeError(
+                "a map_workers program made a collective; run it with run()"
+            )
+        return out
+
+    def lowering_texts(
+        self,
+        fn: Callable[..., Any],
+        *stacked_args: Tensor,
+        replicated: tuple = (),
+        key: Hashable | None = None,
+        policy: ConsensusPolicy | None = None,
+    ) -> dict:
+        """Run the worker program once, as :meth:`run` does (it joins the
+        program record the same way), under
+        :func:`repro_torch.analysis.numerics.recording`, and report what
+        it did: ``{"record": ..., "program": ..., "collective_counts":
+        ..., "collective_bytes": ..., "collective_dtypes": ...}``.
+
+        ``record`` is the rendered record, one line per call;
+        ``program`` the :class:`~repro_torch.analysis.numerics.ProgramRecord`
+        the numerics lint reads.  The collectives are what this process's
+        transport carried for the program: by kind, bytes by kind, and
+        ``{kind: {payload dtype: count}}``; none on a
+        :class:`SimulatedBackend`, whose reductions are local, as
+        ``vmap``'s collectives trace away in the reference.  The
+        reference lowers without running and returns program texts; the
+        port has none to return.
+        """
+        from repro_torch.analysis.numerics import recording
+
+        before = self._transport_stats()
+        with recording() as record:
+            self.run(fn, *stacked_args, replicated=replicated, key=key, policy=policy)
+        out = {"record": record.render(), "program": record}
+        if before is None:
+            out.update(collective_counts={}, collective_bytes={}, collective_dtypes={})
+        else:
+            out.update(self._transport_delta(before))
+        return out
+
+    def lowering_stats(
+        self,
+        fn: Callable[..., Any],
+        *stacked_args: Tensor,
+        replicated: tuple = (),
+        key: Hashable | None = None,
+        policy: ConsensusPolicy | None = None,
+    ) -> dict:
+        """:meth:`lowering_texts`'s numbers: ``collective_counts``,
+        ``collective_bytes``, their total ``collective_wire_bytes``,
+        ``collective_dtypes`` and ``call_counts``, the recorded calls by
+        name."""
+        texts = self.lowering_texts(
+            fn, *stacked_args, replicated=replicated, key=key, policy=policy,
+        )
+        return {
+            "collective_counts": texts["collective_counts"],
+            "collective_bytes": texts["collective_bytes"],
+            "collective_wire_bytes": sum(texts["collective_bytes"].values()),
+            "collective_dtypes": texts["collective_dtypes"],
+            "call_counts": texts["program"].counts(),
+        }
+
+    def _transport_stats(self):
+        """A copy of what this process's transport has counted, or None
+        where there is none."""
+        return None
 
     @property
     def local_workers(self) -> int:
@@ -163,6 +288,21 @@ class ConsensusBackend(abc.ABC):
     def pmax(self, x: Tensor) -> Tensor:
         return self.ctx().pmax(x)
 
+    def worker_index(self, device: torch.device | str | None = None) -> Tensor:
+        """The global indices of the workers this process holds, as a
+        tensor on ``device`` (the CPU by default)."""
+        return self.ctx().worker_index(device)
+
+    # ------------------------------------------------------------------
+    # Communication accounting (paper eq. 15)
+    # ------------------------------------------------------------------
+    def exchanges_per_consensus(self) -> int:
+        """Peer messages each worker sends per :meth:`consensus_mean`:
+        one for the exact all-reduce (B=1 in the eq.-15 accounting), the
+        topology's edges for each of B gossip rounds; the policy's
+        M-aware ``exchanges_for``."""
+        return self.policy.exchanges_for(self.num_workers)
+
     def describe(self) -> str:
         return (
             f"{type(self).__name__}(M={self.num_workers}, "
@@ -174,7 +314,10 @@ class SimulatedBackend(ConsensusBackend):
     """All M workers on one device, as the leading dimension of each
     tensor; a worker program runs once over the stack."""
 
-    def __init__(self, num_workers: int, *, policy: ConsensusPolicy | None = None):
+    def __init__(
+        self, num_workers: int, *, policy: ConsensusPolicy | None = None, **removed
+    ):
+        _reject_legacy_kwargs("SimulatedBackend", removed)
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self.num_workers = int(num_workers)
@@ -198,9 +341,10 @@ class MeshBackend(ConsensusBackend):
     ``torchrun`` group, or one rank holding one worker.
     """
 
-    def __init__(self, group=None, *, policy: ConsensusPolicy | None = None):
+    def __init__(self, group=None, *, policy: ConsensusPolicy | None = None, **removed):
         from repro_torch.launch.mesh import WorkerGroup, make_worker_group
 
+        _reject_legacy_kwargs("MeshBackend", removed)
         if group is None:
             group = make_worker_group()
         if not isinstance(group, WorkerGroup):
@@ -259,6 +403,20 @@ class MeshBackend(ConsensusBackend):
 
     def reset_collective_counts(self) -> None:
         self.group.transport.reset()
+
+    def _transport_stats(self):
+        stats = self.group.transport.stats
+        return dict(stats.counts), dict(stats.bytes), dict(stats.dtypes)
+
+    def _transport_delta(self, before) -> dict:
+        from repro_torch.launch.mesh import moved
+
+        counts, nbytes, dtypes = (moved(n, b) for n, b in zip(self._transport_stats(), before))
+        by_dtype: dict = {}
+        for (kind, dtype), n in dtypes.items():
+            by_dtype.setdefault(kind, {})[dtype] = n
+        return {"collective_counts": counts, "collective_bytes": nbytes,
+                "collective_dtypes": by_dtype}
 
     def describe(self) -> str:
         return (

@@ -194,7 +194,7 @@ class MeshContext(ConsensusContext):
             got = self.transport.exchange(msgs, recv_rows, like=x)
             pool = torch.cat([x] + [got[p] for p in sorted(got)], dim=0)
         nbytes = sum(m.numel() * m.element_size() for m in msgs.values())
-        self.transport.count("collective-permute", len(perms), nbytes)
+        self.transport.count("collective-permute", len(perms), nbytes, x.dtype)
         return pool.index_select(0, index).view((len(perms),) + tuple(x.shape))
 
     def local_rows(self, t, dim: int = 0):

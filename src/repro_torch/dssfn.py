@@ -54,7 +54,12 @@ import torch
 
 from repro_torch.core import layerwise as layerwise_lib
 from repro_torch.core import ssfn as ssfn_lib
-from repro_torch.core.backend import ConsensusBackend, MeshBackend, SimulatedBackend
+from repro_torch.core.backend import (  # noqa: F401  (make_backend re-exported,
+    ConsensusBackend,                     # as the reference's facade does)
+    MeshBackend,
+    SimulatedBackend,
+    make_backend,
+)
 from repro_torch.core.consensus import canonical_wire_dtype
 from repro_torch.core.policy import ConsensusPolicy, ExactMean, Gossip, parse_policy
 from repro_torch.core.topology import Masked, Membership, Topology, parse_topology

@@ -18,9 +18,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: The dtype every instance of the kernel accumulates in, whatever it
+#: reads and writes (reported to a recording, :mod:`repro_torch.kernels._record`).
+ACCUM_DTYPE = torch.float32
 MAX_HEAD_DIM = 128
 _INT_MAX = 2**31 - 1
 _MAX_SLICES = 65535  # B * H, the grid's y dimension
@@ -118,4 +121,6 @@ def flash_attention_cuda(
             f"(B={b} H={h} H_kv={k.shape[1]} S={s} hd={hd} window={window}, {q.dtype})"
         )
     _launches += 1
+    if _record.hook is not None:
+        _record.hook("flash_attention", ACCUM_DTYPE, out)
     return out

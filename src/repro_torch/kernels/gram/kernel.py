@@ -14,9 +14,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: The dtype every instance of the kernel accumulates in, whatever it
+#: reads and writes (reported to a recording, :mod:`repro_torch.kernels._record`).
+ACCUM_DTYPE = torch.float32
 _INT_MAX = 2**31 - 1
 _MAX_WORKERS = 65535  # the grid's z dimension
 _MAX_J = 65535 * 4096  # J slices of 4096 on the grid's y dimension
@@ -97,4 +100,6 @@ def gram_cuda(y: torch.Tensor, *, mu: float) -> torch.Tensor:
             f"(M={m} n={n} J={j}, {y.dtype})"
         )
     _launches += 1
+    if _record.hook is not None:
+        _record.hook("gram", ACCUM_DTYPE, g)
     return g

@@ -12,9 +12,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: The dtype every instance of the kernel accumulates in, whatever it
+#: reads and writes (reported to a recording, :mod:`repro_torch.kernels._record`).
+ACCUM_DTYPE = torch.float32
 _INT_MAX = 2**31 - 1
 
 #: Launches of the kernel in this process; raised by one at each launch
@@ -88,4 +91,6 @@ def matmul_relu_cuda(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             f"(m={m} n={n} k={k}, {w.dtype})"
         )
     _launches += 1
+    if _record.hook is not None:
+        _record.hook("matmul_relu", ACCUM_DTYPE, out)
     return out

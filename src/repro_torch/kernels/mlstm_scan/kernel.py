@@ -19,10 +19,13 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 from repro_torch.nn.xlstm import mlstm_scale
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: The dtype every instance of the kernel accumulates in, whatever it
+#: reads and writes (reported to a recording, :mod:`repro_torch.kernels._record`).
+ACCUM_DTYPE = torch.float32
 MAX_CHUNK = 256
 CHUNK_MULTIPLE = 16
 MAX_DIM = 256
@@ -161,4 +164,6 @@ def mlstm_scan_cuda(
             f"(B={b} S={s} H={h} dk={dk} dv={dv} chunk={chunk}, {q.dtype})"
         )
     _launches += 1
+    if _record.hook is not None:
+        _record.hook("mlstm_scan", ACCUM_DTYPE, (y, c_out, n_out, m_out))
     return y, (c_out, n_out, m_out)

@@ -15,10 +15,13 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 from repro_torch.kernels.gram.kernel import _MAX_J, _ptr, _workspace
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: The dtype every instance of the kernel accumulates in, whatever it
+#: reads and writes (reported to a recording, :mod:`repro_torch.kernels._record`).
+ACCUM_DTYPE = torch.float32
 _INT_MAX = 2**31 - 1
 _MAX_WORKERS = 65535      # the grids' z and y dimensions
 _MAX_ROWS = 65535 * 64    # n row tiles of 64 on the grid's y dimension
@@ -112,6 +115,8 @@ def propagate_gram_cuda(
             f"(M={m} n={n} n_prev={n_prev} J={j}, {w.dtype})"
         )
     _launches += 1
+    if _record.hook is not None:
+        _record.hook("propagate_gram", ACCUM_DTYPE, (y_out, g))
     # y32 and ws may be freed on return: the caching allocator hands their
     # memory out again only to work queued after the Gram pass on this stream.
     return y_out, g

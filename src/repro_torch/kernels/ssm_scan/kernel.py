@@ -20,9 +20,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: The dtype every instance of the kernel accumulates in, whatever it
+#: reads and writes (reported to a recording, :mod:`repro_torch.kernels._record`).
+ACCUM_DTYPE = torch.float32
 MAX_CHUNK = 256
 CHUNK_MULTIPLE = 16
 MAX_STATE = 64
@@ -141,4 +144,6 @@ def ssm_scan_cuda(
             f"(B={b} S={s} H={h} dh={dh} ds={ds} chunk={chunk}, {x.dtype})"
         )
     _launches += 1
+    if _record.hook is not None:
+        _record.hook("ssm_scan", ACCUM_DTYPE, (y, h_final))
     return y, h_final

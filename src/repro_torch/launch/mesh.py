@@ -29,7 +29,9 @@ Gloo's pairs run on the host, so under ``gloo`` a card tensor is staged
 explicitly through a pinned host buffer and back (``describe()`` says
 ``gloo host-staged``); NCCL and CPU tensors go as they are.  It counts
 what it carries by kind (``all-reduce``, ``collective-permute``,
-``all-gather``, ``barrier``) and by bytes, and the host time spent in it.
+``all-gather``, ``barrier``), by kind and payload dtype, and by bytes, and
+the host time spent in it.  :data:`PROCESS_TALLY` adds up the collectives
+of every transport of this process, so a check can tell whether any ran.
 """
 from __future__ import annotations
 
@@ -83,9 +85,22 @@ class TransportStats:
 
     counts: dict = field(default_factory=dict)
     bytes: dict = field(default_factory=dict)
+    #: Collectives by ``(kind, payload dtype)``, the dtype as torch names
+    #: it (``"bfloat16"``): what the wire carried, not what was summed.
+    dtypes: dict = field(default_factory=dict)
     messages: int = 0
     host_s: float = 0.0
     sync_s: float = 0.0
+
+
+#: Collectives by kind over every :class:`Transport` of this process, never
+#: reset: a probe that must run none reads it before and after.
+PROCESS_TALLY: dict = {}
+
+
+def moved(now: dict, before: dict) -> dict:
+    """The entries of a tally that grew since ``before``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
 
 
 class Transport:
@@ -114,9 +129,13 @@ class Transport:
     def reset(self) -> None:
         self.stats = TransportStats()
 
-    def count(self, kind: str, n: int = 1, nbytes: int = 0) -> None:
+    def count(self, kind: str, n: int = 1, nbytes: int = 0, dtype=None) -> None:
         self.stats.counts[kind] = self.stats.counts.get(kind, 0) + n
         self.stats.bytes[kind] = self.stats.bytes.get(kind, 0) + nbytes
+        if dtype is not None:
+            key = (kind, str(dtype).removeprefix("torch."))
+            self.stats.dtypes[key] = self.stats.dtypes.get(key, 0) + n
+        PROCESS_TALLY[kind] = PROCESS_TALLY.get(kind, 0) + n
 
     # -------------------------------------------------------------- staging
     def _host(self, role, peer, like: torch.Tensor) -> torch.Tensor:
@@ -157,7 +176,7 @@ class Transport:
         opts.reduceOp = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         self.pg.allreduce([buf], opts).wait()
         out = self._back(buf)
-        self.count(kind, 1, x.numel() * x.element_size())
+        self.count(kind, 1, x.numel() * x.element_size(), x.dtype)
         self.stats.host_s += time.perf_counter() - t0
         return out
 
@@ -169,7 +188,7 @@ class Transport:
         outs = [torch.empty_like(src) for _ in range(self.size)]
         self.pg.allgather([outs], [src]).wait()
         out = self._back(torch.cat(outs, dim=0))
-        self.count("all-gather", 1, x.numel() * x.element_size())
+        self.count("all-gather", 1, x.numel() * x.element_size(), x.dtype)
         self.stats.host_s += time.perf_counter() - t0
         return out
 
@@ -181,7 +200,7 @@ class Transport:
         self.pg.allreduce([t]).wait()
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
-        self.count("barrier", 1, t.element_size())
+        self.count("barrier", 1, t.element_size(), t.dtype)
         self.stats.host_s += time.perf_counter() - t0
 
     def exchange(self, sends: dict, recv_rows: dict, like: torch.Tensor) -> dict:

@@ -86,6 +86,10 @@ transport and of those the staged copies' wait for the card, launches).  Under `
 writes the trained stack in ``repro``'s serving format, which
 ``repro_torch.launch.serve_dssfn`` (or ``repro``'s) serves;
 ``--export-features`` records a frozen feature-extractor spec in it.
+``--use-kernels`` and ``--no-host-mesh`` are accepted so that
+``repro``'s command lines run, and land in the result's ``config``; they
+change nothing (the card always launches the kernels, and no devices
+are faked).
 """
 from __future__ import annotations
 
@@ -150,6 +154,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--no-compress", action="store_true",
         help="run gossip rounds as B serial exchange schedules instead of "
         "the default ONE compressed H^B schedule (power_schedule)",
+    )
+    ap.add_argument(
+        "--use-kernels",
+        action="store_true",
+        help="accepted for repro's command lines and recorded in the "
+        "result's config; changes nothing: on the card every Gram product "
+        "always launches the CUDA kernels (gram, propagate_gram), at any "
+        "shape, and the CPU always takes their plain versions",
     )
     ap.add_argument(
         "--membership", default=None,
@@ -226,6 +238,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument(
         "--device", default=None,
         help="torch device to train on (default: cuda, which must exist)",
+    )
+    ap.add_argument(
+        "--no-host-mesh",
+        action="store_true",
+        help="accepted for repro's command lines and recorded in the "
+        "result's config; changes nothing: the port fakes no devices "
+        "(--backend mesh spawns --ranks processes on this host instead)",
     )
     return ap.parse_args(argv)
 

@@ -174,6 +174,47 @@ class ServeEngine:
             y = matmul_relu(w, y)
         return self._o_last @ y
 
+    def lowering_texts(
+        self,
+        *,
+        bucket: int | None = None,
+        dtype: torch.dtype | None = None,
+        request_dim: int | None = None,
+    ) -> dict:
+        """Run one padded bucket of zeros through the bucket program once
+        under :func:`repro_torch.analysis.numerics.recording` and return
+        ``{"record": ..., "program": ..., "collective_counts": ...}``: the
+        rendered record (one line per call), the record itself, and the
+        collectives any transport of this process carried meanwhile.  The
+        probe surface of :mod:`repro_torch.analysis.serve`, mirroring
+        ``ConsensusBackend.lowering_texts``.  It calls the program body
+        directly, never :meth:`_executable`, so ``cache_info()`` stays as
+        it was.  (``repro``'s lowers without running and returns program
+        texts; the port has none to return.)"""
+        from repro_torch.analysis.numerics import recording
+        from repro_torch.launch.mesh import PROCESS_TALLY, moved
+
+        if bucket is None:
+            bucket = self.buckets[0]
+        if bucket not in self.buckets:
+            raise ValueError(
+                f"bucket {bucket} not in configured buckets {self.buckets}"
+            )
+        dtype = self.dtype if dtype is None else dtype
+        if request_dim is None:
+            request_dim = (
+                self.request_dim
+                if self.request_dim is not None
+                else self.artifact.input_dim
+            )
+        self._materialize_features(request_dim)
+        x = torch.zeros((request_dim, int(bucket)), dtype=dtype, device=self.device)
+        before = dict(PROCESS_TALLY)
+        with recording() as record:
+            self._forward_program(x)
+        return {"record": record.render(), "program": record,
+                "collective_counts": moved(PROCESS_TALLY, before)}
+
     def cache_info(self) -> dict:
         """Bucket-program counters in ``repro``'s schema
         (``entries``/``buckets``/``lowerings``/``cache_hits``/``keys``)."""
