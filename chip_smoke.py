@@ -186,8 +186,12 @@ Phases, each of which raises (non-zero exit) on any failed check:
    window, in bf16 and f32, and (1, 32, 8192, 120) over KV at 8 heads, as
    the model launches it (GQA read in place) — plus a ragged
    (1, 32, 4100, 120), a (2, 8, 77, 80) and Zamba2-2.7B's (1, 32, 8192,
-   80), each held per element against its plain version (bf16 also
-   launched twice, bit for bit) and timed beside it, beside
+   80), and the attention of phases 12-14 (Phi-3.5-MoE's (1, 32, 8192,
+   128) over 8 KV heads, full causal; Mixtral-8x22B's (1, 48, 8192, 128)
+   over 8, window 4096; InternVL2-1B's (1, 14, 8192, 64) over 2;
+   MusicGen-medium's (2, 24, 1500, 64); bf16, and f32 where the f32
+   checks launch it), each held per element against its plain version
+   (bf16 also launched twice, bit for bit) and timed beside it, beside
    ``scaled_dot_product_attention`` and beside its bound, with its
    TFLOP/s and its share of the bound.
 7. The inference slice at full width: H2O-Danube3-4B, all 24 layers, with
@@ -248,7 +252,34 @@ Phases, each of which raises (non-zero exit) on any failed check:
     generated tokens, in bf16.  (d) In f32, prefill + greedy decode logits
     against the forward's, and a decode step's host enqueue against the
     synchronized step.
-12. The card line, one ``{"kernels": [...]}`` line, and as the last line
+12. The MoE slice at published widths, seeded weights, the depth cut to
+    what one card holds beside the activations.  Phi-3.5-MoE, 24 of 32
+    layers (62.9 GB of bf16 weights): (a) a bf16 scoring forward through
+    ``make_loss_fn`` at B=1, S=8192 (24 ``flash_attention`` launches, a
+    finite loss with the router aux term, each layer's dropped share and
+    busiest expert, and where the time goes: attention, expert products,
+    routing + dispatch + combine); (c) ``launch.serve.serve`` at batch 2,
+    a 4608-token prompt and 16 generated tokens; (b) four layers in f32,
+    each layer's MoE call against float64 on the card with the f32 call's
+    routing (the tokens whose float64 top-2 differs counted and left out),
+    and the kernel route's logits against the plain route's beside the
+    response to one ulp of noise (positions whose routing flipped counted
+    and left out); (d) two of those layers at capacity factor 8 (the
+    reference's no-drop setting), prefill + decode against the forward.
+    Mixtral-8x22B, 12 of 56 layers (60.9 GB): (a) and (c), the prompt
+    past its 4096 window.
+13. The VLM slice: InternVL2-1B whole, 256 seeded patch embeddings (the
+    stubbed vision encoder) in front of 7936 tokens.  (a) bf16 forward
+    and loss with the visual prefix ignored (24 launches); (b) f32 kernel
+    route vs plain route; (c) ``serve`` at batch 2 with patches, a
+    4096-token prompt and 16 generated tokens; (d) f32 prefill + decode
+    against the forward, offset by the patches.
+14. The audio slice: MusicGen-medium whole, B=2 grids of 1500 frames of 4
+    codebooks.  (a) bf16 forward and loss (48 launches); (b) f32 kernel
+    route vs plain route; (c) ``serve`` at batch 2, a 500-frame prompt
+    and 32 generated frames; (d) f32 prefill + decode against the
+    forward.
+15. The card line, one ``{"kernels": [...]}`` line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -2734,14 +2765,22 @@ def lint_slice(torch, np, card: str, exact: dict, cases: list) -> dict:
 
 # flash_attention at the full-width H2O-Danube3-4B attention (32 heads of
 # 120 over 8 KV heads, window 4096; also with KV at 32 heads, the earlier
-# slices' headline) and Zamba2-2.7B's shared attention (32 heads of 80):
-# (B, H, H_kv, S, hd, window, dtype).
+# slices' headline), Zamba2-2.7B's shared attention (32 heads of 80), and
+# the attention of phases 12-14 as their scoring forwards launch it:
+# Phi-3.5-MoE (32 heads of 128 over 8, full causal), Mixtral-8x22B (48 of
+# 128 over 8, window 4096), InternVL2-1B (14 of 64 over 2: a group of 7)
+# and MusicGen-medium (B=2, 24 heads of 64, S=1500), in bf16 and, where
+# the f32 checks launch it, f32: (B, H, H_kv, S, hd, window, dtype).
 FLASH_CASES = [(1, 32, 32, 8192, 120, 4096, "bfloat16"),
                (1, 32, 8, 8192, 120, 4096, "bfloat16"),   # what the model launches
                (1, 32, 32, 4096, 120, 4096, "bfloat16"),
                (1, 32, 32, 8192, 120, 4096, "float32"), (1, 32, 32, 4096, 120, 4096, "float32"),
                (1, 32, 32, 4100, 120, 4096, "bfloat16"), (2, 8, 8, 77, 80, None, "float32"),
-               (1, 32, 32, 8192, 80, 4096, "bfloat16")]   # Zamba2-2.7B's shared attention
+               (1, 32, 32, 8192, 80, 4096, "bfloat16"),   # Zamba2-2.7B's shared attention
+               (1, 32, 8, 8192, 128, None, "bfloat16"), (1, 32, 8, 8192, 128, None, "float32"),
+               (1, 48, 8, 8192, 128, 4096, "bfloat16"),
+               (1, 14, 2, 8192, 64, None, "bfloat16"), (1, 14, 2, 8192, 64, None, "float32"),
+               (2, 24, 24, 1500, 64, None, "bfloat16"), (2, 24, 24, 1500, 64, None, "float32")]
 FLASH_HEADLINE = (1, 32, 32, 8192, 120, 4096, "bfloat16")
 # flash_attention tolerance, per element: |kernel - plain| <= rel |plain|
 # + 1e-5 max|plain|.  The second term is f32's (KERNEL_TOL: sums in other
@@ -2900,11 +2939,16 @@ def timed_forward(torch, model, params, batch) -> float:
 def op_shares(torch, model, params, batch, names) -> tuple[float, dict]:
     """(forward ms, {op: (ms inside it, calls)}): one forward on the card's
     timeline, with CUDA events around the whole and around each call of
-    each op in ``names`` that ``models.blocks`` makes in it."""
+    each op in ``names`` made in it: a name is an attribute of
+    ``models.blocks``, or a (module, attribute) pair."""
     from repro_torch.models import blocks
 
-    ops = {name: getattr(blocks, name) for name in names}
-    spans = {name: [] for name in names}
+    where = {}
+    for item in names:
+        module, name = (blocks, item) if isinstance(item, str) else item
+        where[name] = module
+    ops = {name: getattr(module, name) for name, module in where.items()}
+    spans = {name: [] for name in where}
 
     def timed_op(name):
         def call(*args, **kwargs):
@@ -2917,15 +2961,15 @@ def op_shares(torch, model, params, batch, names) -> tuple[float, dict]:
             return out
         return call
 
-    for name in names:
-        setattr(blocks, name, timed_op(name))
+    for name, module in where.items():
+        setattr(module, name, timed_op(name))
     try:
         fwd_ms = timed_forward(torch, model, params, batch)
     finally:
         for name, op in ops.items():
-            setattr(blocks, name, op)
+            setattr(where[name], name, op)
     return fwd_ms, {name: (sum(a.elapsed_time(b) for a, b in spans[name]), len(spans[name]))
-                    for name in names}
+                    for name in where}
 
 
 def _leaves(tree):
@@ -3877,6 +3921,514 @@ def xlstm_slice(torch, np, card: str) -> tuple[int, dict]:
     return main_launches, split
 
 
+# Phases 12-14: the MoE, VLM and audio transformers at their published
+# widths, seeded weights.  The MoE models are cut in depth to what one
+# card holds beside the activations (bf16 weights: Phi-3.5-MoE 24 of 32
+# layers, 31.47 B of 41.87 B parameters, 62.9 GB; Mixtral-8x22B 12 of 56,
+# 30.45 B, 60.9 GB); InternVL2-1B and MusicGen-medium run whole.
+PHI = {"arch": "phi35_moe_42b", "layers": 24, "score_seq": 8192, "serve_batch": 2,
+       "prompt": 4608, "gen": 16, "seed": 0, "f32_layers": 4, "decode_layers": 2,
+       "reduced": False}
+MIXTRAL = {"arch": "mixtral_8x22b", "layers": 12, "score_seq": 8192, "serve_batch": 2,
+           "prompt": 4608, "gen": 16, "seed": 0, "reduced": False}
+# InternVL2-1B: 256 patches of the stubbed vision encoder (seeded normal)
+# in front of 7936 tokens, 8192 positions.
+VLM = {"arch": "internvl2_1b", "score_seq": 8192, "serve_batch": 2, "prompt": 4096,
+       "gen": 16, "seed": 0, "reduced": False}
+# MusicGen-medium: B=2 grids of 1500 frames of 4 codebooks, 30 s at
+# EnCodec's 50 Hz (the crop length MusicGen trains on).
+AUDIO = {"arch": "musicgen_medium", "score_seq": 1500, "score_batch": 2, "serve_batch": 2,
+         "prompt": 500, "gen": 32, "seed": 0, "reduced": False}
+# 12(b): each MoE layer in f32 against the same function in float64 on the
+# same input, routed as the f32 call routes.  Its expert products sum d =
+# 4096 and f = 6400 terms in f32, an error of order sqrt(f) 2**-24 ~ 5e-6
+# of an output; 1e-4 x max|out| per layer, on the tokens whose float64
+# top-2 is the f32 one (a near-tie may flip, and a flip moves a token's
+# output by a step, not by rounding).
+MOE_LAYER_TOL = 1e-4
+# 12(d): the reference's no-drop setting for its decode check
+# (tests/test_arch_smoke.py:74-78).  Without it the forward's capacity
+# comes from the whole sequence and decode's from one token, so the two
+# legitimately disagree wherever the forward dropped an assignment.
+NO_DROP_FACTOR = 8.0
+
+
+def zoo_config(spec, **over):
+    """The spec's config with the kernels on, its depth cut (``layers``)
+    and ``over`` applied."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    over.setdefault("num_layers", spec.get("layers", cfg.num_layers))
+    return dataclasses.replace(cfg, use_pallas_kernels=True, **over)
+
+
+def describe(cfg) -> str:
+    extra = ""
+    if cfg.num_experts:
+        extra = (f", {cfg.num_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff} (capacity "
+                 f"factor {cfg.capacity_factor})")
+    if cfg.family == "vlm":
+        extra = f", {cfg.num_patches} patches of {cfg.patch_dim}"
+    if cfg.family == "audio":
+        extra = f", {cfg.num_codebooks} codebooks"
+    window = cfg.window if cfg.attention == "swa" else "none (full causal)"
+    return (f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters in {cfg.num_layers} "
+            f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
+            f"of {cfg.hd}, window {window}, vocab {cfg.padded_vocab}{extra}, {cfg.dtype}")
+
+
+def free(torch) -> None:
+    """Return the freed blocks to the card before a phase that needs most of it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slice_layers(tree, n: int):
+    """The first ``n`` layers of a stacked (L, ...) parameter tree (views)."""
+    return {k: slice_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+
+class RouteRecorder:
+    """Inside ``with``, every MoE routing call (``nn.moe.route``) made by
+    the model keeps its plan and stats in ``calls``, in call order."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self.calls, self._route = [], moe.route
+
+        def route(*args, **kwargs):
+            plan, stats = self._route(*args, **kwargs)
+            self.calls.append((plan, stats))
+            return plan, stats
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+
+        moe.route = self._route
+
+
+def routing_flips(torch, calls_a, calls_b, b: int, s: int):
+    """(B, S) bool: the positions whose expert ids or keep flags differ
+    between two runs' routings in any layer."""
+    out = torch.zeros((b, s), dtype=torch.bool, device=calls_a[0][0].ids.device)
+    for (pa, _), (pb, _) in zip(calls_a, calls_b):
+        k = pa.ids.shape[1] // s
+        differ = (pa.ids != pb.ids) | (pa.keep != pb.keep)
+        out |= differ.reshape(b, s, k).any(-1)
+    return out
+
+
+def scoring_forward(torch, np, model, params, batch, label: str, ops) -> dict:
+    """(a): the bf16 scoring forward through ``make_loss_fn``, the main
+    path: one flash_attention launch a layer and a finite loss; then one
+    more forward with CUDA events around ``ops`` (op_shares)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.steps import make_loss_fn
+
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    with torch.no_grad():
+        loss = make_loss_fn(model)(params, batch)
+    torch.cuda.synchronize()
+    launches = fa.launch_count()
+    loss = float(loss)
+    if launches != cfg.num_layers or not np.isfinite(loss):
+        raise AssertionError(f"{label}(a) scoring forward: {launches} flash_attention launches "
+                             f"(expected {cfg.num_layers}), loss {loss}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms, shares = op_shares(torch, model, params, batch, ops)
+    return {"launches": launches, "loss": loss, "peak_gb": peak_gb, "forward_ms": fwd_ms,
+            "shares": shares}
+
+
+def serve_check(torch, spec, label: str, cfg) -> dict:
+    """(c): ``launch.serve.serve`` at the spec's batch, prompt and
+    generated length, bf16, seeded weights of the spec's depth."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    fa.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.serve(spec["arch"], batch=spec["serve_batch"], prompt_len=spec["prompt"],
+                      gen_len=spec["gen"], reduced=spec["reduced"], seed=spec["seed"],
+                      device="cuda", layers=spec.get("layers"))
+    toks = res["tokens"]
+    shape = (spec["serve_batch"], spec["gen"]) + ((cfg.num_codebooks,) if cfg.num_codebooks
+                                                  else ())
+    if res["device"] != "cuda" or toks.shape != shape \
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}(c) serve: tokens {toks.shape} on {res['device']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}(c) serve B={spec['serve_batch']} prompt {spec['prompt']} gen {spec['gen']} "
+          f"bf16: prefill {res['prefill_s']:.3f} s, decode {res['decode_tokens_per_s']:.1f} "
+          f"tok/s ({res['decode_s']:.3f} s), {fa.launch_count()} flash_attention launches, "
+          f"peak {peak_gb:.2f} GB", flush=True)
+    return {"prefill_s": res["prefill_s"], "decode_tokens_per_s": res["decode_tokens_per_s"],
+            "serve_peak_gb": peak_gb}
+
+
+def route_check(torch, model32, params32, batch, label: str, tol: float) -> dict:
+    """(b): f32 logits, the kernel route against the plain route, beside
+    the plain route's response to one ulp of relative noise on the
+    embeddings.  For an MoE model, the positions whose routing differs
+    between the two runs (a near-tie flipped by rounding) are counted and
+    left out of the bar."""
+    from repro_torch.models import build_model
+
+    cfg = model32.cfg
+    plain32 = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
+    emb = params32["embed"]
+    noise = torch.randn(emb.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    nudged = dict(params32, embed=emb * (1 + 2**-24 * noise))
+    del noise
+    with torch.no_grad(), RouteRecorder() as r_kernel:
+        routed, _ = model32.forward(params32, batch)
+    with torch.no_grad(), RouteRecorder() as r_plain:
+        plain, _ = plain32.forward(params32, batch)
+    with torch.no_grad(), RouteRecorder() as r_ulp:
+        moved, _ = plain32.forward(nudged, batch)
+    del nudged
+    b, s = routed.shape[:2]
+    ulp_gap, scale = max_err(moved, plain)
+    del moved
+    diff = (routed - plain).abs_()
+    del routed, plain
+    flips = ulp_flips = 0
+    if cfg.num_experts:
+        flipped = routing_flips(torch, r_kernel.calls, r_plain.calls, b, s)
+        flips = int(flipped.sum())
+        ulp_flips = int(routing_flips(torch, r_ulp.calls, r_plain.calls, b, s).sum())
+        diff = diff[~flipped]
+    err = diff.max().item()
+    del diff
+    if not err <= tol * scale:
+        raise AssertionError(f"{label}(b) f32 logits, kernel vs plain route: {err:.3e} > "
+                             f"{tol} x {scale:.3e} ({flips} positions' routing flipped)")
+    where = (f" on the {b * s - flips} of {b * s} positions whose routing agrees in every "
+             f"layer ({flips} flipped; one ulp of noise flips {ulp_flips})"
+             if cfg.num_experts else "")
+    print(f"{label}(b) f32 forward ({cfg.num_layers} layers): logits kernel route vs plain route "
+          f"max abs err {err:.3e}{where} (max|logits| {scale:.3e}, tol {tol} x max); one ulp "
+          f"of noise on the embeddings moves the plain route's logits by {ulp_gap:.3e}",
+          flush=True)
+    return {"route_err": err / scale, "ulp_gap": ulp_gap / scale, "route_flips": flips,
+            "ulp_flips": ulp_flips}
+
+
+def decode_check(torch, model32, params32, prompt: dict, n0: int, gen: int, label: str,
+                 tol: float, card: str) -> dict:
+    """(d): f32 prefill + greedy decode logits at each generated position
+    against the f32 forward through the kernel over the prompt and the
+    generated tokens (a VLM's positions offset by its patches), and a
+    decode step's host enqueue against the synchronized step."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.steps import make_serve_step
+
+    cfg = model32.cfg
+    off = cfg.num_patches if "patch_embeds" in prompt else 0
+    tokens = prompt["tokens"]
+    bsz = tokens.shape[0]
+    step_shape = (bsz, 1) + tokens.shape[2:]
+    step = make_serve_step(model32)
+    enqueue, total = [], []
+    with torch.no_grad():
+        logits, cache = model32.prefill(params32, prompt, max_len=off + n0 + gen)
+        steps = [logits[:, -1]]
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        seq = [tok]
+        for _ in range(gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, cache = step(params32, {"tokens": tok.reshape(step_shape)}, cache)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits[:, -1])
+            seq.append(tok)
+        del cache
+        full_toks = torch.cat([tokens, torch.stack(seq[:-1], dim=1)], dim=1)
+        fa.reset_launch_count()
+        full, _ = model32.forward(params32, dict(prompt, tokens=full_toks))
+    got = torch.stack(steps, dim=1)                 # positions n0-1 .. n0+gen-1
+    want = full[:, off + n0 - 1:off + n0 + gen]
+    err, scale = max_err(got, want)
+    if fa.launch_count() != cfg.num_layers or not err <= tol * scale:
+        raise AssertionError(f"{label}(d) f32 prefill+decode vs forward: {err:.3e} > {tol} x "
+                             f"{scale:.3e}, or {fa.launch_count()} launches")
+    enqueue, total = sorted(enqueue[1:]), sorted(total[1:])
+    depth = f"{cfg.num_layers} layers" + (f", capacity factor {cfg.capacity_factor:g}"
+                                          if cfg.num_experts else "")
+    print(f"{label}(d) f32 ({depth}) prefill {n0} + {gen} decode steps vs the forward over {off + full_toks.shape[1]} "
+          f"positions (kernel route): max abs err {err:.3e} over {gen + 1} positions "
+          f"(max|logits| {scale:.3e}, tol {tol} x max); a decode step B={bsz} (median of "
+          f"{len(total)}) {total[len(total) // 2]:.3f} ms synchronized, of which "
+          f"{enqueue[len(enqueue) // 2]:.3f} ms for the host to enqueue it, on {card}",
+          flush=True)
+    return {"decode_err": err / scale, "decode_step_ms": total[len(total) // 2],
+            "decode_enqueue_ms": enqueue[len(enqueue) // 2]}
+
+
+def moe_layer_checks(torch, model32, params32, tokens, label: str) -> dict:
+    """12(b): each MoE layer's f32 call against the same function in
+    float64 on the card, on the same input, with the f32 call's routing
+    (its expert ids, slots and keep flags; float64 gates at those ids).
+    The tokens whose float64 top-k differs from the f32 one are counted
+    and left out of the bar."""
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.nn import moe
+    from repro_torch.nn.layers import rms_norm
+
+    cfg = model32.cfg
+    e, k = cfg.num_experts, cfg.top_k
+    window = cfg.window if cfg.attention == "swa" else None
+    worst, flips, rows = 0.0, [], []
+    with torch.no_grad():
+        x = model32._embed(params32, {"tokens": tokens})
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)
+        cap = moe.capacity(s, e, k, cfg.capacity_factor)
+        for i in range(cfg.num_layers):
+            lp = layer_params(params32["layers"], i)
+            h, _ = blocks.apply_attention(lp["attn"], rms_norm(x, lp["ln1"]), positions, cfg,
+                                          None, window=window)
+            x = x + h
+            xn = rms_norm(x, lp["ln2"])
+            f = lp["ffn"]
+            out32, stats = moe.moe_ffn(xn, f["router"], f["wg"], f["wu"], f["wd"], top_k=k,
+                                       capacity_factor=cfg.capacity_factor)
+            plan, _ = moe.route(xn, f["router"], top_k=k, cap=cap)
+            x64 = xn.double()
+            probs64 = torch.softmax(x64 @ f["router"].double(), dim=-1)
+            ids = plan.ids.reshape(b, s, k)
+            g64 = torch.gather(probs64, -1, ids)
+            g64 = g64 / torch.clamp(g64.sum(-1, keepdim=True), min=1e-9)
+            plan64 = plan._replace(gates=g64.reshape(b, s * k))
+            y64 = moe.expert_ffn(moe.dispatch(x64, plan64, e, cap), f["wg"].double(),
+                                 f["wu"].double(), f["wd"].double())
+            out64 = moe.combine(y64, plan64, s)
+            del y64, x64
+            flipped = (moe.top_k_stable(probs64, k)[1] != ids).any(-1)
+            agree = ~flipped
+            err = (out32.double() - out64).abs()[agree].max().item()
+            scale = out64.abs().max().item()
+            gap = err / scale
+            worst = max(worst, gap)
+            flips.append(int(flipped.sum()))
+            rows.append((i, gap, int(flipped.sum()), float(stats.dropped)))
+            del out64, probs64
+            x = x + out32
+    for i, gap, n, dropped in rows:
+        print(f"{label}(b) layer {i}: f32 MoE vs float64 on the same input and routing, "
+              f"{gap:.3e} x max|out| on the {b * s - n} tokens whose float64 top-{k} agrees "
+              f"({n} flipped; dropped {dropped:.4f})", flush=True)
+    if not worst <= MOE_LAYER_TOL:
+        raise AssertionError(f"{label}(b) an MoE layer's f32 call differs from float64 by "
+                             f"{worst:.3e} x max|out| > {MOE_LAYER_TOL}")
+    return {"moe_layer_gap": worst, "f64_router_flips": flips}
+
+
+def moe_slice(torch, np, card: str, spec: dict, label: str, full: bool) -> tuple[int, dict]:
+    """An MoE model at its published widths and the spec's depth: (a) the
+    bf16 scoring forward through the kernel, each layer's routing stats
+    and where its time goes (attention, expert products, routing +
+    dispatch + combine); (c) serving; with ``full`` also (b) f32 layers
+    against float64 and the two routes, and (d) f32 prefill + decode at
+    the no-drop capacity.  Returns the scoring forward's flash_attention
+    launches (the main path) and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.models.steps import MOE_AUX_COEF
+    from repro_torch.nn import moe
+
+    free(torch)
+    cfg = zoo_config(spec)
+    whole = get_config(spec["arch"])
+    s, seed = spec["score_seq"], spec["seed"]
+    print(f"{describe(cfg)}; depth cut from {whole.num_layers} layers "
+          f"({whole.param_count() / 1e9:.3f} B parameters): one card holds these layers' bf16 weights beside the activations",
+          flush=True)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    host = next(iter(TokenStream(cfg.vocab_size, s, 1, seed=seed)))
+    batch = {k: torch.as_tensor(a, device="cuda") for k, a in host.items()}
+
+    # (a) The main path, its routing recorded (the recorder launches nothing).
+    ops = ("flash_attention", (moe, "route"), (moe, "dispatch"), (moe, "expert_ffn"),
+           (moe, "combine"))
+    with RouteRecorder() as rec:
+        a = scoring_forward(torch, np, model, params, batch, label, ops)
+    sh, fwd = a["shares"], a["forward_ms"]
+    attn_ms, calls = sh["flash_attention"]
+    expert_ms = sh["expert_ffn"][0]
+    parts = {name: sh[name][0] for name in ("route", "dispatch", "combine")}
+    route_ms = sum(parts.values())
+    rest = fwd - attn_ms - expert_ms - route_ms
+    cap = moe.capacity(s, cfg.num_experts, cfg.top_k, cfg.capacity_factor)
+    print(f"{label}(a) scoring forward B=1 S={s} bf16 ({cap} slots an expert): loss {a['loss']:.4f} (with {MOE_AUX_COEF} x the router aux loss), "
+          f"{a['launches']} flash_attention launches, weights {weights_gb:.2f} GB (drawn in "
+          f"{init_s:.1f} s), peak {a['peak_gb']:.2f} GB; {fwd:.3f} ms (CUDA events) = "
+          f"flash_attention {attn_ms:.3f} ms over {calls} calls ({attn_ms / fwd:.1%}) + expert "
+          f"products {expert_ms:.3f} ms ({expert_ms / fwd:.1%}) + routing, dispatch and combine "
+          f"{route_ms:.3f} ms ({route_ms / fwd:.1%}: route {parts['route']:.3f}, dispatch "
+          f"{parts['dispatch']:.3f}, combine {parts['combine']:.3f}; CUDA events around each "
+          f"call in this forward) + the rest {rest:.3f} ms", flush=True)
+    layers = rec.calls[:cfg.num_layers]
+    dropped = [round(float(st.dropped), 5) for _, st in layers]
+    busiest = [round(float(st.load.max()) * cfg.num_experts, 3) for _, st in layers]
+    print(f"{label}(a) by layer: dropped share {dropped}; busiest expert's load / uniform "
+          f"{busiest}", flush=True)
+    summary = {"layers": cfg.num_layers, "params_b": cfg.param_count() / 1e9,
+               "loss": a["loss"], "launches": a["launches"], "peak_gb": a["peak_gb"],
+               "forward_ms": fwd, "flash_attention_ms": attn_ms, "expert_ms": expert_ms,
+               "route_dispatch_combine_ms": route_ms, **{f"{k}_ms": v for k, v in parts.items()},
+               "rest_ms": rest, "dropped": dropped,
+               "busiest_load": busiest}
+    del params, batch["labels"], rec, layers
+    free(torch)
+
+    summary.update(serve_check(torch, spec, label, cfg))
+    free(torch)
+    if not full:
+        return a["launches"], summary
+
+    # (b) f32 layers against float64, then the kernel route against the plain one.
+    cfg32 = zoo_config(spec, dtype="float32", num_layers=spec["f32_layers"])
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(seed))
+    summary.update(moe_layer_checks(torch, model32, params32, batch["tokens"], label))
+    summary.update(route_check(torch, model32, params32, {"tokens": batch["tokens"]}, label,
+                               ROUTE_TOL))
+
+    # (d) Prefill + decode against the forward, at the no-drop capacity.
+    n = spec["decode_layers"]
+    cfg_d = dataclasses.replace(cfg32, num_layers=n, capacity_factor=NO_DROP_FACTOR)
+    params_d = dict(params32, layers=slice_layers(params32["layers"], n))
+    bsz, n0, gen = spec["serve_batch"], spec["prompt"], spec["gen"]
+    prompt = {"tokens": torch.as_tensor(
+        np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, n0)), device="cuda")}
+    summary.update(decode_check(torch, build_model(cfg_d), params_d, prompt, n0, gen, label,
+                                DECODE_TOL, card))
+    del params32, params_d
+    free(torch)
+    return a["launches"], summary
+
+
+def vlm_slice(torch, np, card: str, spec: dict = VLM, label: str = "13 ") -> tuple[int, dict]:
+    """InternVL2-1B whole: (a) the bf16 scoring forward over the patches
+    and the text, the prefix ignored by the loss; (b) f32 kernel route vs
+    plain route; (c) serving with patches; (d) f32 prefill + decode
+    against the forward, offset by the patches."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+
+    free(torch)
+    cfg = zoo_config(spec)
+    s, seed = spec["score_seq"], spec["seed"]
+    text = s - cfg.num_patches
+    print(describe(cfg) + "; the vision encoder stubbed by seeded normal patch embeddings",
+          flush=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    host = next(iter(TokenStream(cfg.vocab_size, text, 1, seed=seed)))
+    batch = {k: torch.as_tensor(a, device="cuda") for k, a in host.items()}
+    patches = np.random.default_rng(seed).normal(size=(1, cfg.num_patches, cfg.patch_dim))
+    batch["patch_embeds"] = torch.as_tensor(patches, dtype=torch.float32, device="cuda")
+    a = scoring_forward(torch, np, model, params, batch, label, ("flash_attention",))
+    fwd = a["forward_ms"]
+    attn_ms, calls = a["shares"]["flash_attention"]
+    print(f"{label}(a) scoring forward B=1, {cfg.num_patches} patches + {text} tokens = {s} "
+          f"positions, bf16: loss {a['loss']:.4f} over the text (the visual prefix ignored), "
+          f"{a['launches']} flash_attention launches, peak {a['peak_gb']:.2f} GB; {fwd:.3f} ms "
+          f"(CUDA events) = flash_attention {attn_ms:.3f} ms over {calls} calls "
+          f"({attn_ms / fwd:.1%}) + the rest {fwd - attn_ms:.3f} ms", flush=True)
+    summary = {"loss": a["loss"], "launches": a["launches"], "peak_gb": a["peak_gb"],
+               "forward_ms": fwd, "flash_attention_ms": attn_ms, "rest_ms": fwd - attn_ms}
+    del params
+    free(torch)
+    summary.update(serve_check(torch, spec, label, cfg))
+
+    cfg32 = zoo_config(spec, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(seed))
+    scored = {"tokens": batch["tokens"], "patch_embeds": batch["patch_embeds"]}
+    summary.update(route_check(torch, model32, params32, scored, label, ROUTE_TOL))
+    bsz, n0, gen = spec["serve_batch"], spec["prompt"], spec["gen"]
+    rng = np.random.default_rng(seed)
+    prompt = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (bsz, n0)),
+                                        device="cuda"),
+              "patch_embeds": torch.as_tensor(rng.normal(size=(bsz, cfg.num_patches,
+                                                               cfg.patch_dim)),
+                                              dtype=torch.float32, device="cuda")}
+    summary.update(decode_check(torch, model32, params32, prompt, n0, gen, label, DECODE_TOL,
+                                card))
+    del params32
+    free(torch)
+    return a["launches"], summary
+
+
+def audio_slice(torch, np, card: str, spec: dict = AUDIO,
+                label: str = "14 ") -> tuple[int, dict]:
+    """MusicGen-medium whole: (a) the bf16 scoring forward over (B, S, nc)
+    codebook grids; (b) f32 kernel route vs plain route; (c) serving
+    (B, gen, nc) frames; (d) f32 prefill + decode against the forward."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+
+    free(torch)
+    cfg = zoo_config(spec)
+    s, bsz_a, seed = spec["score_seq"], spec["score_batch"], spec["seed"]
+    print(describe(cfg) + "; the EnCodec codec stubbed by the token grid", flush=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    host = next(iter(TokenStream(cfg.vocab_size, s, bsz_a, seed=seed,
+                                 num_codebooks=cfg.num_codebooks)))
+    batch = {k: torch.as_tensor(a, device="cuda") for k, a in host.items()}
+    a = scoring_forward(torch, np, model, params, batch, label, ("flash_attention",))
+    fwd = a["forward_ms"]
+    attn_ms, calls = a["shares"]["flash_attention"]
+    print(f"{label}(a) scoring forward B={bsz_a} S={s} frames x {cfg.num_codebooks} codebooks "
+          f"bf16: loss {a['loss']:.4f}, {a['launches']} flash_attention launches, peak "
+          f"{a['peak_gb']:.2f} GB; {fwd:.3f} ms (CUDA events) = flash_attention {attn_ms:.3f} "
+          f"ms over {calls} calls ({attn_ms / fwd:.1%}) + the rest {fwd - attn_ms:.3f} ms",
+          flush=True)
+    summary = {"loss": a["loss"], "launches": a["launches"], "peak_gb": a["peak_gb"],
+               "forward_ms": fwd, "flash_attention_ms": attn_ms, "rest_ms": fwd - attn_ms}
+    del params
+    free(torch)
+    summary.update(serve_check(torch, spec, label, cfg))
+
+    cfg32 = zoo_config(spec, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(seed))
+    summary.update(route_check(torch, model32, params32, {"tokens": batch["tokens"]}, label,
+                               ROUTE_TOL))
+    bsz, n0, gen = spec["serve_batch"], spec["prompt"], spec["gen"]
+    grid = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, n0, cfg.num_codebooks))
+    summary.update(decode_check(torch, model32, params32,
+                                {"tokens": torch.as_tensor(grid, device="cuda")}, n0, gen,
+                                label, DECODE_TOL, card))
+    del params32
+    free(torch)
+    return a["launches"], summary
+
+
 def main() -> int:
     import torch
 
@@ -3939,6 +4491,14 @@ def main() -> int:
         mlstm_split = mlstm_profile(torch, card, [MLSTM_HEADLINE, MLSTM_CASES[1]], parent)
         del parent
     mlstm_launches, xlstm_split = xlstm_slice(torch, np, card)
+    zoo = {}
+    for key, run in (("phi35_moe", lambda: moe_slice(torch, np, card, PHI, "12 Phi ", True)),
+                     ("mixtral", lambda: moe_slice(torch, np, card, MIXTRAL, "12 Mixtral ",
+                                                   False)),
+                     ("internvl2", lambda: vlm_slice(torch, np, card)),
+                     ("musicgen", lambda: audio_slice(torch, np, card))):
+        launched, zoo[key] = run()
+        flash_launches += launched
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)
@@ -3979,6 +4539,7 @@ def main() -> int:
               "src/repro/kernels/mlstm_scan/kernel.py:87", mlstm_launches, mlstm_cases,
               MLSTM_HEADLINE),
     ]
+    kernels[3]["zoo_forwards"] = zoo
     kernels[-2]["hybrid_forward"] = split
     kernels[-2]["profile"] = ssm_split
     kernels[-1]["xlstm_forward"] = xlstm_split

@@ -1,6 +1,6 @@
 """Carry SSFN parameters, random matrices, datasets and model-zoo
-(transformer, hybrid and xLSTM) parameters between ``repro`` (as numpy arrays)
-and the port.
+(transformer of every family, hybrid and xLSTM) parameters between
+``repro`` (as numpy arrays) and the port.
 
 ``repro``'s arrays are JAX arrays; ``np.asarray`` on each gives what
 these functions take and return, so neither package imports the other.
@@ -90,25 +90,36 @@ def _layer_shapes(cfg: ModelConfig, stack: tuple[int, ...]) -> dict[str, Any]:
     """One transformer layer's parameter shapes, with leading ``stack`` axes."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    if cfg.num_experts:
+        e = stack + (cfg.num_experts,)
+        ffn = {"router": stack + (d, cfg.num_experts), "wg": e + (d, f), "wu": e + (d, f),
+               "wd": e + (f, d)}
+    else:
+        ffn = {"wg": stack + (d, f), "wu": stack + (d, f), "wd": stack + (f, d)}
     return {
         "ln1": stack + (d,),
         "ln2": stack + (d,),
         "attn": {"wq": stack + (d, q), "wk": stack + (d, kv), "wv": stack + (d, kv),
                  "wo": stack + (q, d)},
-        "ffn": {"wg": stack + (d, f), "wu": stack + (d, f), "wd": stack + (f, d)},
+        "ffn": ffn,
     }
 
 
 def transformer_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
-    """The shape of every parameter of a dense transformer, as a tree with
-    the reference's names: per-layer weights stacked on a leading L axis."""
+    """The shape of every parameter of a transformer (dense, MoE, VLM or
+    audio), as a tree with the reference's names: per-layer weights
+    stacked on a leading L axis; an audio model's nc embeddings stacked
+    and its nc heads side by side; a VLM's patch projector."""
     d, v = cfg.d_model, cfg.padded_vocab
-    return {
-        "layers": _layer_shapes(cfg, (cfg.num_layers,)),
-        "ln_f": (d,),
-        "embed": (v, d),
-        "head": (d, v),
-    }
+    shapes = {"layers": _layer_shapes(cfg, (cfg.num_layers,)), "ln_f": (d,)}
+    if cfg.family == "audio":
+        nc = cfg.num_codebooks
+        shapes.update(embed=(nc, v, d), head=(d, nc * v))
+    else:
+        shapes.update(embed=(v, d), head=(d, v))
+    if cfg.family == "vlm":
+        shapes["patch_proj"] = (cfg.patch_dim, d)
+    return shapes
 
 
 def hybrid_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
@@ -159,6 +170,9 @@ def xlstm_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     }
 
 
+#: Transformer parameters that ``repro`` keeps in f32 whatever the model's
+#: dtype: the MoE router.
+_TRANSFORMER_F32 = {("layers", "ffn", "router")}
 #: Hybrid parameters that ``repro`` keeps in f32 whatever the model's dtype.
 _HYBRID_F32 = {("mamba", "a_log"), ("mamba", "dt_bias")}
 #: xLSTM parameters that ``repro`` keeps in f32 whatever the model's dtype:
@@ -202,10 +216,12 @@ def transformer_params_from_numpy(
     """The port's parameters (tensors on ``device``, ``None`` meaning
     ``cuda``; in ``dtype``, by default ``cfg.torch_dtype``) from
     ``jax.tree.map(np.asarray, params)`` of ``repro``'s
-    ``TransformerModel.init``.  Names and layouts are the same; a tree
+    ``TransformerModel.init``.  Names and layouts are the same, and an MoE
+    router stays f32 whatever ``dtype`` is, as ``repro`` keeps it; a tree
     whose keys or shapes do not match ``cfg`` raises ``ValueError``."""
     dt = cfg.torch_dtype if dtype is None else dtype
-    return _tree_from_numpy(tree, transformer_param_shapes(cfg), resolve_device(device), dt)
+    return _tree_from_numpy(tree, transformer_param_shapes(cfg), resolve_device(device), dt,
+                            _TRANSFORMER_F32)
 
 
 def hybrid_params_from_numpy(

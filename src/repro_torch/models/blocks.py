@@ -4,8 +4,7 @@ Port of ``repro/models/blocks.py``: attention, the FFN, the transformer
 layer, the Mamba2 layer and the mLSTM and sLSTM layers.  Parameters are
 plain dicts of tensors with the reference's names; an init function
 given ``stack=(L,)`` draws L layers at once, stacked on leading axes as
-the reference's vmapped init stacks them.  The MoE FFN is not ported
-yet and raises ``NotImplementedError`` naming its ROADMAP item.
+the reference's vmapped init stacks them.
 """
 from __future__ import annotations
 
@@ -19,19 +18,14 @@ from repro_torch.kernels.mlstm_scan import mlstm_scan
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import attention as attn_lib
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn import xlstm as xlstm_lib
-from repro_torch.nn.layers import dense_init, rms_norm, round_up
+from repro_torch.nn.layers import dense_init, dense_init_by_slice, rms_norm, round_up
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
 
 Params = dict[str, Any]
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item})"
-    )
 
 
 # ---------------------------------------------------------------- attention
@@ -97,10 +91,21 @@ def apply_attention(
 # ---------------------------------------------------------------- mlp / moe
 
 def init_ffn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
-    if cfg.num_experts:
-        raise unported("the MoE FFN", "item 12")
+    """The SwiGLU FFN's weights, or with ``cfg.num_experts`` the MoE's: a
+    router (d, E) in f32 whatever the model's dtype, as in the reference,
+    and expert weights (E, d, f), (E, f, d) drawn one expert at a time
+    (a whole stacked expert tensor drawn in f32 would need, for
+    Phi-3.5-MoE at full width, 40 GB beside the weights)."""
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.torch_dtype
+    if cfg.num_experts:
+        e = cfg.num_experts
+        return {
+            "router": dense_init(gen, stack + (d, e), torch.float32),
+            "wg": dense_init_by_slice(gen, stack + (e, d, f), dt),
+            "wu": dense_init_by_slice(gen, stack + (e, d, f), dt),
+            "wd": dense_init_by_slice(gen, stack + (e, f, d), dt),
+        }
     return {
         "wg": dense_init(gen, stack + (d, f), dt),
         "wu": dense_init(gen, stack + (d, f), dt),
@@ -111,7 +116,11 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ..
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (out, moe_aux_loss); the aux loss is 0 without experts."""
     if cfg.num_experts:
-        raise unported("the MoE FFN", "item 12")
+        out, stats = moe_lib.moe_ffn(
+            x, p["router"], p["wg"], p["wu"], p["wd"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        )
+        return out, stats.aux_loss
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return swiglu(x, p["wg"], p["wu"], p["wd"]), aux
 
@@ -143,7 +152,7 @@ def apply_transformer_layer(
     )
     x = x + h
     f, aux = apply_ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg)
-    if cfg.d_ff:
+    if cfg.d_ff or cfg.num_experts:
         x = x + f
     return x, new_cache, aux
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 IGNORE = -1
+MOE_AUX_COEF = 0.01
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -21,12 +22,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_loss_fn(model):
     """(params, batch) -> loss: the full-sequence forward scored against
-    batch['labels'].  The reference's VLM and MoE terms do not arise: only
-    dense, hybrid and xLSTM models are built."""
+    batch['labels'].  A VLM's visual prefix is not scored (its
+    ``num_patches`` positions get IGNORE labels), and an MoE model adds
+    ``MOE_AUX_COEF`` times the layers' mean router aux loss."""
+    cfg = model.cfg
 
     def loss_fn(params, batch):
-        logits, _ = model.forward(params, batch)
-        return cross_entropy(logits, batch["labels"])
+        logits, aux = model.forward(params, batch)
+        labels = batch["labels"]
+        if cfg.family == "vlm" and cfg.num_patches:
+            pad = torch.full(labels.shape[:1] + (cfg.num_patches,), IGNORE,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        loss = cross_entropy(logits, labels)
+        if cfg.num_experts:
+            loss = loss + MOE_AUX_COEF * aux
+        return loss
 
     return loss_fn
 
@@ -39,7 +50,8 @@ def make_prefill_step(model):
 
 
 def make_serve_step(model):
-    """One decode step: greedy-pick the next token and update the cache."""
+    """One decode step: greedy-pick the next token (audio: one per
+    codebook, (B, nc)) and update the cache."""
 
     def serve_step(params, batch, cache):
         logits, cache = model.decode_step(params, batch, cache)

@@ -1,16 +1,23 @@
-"""Decoder-only transformer: the dense and sliding-window (SWA) family.
+"""Scan-over-layers decoder-only transformer covering the dense, MoE, SWA,
+VLM-backbone and audio-decoder families.
 
-Port of ``repro/models/transformer.py`` for ``family == "dense"``.
-Parameters are a dict of tensors with the reference's names and layout:
-per-layer weights stacked on a leading L axis (``params["layers"]``), so
+Port of ``repro/models/transformer.py``.  Parameters are a dict of
+tensors with the reference's names and layout: per-layer weights stacked
+on a leading L axis (``params["layers"]``), so
 ``convert.transformer_params_from_numpy`` carries ``repro``'s params
 across unchanged.  The layer scan becomes a Python loop.  ``forward`` is
 the full-sequence pass that scores a batch (through the flash_attention
 op when ``cfg.use_pallas_kernels``); ``prefill`` and ``decode_step`` take
 the plain chunked and decode attention, as the reference routes them.
 Remat settings shape only a backward pass, which this inference slice
-does not have.  The VLM, audio and MoE branches raise
-``NotImplementedError`` naming their ROADMAP item.
+does not have.
+
+The families differ only at the ends and in the FFN: an MoE model's FFN
+is ``nn/moe.py``'s (its forward returns the layers' mean router aux
+loss); a VLM prepends ``patch_embeds @ patch_proj`` (the stubbed vision
+encoder's output, projected) to the token embeddings when the batch has
+them; an audio model embeds a (B, S, nc) codebook grid as the sum of nc
+lookups and its head gives (B, S, nc, V) logits.
 """
 from __future__ import annotations
 
@@ -35,28 +42,51 @@ def layer_params(layers: Params, i: int) -> Params:
 
 class TransformerModel:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or cfg.num_experts:
-            raise blocks.unported(f"the {cfg.family!r} transformer family", "item 12")
         self.cfg = cfg
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> Params:
         """Seeded random parameters on the generator's device."""
         cfg = self.cfg
-        v, d = cfg.padded_vocab, cfg.d_model
-        return {
+        v, d, dt = cfg.padded_vocab, cfg.d_model, cfg.torch_dtype
+        params: Params = {
             "layers": blocks.init_transformer_layer(gen, cfg, stack=(cfg.num_layers,)),
-            "ln_f": torch.ones((d,), dtype=cfg.torch_dtype, device=gen.device),
-            "embed": embed_init(gen, v, d, cfg.torch_dtype),
-            "head": dense_init(gen, (d, v), cfg.torch_dtype),
+            "ln_f": torch.ones((d,), dtype=dt, device=gen.device),
         }
+        if cfg.family == "audio":
+            nc = cfg.num_codebooks
+            params["embed"] = torch.stack([embed_init(gen, v, d, dt) for _ in range(nc)])
+            params["head"] = dense_init(gen, (d, nc * v), dt)
+        else:
+            params["embed"] = embed_init(gen, v, d, dt)
+            params["head"] = dense_init(gen, (d, v), dt)
+        if cfg.family == "vlm":
+            params["patch_proj"] = dense_init(gen, (cfg.patch_dim, d), dt)
+        return params
 
     # -------------------------------------------------------------- embed
     def _embed(self, params: Params, batch: dict) -> torch.Tensor:
-        return embed_lookup(params["embed"], batch["tokens"])
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if cfg.family == "audio":
+            # tokens (B, S, nc): the codebooks' embeddings summed in order
+            # from 0, in the model's dtype, as the reference's sum().
+            x = sum(embed_lookup(params["embed"][c], tokens[..., c])
+                    for c in range(cfg.num_codebooks))
+        else:
+            x = embed_lookup(params["embed"], tokens)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            patches = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+            x = torch.cat([patches, x], dim=1)
+        return x
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, params["ln_f"]) @ params["head"]
+        cfg = self.cfg
+        logits = rms_norm(x, params["ln_f"]) @ params["head"]
+        if cfg.family == "audio":
+            b, s, _ = logits.shape
+            return logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
+        return logits
 
     # ------------------------------------------------------------ forward
     def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -88,7 +118,7 @@ class TransformerModel:
             h, (k, v) = _attention_collect_kv(layer_p, x, positions, cfg, window)
             x = x + h
             f, _ = blocks.apply_ffn(layer_p["ffn"], rms_norm(x, layer_p["ln2"]), cfg)
-            if cfg.d_ff:
+            if cfg.d_ff or cfg.num_experts:
                 x = x + f
             ks.append(k)
             vs.append(v)
@@ -108,9 +138,9 @@ class TransformerModel:
         )
 
     def decode_step(self, params: Params, batch: dict, cache: attn_lib.KVCache):
-        """One-token step.  batch['tokens']: (B, 1); the position comes
-        from the cache index.  Writes the token's KV into ``cache`` in
-        place and returns (logits, cache with index + 1)."""
+        """One-token step.  batch['tokens']: (B, 1) (audio: (B, 1, nc));
+        the position comes from the cache index.  Writes the token's KV
+        into ``cache`` in place and returns (logits, cache with index + 1)."""
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = cache.index[:1]  # (1,), the same for all layers

@@ -1,4 +1,4 @@
-"""Basic layers: init helpers, RMS norm, embeddings.
+"""Basic layers: init helpers, RMS and layer norms, embeddings.
 
 Port of ``repro/nn/layers.py``.  The init helpers draw from a
 ``torch.Generator`` with the reference's distributions (not its numbers:
@@ -23,6 +23,19 @@ def dense_init(
     return (w * s).to(dtype)
 
 
+def dense_init_by_slice(
+    gen: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype
+) -> torch.Tensor:
+    """:func:`dense_init` of ``shape`` in ``dtype``, each matrix (the last
+    two axes; one expert of one layer) drawn on its own, so that no f32
+    temporary larger than one matrix is made."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view((-1,) + tuple(shape[-2:]))
+    for i in range(flat.shape[0]):
+        flat[i] = dense_init(gen, tuple(shape[-2:]), dtype)
+    return out
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> torch.Tensor:
     """N(0, 1) * 0.02, drawn in f32 and cast."""
     w = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=torch.float32)
@@ -36,6 +49,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
+def layer_norm(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """The reference's cast order: mean and (biased) variance in f32,
+    normalise, cast back to x's dtype, then ``* gamma + beta`` in it."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * gamma + beta
 
 
 def embed_lookup(embedding: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -783,6 +783,131 @@ def test_prefill_and_decode_step_never_wait_for_the_card(cuda):
     assert cache.index.tolist() == [83] * cfg.num_layers
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [77, 1500, 4100])
+@pytest.mark.parametrize("hd,h,h_kv,window", [(128, 32, 8, None), (128, 48, 8, 4096),
+                                              (64, 14, 2, None), (64, 24, 24, None)])
+def test_flash_attention_matches_plain_at_the_zoo_head_layouts(cuda, hd, h, h_kv, window, s,
+                                                                dtype):
+    """The head layouts of Phi-3.5-MoE (32 heads of 128 over 8, full
+    causal), Mixtral-8x22B (48 over 8, window 4096), InternVL2-1B (14 of 64
+    over 2: a group of 7) and MusicGen-medium (24 of 64), per element
+    against the plain version, and the same as the KV heads repeated by
+    hand."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b = 2 if s < 4096 and h <= 24 else 1
+    q, k, v = _qkv(b, h, s, hd, dtype, cuda, seed=hd + h + s, kv_heads=h_kv)
+    got = fa.flash_attention(q, k, v, window=window)
+    _close_flash(got, fa.flash_attention_ref(q, k, v, window=window), dtype)
+    if h_kv != h:
+        rep = [t.repeat_interleave(h // h_kv, dim=1) for t in (k, v)]
+        assert torch.equal(got, fa.flash_attention(q, *rep, window=window))
+
+
+def _zoo(cuda, arch, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator(device=cuda).manual_seed(0))
+
+
+def _zoo_batch(cfg, s, seed, device):
+    rng = np.random.default_rng(seed)
+    shape = (2, s, cfg.num_codebooks) if cfg.family == "audio" else (2, s)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(device)}
+    if cfg.family == "vlm":
+        patches = rng.normal(size=(2, cfg.num_patches, cfg.patch_dim)).astype(np.float32)
+        batch["patch_embeds"] = torch.from_numpy(patches).to(device)
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 128])
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "phi35_moe_42b", "internvl2_1b",
+                                  "musicgen_medium"])
+def test_zoo_family_forward_on_card_launches_kernel_per_layer(cuda, arch, s):
+    """A reduced MoE (SWA and full), VLM (patches in front) and audio
+    (codebook grid) forward on the card: one flash_attention launch per
+    layer, and the logits and the router aux loss of the plain route and
+    of the CPU within ``test_kernel_integration.py``'s 5e-3 (f32)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg, model, params = _zoo(cuda, arch, use_pallas_kernels=True)
+    batch = _zoo_batch(cfg, s, s, cuda)
+    before = fa.launch_count()
+    with torch.no_grad():
+        got, aux = model.forward(params, batch)
+        torch.cuda.synchronize()
+        assert fa.launch_count() == before + cfg.num_layers
+        plain, plain_aux = build_model(dataclasses.replace(cfg, use_pallas_kernels=False)).forward(
+            params, batch)
+        cpu, cpu_aux = model.forward(_tree_to(params, "cpu"), _tree_to(batch, "cpu"))
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), atol=5e-3)
+    assert abs(float(aux) - float(cpu_aux)) <= 1e-5 and abs(float(aux) - float(plain_aux)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("factor", [0.5, 4.0])
+def test_moe_ffn_on_card_routes_like_the_cpu(cuda, factor, dtype):
+    """``moe_ffn`` on the card against the CPU on the same inputs: the
+    same expert ids, slots and keep flags (f32 router logits summed over
+    d = 64 in other orders move no choice here), and the output within
+    1e-5 x max (f32) or 1e-2 x max (bf16; ``test_torch_moe.py``'s bars)."""
+    from repro_torch.nn import moe
+
+    rng = np.random.default_rng(5)
+    b, s, d, f, e = 2, 96, 64, 128, 4
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(dtype)
+    router = torch.from_numpy(rng.standard_normal((d, e)).astype(np.float32))
+    w = [torch.from_numpy((rng.standard_normal(shape) / np.sqrt(shape[1])).astype(np.float32))
+         .to(dtype) for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    cap = moe.capacity(s, e, 2, factor)
+    cpu_plan, cpu_stats = moe.route(x, router, top_k=2, cap=cap)
+    plan, stats = moe.route(x.to(cuda), router.to(cuda), top_k=2, cap=cap)
+    assert torch.equal(plan.ids.cpu(), cpu_plan.ids) and torch.equal(plan.keep.cpu(), cpu_plan.keep)
+    assert torch.equal(plan.slot.cpu(), cpu_plan.slot)
+    want, _ = moe.moe_ffn(x, router, *w, top_k=2, capacity_factor=factor)
+    got, _ = moe.moe_ffn(x.to(cuda), router.to(cuda), *(t.to(cuda) for t in w), top_k=2,
+                         capacity_factor=factor)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    _close_scaled(got.cpu(), want, rel)
+    assert abs(float(stats.dropped) - float(cpu_stats.dropped)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "internvl2_1b", "musicgen_medium"])
+def test_zoo_prefill_and_decode_never_wait_for_the_card(cuda, arch):
+    """No host synchronisation inside an MoE, VLM or audio prefill or
+    decode step: routing, dispatch and combine stay on the card."""
+    cfg, model, params = _zoo(cuda, arch)
+    batch = _zoo_batch(cfg, 80, 1, cuda)
+    step = {k: v for k, v in batch.items() if k != "patch_embeds"}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill(params, dict(batch, tokens=batch["tokens"][:, :77]),
+                                     max_len=84 + cfg.num_patches)
+            for t in range(77, 80):
+                _, cache = model.decode_step(params, dict(step, tokens=step["tokens"][:, t:t + 1]),
+                                             cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cache.index.tolist() == [80 + cfg.num_patches] * cfg.num_layers
+
+
 # ---------------------------------------------------------------------------
 # ssm_scan
 # ---------------------------------------------------------------------------

@@ -60,7 +60,7 @@ def _close_scaled(got, want, rel):
     assert err <= rel * float(np.abs(want).max()), (err, rel)
 
 
-@pytest.mark.parametrize("hd", [64, 120])
+@pytest.mark.parametrize("hd", [64, 120, 128])   # 128: Phi-3.5-MoE's and Mixtral-8x22B's
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 96])
 @pytest.mark.parametrize("s,block", [(128, 64), (256, 128), (256, 64)])
@@ -134,6 +134,21 @@ def test_gqa_kv_read_in_place_matches_pallas_on_repeated_kv(window, dtype):
     got = fa.flash_attention(q, k, v, window=window)
     assert got.shape == q.shape and got.dtype == DTYPES[dtype][1]
     jk, jv = (jnp.repeat(t, 4, axis=1) for t in (jk, jv))
+    pallas = j_flash(jq, jk, jv, window=window, block_q=64, block_k=64)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=PALLAS_TOL[dtype])
+    _close_scaled(got, j_flash_ref(jq, jk, jv, window=window), REF_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 96])
+def test_gqa_group_of_seven_matches_pallas_on_repeated_kv(window, dtype):
+    """14 query heads of 64 over 2 KV heads, InternVL2-1B's grouping (7
+    query heads a KV head), against ``repro``'s Pallas kernel on KV
+    repeated to 14 heads."""
+    (jq, jk, jv), (q, k, v) = _both(_inputs(1, 14, 128, 64, seed=14, kv_heads=2), dtype)
+    got = fa.flash_attention(q, k, v, window=window)
+    assert got.shape == q.shape and got.dtype == DTYPES[dtype][1]
+    jk, jv = (jnp.repeat(t, 7, axis=1) for t in (jk, jv))
     pallas = j_flash(jq, jk, jv, window=window, block_q=64, block_k=64)
     np.testing.assert_allclose(_f32(got), _f32(pallas), atol=PALLAS_TOL[dtype])
     _close_scaled(got, j_flash_ref(jq, jk, jv, window=window), REF_TOL[dtype])

@@ -9,7 +9,8 @@
   loads in ``repro``.
 - ``serve`` (the model-zoo launcher) with ``device="cpu"`` and
   ``repro``'s weights gives the greedy tokens of ``repro``'s own prefill
-  and decode steps.
+  and decode steps, and for the MoE, VLM and audio models those of
+  ``repro``'s own launcher.
 - Without ``--device`` every launcher needs CUDA and says how to get the
   CPU.
 - No module of the port, nor ``chip_smoke.py``, imports JAX or ``repro``.
@@ -291,9 +292,44 @@ def test_serve_cli_defaults_to_cuda(monkeypatch):
         serve.main(["--arch", "h2o_danube3_4b", "--gen-len", "1"])
 
 
-def test_serve_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        serve.serve("mixtral_8x22b", device="cpu", gen_len=1)
+@pytest.mark.parametrize("arch,prompt_len", [("mixtral_8x22b", 70), ("internvl2_1b", 20),
+                                             ("musicgen_medium", 20)])
+def test_serve_gives_the_reference_launchers_greedy_tokens(arch, prompt_len):
+    """The MoE, VLM and audio models: the port's launcher with repro's
+    weights against repro's own launcher (``repro.launch.serve.serve``:
+    its init at PRNGKey(0), its prompt from ``default_rng(seed)``, the
+    tokens then a VLM's patches; an audio model's (B, gen, nc) codebook
+    tokens).  Mixtral's 70-token prompt wraps its reduced window of 64."""
+    import jax
+
+    from repro.configs import get_config as j_get_config
+    from repro.launch import serve as j_serve
+    from repro.models import build_model as j_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_from_numpy
+
+    want = j_serve.serve(arch, batch=2, prompt_len=prompt_len, gen_len=5, seed=3)
+    jparams = j_build_model(j_get_config(arch).reduced()).init(jax.random.PRNGKey(0))
+    params = transformer_params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                           get_config(arch).reduced(), device="cpu")
+    res = serve.serve(arch, batch=2, prompt_len=prompt_len, gen_len=5, seed=3,
+                      device="cpu", params=params)
+    shape = (2, 5, 4) if arch == "musicgen_medium" else (2, 5)
+    assert res["device"] == "cpu" and res["tokens"].shape == shape == want.shape
+    assert np.array_equal(res["tokens"], want)
+
+
+def test_serve_cuts_depth_at_full_width():
+    """``layers`` (``--layers``) keeps the first N layers of a config at
+    its widths: Mixtral-8x22B's reduced widths here, one layer."""
+    res = serve.main(["--arch", "mixtral_8x22b", "--device", "cpu", "--batch", "1",
+                      "--prompt-len", "9", "--gen-len", "3", "--layers", "1"])
+    assert res["tokens"].shape == (1, 3)
+    again = serve.serve("mixtral_8x22b", batch=1, prompt_len=9, gen_len=3, seed=0,
+                        device="cpu", layers=1)
+    assert np.array_equal(again["tokens"], res["tokens"])
+    two = serve.serve("mixtral_8x22b", batch=1, prompt_len=9, gen_len=3, seed=0, device="cpu")
+    assert two["tokens"].shape == (1, 3)
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,20 @@ import pytest
 import torch
 
 from repro.nn import attention as j_attn
+from repro.nn.layers import layer_norm as j_layer_norm
 from repro.nn.layers import rms_norm as j_rms_norm
 from repro.nn.mlp import swiglu as j_swiglu
 from repro.nn.rope import apply_rope as j_apply_rope
 from repro_torch.nn import attention as attn
-from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm, round_up
+from repro_torch.nn.layers import (
+    dense_init,
+    dense_init_by_slice,
+    embed_init,
+    embed_lookup,
+    layer_norm,
+    rms_norm,
+    round_up,
+)
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
 
@@ -43,6 +52,32 @@ def test_rms_norm_matches_reference(dtype):
     assert got.dtype == tdt
     atol = 1e-6 * np.abs(want).max() if dtype == "float32" else 2**-8 * np.abs(want).max()
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_reference(dtype):
+    """f32 mean and biased variance, normalise, cast, then * gamma + beta
+    in x's dtype, as the reference orders it."""
+    x, g, b = _normal((2, 5, 48), 3, 3.0) + 1.5, _normal((48,), 4) + 1.0, _normal((48,), 5)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    got = layer_norm(_t(x, tdt), _t(g, tdt), _t(b, tdt))
+    want = np.asarray(j_layer_norm(_j(x, jdt), _j(g, jdt), _j(b, jdt)), np.float32)
+    assert got.dtype == tdt
+    atol = 1e-6 * np.abs(want).max() if dtype == "float32" else 2**-8 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+
+
+def test_dense_init_by_slice_draws_each_matrix_at_dense_init_scale():
+    """Expert weights drawn one (d, f) matrix at a time: the dtype, the
+    shape, and each matrix's scale 1/sqrt(d), whatever the leading axes."""
+    gen = torch.Generator().manual_seed(0)
+    w = dense_init_by_slice(gen, (3, 4, 256, 96), torch.bfloat16)
+    assert w.shape == (3, 4, 256, 96) and w.dtype == torch.bfloat16
+    std = w.float().reshape(12, -1).std(dim=1)
+    assert torch.allclose(std, torch.full((12,), 256**-0.5), rtol=0.05)
+    assert not torch.equal(w[0, 0], w[0, 1])       # independent draws
+    again = dense_init_by_slice(torch.Generator().manual_seed(0), (3, 4, 256, 96), torch.bfloat16)
+    assert torch.equal(w, again)
 
 
 @pytest.mark.parametrize("hd", [64, 120])
