@@ -18,13 +18,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
 3. Kernel vs plain: ``gram`` and ``propagate_gram`` at every shape the
    training slice launches — layer 0 (20, 784, 3000) and (1, 784, 60000),
    layers 1 and l >= 2 with W (1020, 784) and (1020, 1020) over M=20
-   workers of 3000 samples and one of 60000 — plus ragged cases in f32
-   and bf16, each timed beside its plain version, its library call
-   (``baddbmm``; ``relu(matmul)`` then ``baddbmm``) and two bounds, at the
-   f32 CUDA-core peak and at the tensor-core peak the kernels compute at
-   (three TF32 products per f32 product; bf16 at the bf16 peak), with its
-   TFLOP/s; the headline and centralized ``gram`` also held within 8 f32
-   ulps of max|G| of a float64 Gram.
+   workers of 3000 samples and one of 60000 — phase 16's readout of
+   Danube's taps, (1, 3840, 4096), (4, 3840, 1024) and (1, 3840, 1024),
+   plus ragged cases in f32 and bf16, each timed beside its plain
+   version, its library call (``baddbmm``; ``relu(matmul)`` then
+   ``baddbmm``) and two bounds, at the f32 CUDA-core peak and at the
+   tensor-core peak the kernels compute at (three TF32 products per f32
+   product; bf16 at the bf16 peak), with its TFLOP/s; the headline, centralized and readout ``gram`` also held
+   within 8 f32 ulps of max|G| of a float64 Gram.
 4. The serving slice at full width: a Table-I MNIST-geometry stack
    (P=784, Q=10, n=2Q+1000=1020, L=20) with seeded untrained weights is
    exported with the port's ``export_artifact`` and served through
@@ -190,7 +191,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    128) over 8 KV heads, full causal; Mixtral-8x22B's (1, 48, 8192, 128)
    over 8, window 4096; InternVL2-1B's (1, 14, 8192, 64) over 2;
    MusicGen-medium's (2, 24, 1500, 64); bf16, and f32 where the f32
-   checks launch it), each held per element against its plain version
+   checks launch it) and phase 16(d)'s frozen Danube ((2, 32, 2048, 120)
+   over 8 KV heads, bf16), each held per element against its plain version
    (bf16 also launched twice, bit for bit) and timed beside it, beside
    ``scaled_dot_product_attention`` and beside its bound, with its
    TFLOP/s and its share of the bound.
@@ -279,7 +281,33 @@ Phases, each of which raises (non-zero exit) on any failed check:
     route vs plain route; (c) ``serve`` at batch 2, a 500-frame prompt
     and 32 generated frames; (d) f32 prefill + decode against the
     forward.
-15. The card line, one ``{"kernels": [...]}`` line, and as the last line
+16. Model-zoo training and the layer-wise readout at published widths,
+    seeded weights; training takes the plain path (no kernel has a
+    backward) and launches no kernel.  (a) H2O-Danube3-4B whole (bf16
+    params, f32 moments, remat) through ``launch.train.train``, AdamW(3e-4),
+    B=1, S=4096, 6 steps: finite losses whose last two average below the
+    first; each step's synchronized ms, tokens/s, peak memory.  (b) One
+    Danube layer in f32, one ``make_train_step`` on the card and on a CPU
+    copy of the same weights and batch: loss and grad_norm within 1e-5
+    relative, every gradient leaf within 1e-4 x max.  (c) Two steps of
+    Zamba2-2.7B (one period), xLSTM-350M, Phi-3.5-MoE (2 layers),
+    Mixtral-8x22B (1 layer), InternVL2-1B and MusicGen-medium: finite
+    losses, every leaf moved.  (d) ``layerwise_backbone_fit`` over the 25
+    taps of the frozen whole Danube (kernels on: 24 ``flash_attention``,
+    then one ``gram`` a tap), B=2, S=2048, a planted 10-class label; every
+    kernel call of (d) held on the same inputs, ``flash_attention`` against
+    its plain version and ``gram`` against the float64 Gram;
+    the last tap split over M=4 against the centralized readout at K=200
+    (printed beside the example's 1e-2, and beside the same two solves in
+    float64) and K=1000 (held below a quarter of the K=200 gap); at K=200
+    both solves held against an independent float64 consensus within 10x
+    the decentralized solve's one-ulp response.  (e)
+    ``make_sharded_layer_solver`` on 4 gloo ranks sharing the card against
+    the simulated M=4 solve: within 1e-4 x max|z| at mu=1e-6, and within
+    10x the simulated solve's one-ulp response at mu=1e-2, where f32
+    rounding alone moves z by several 1e-3 x max|z|.  A ``{"zoo_train": ...}``
+    line.  (``--zoo-train-only`` builds and runs this phase alone.)
+17. The card line, one ``{"kernels": [...]}`` line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -522,9 +550,13 @@ def kernel_cases(torch, np):
 
 
 # (M, n, J, dtype) of the gram launches: the train's layer 0, decentralized
-# (M=20 workers of 3000) and centralized (one of 60000), and ragged edges.
+# (M=20 workers of 3000) and centralized (one of 60000), ragged edges, and
+# phase 16's readout of Danube's 3840-wide taps: one tap of J=4096 tokens,
+# split over M=4 workers, and one rank's worker of 16(e).
 GRAM_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32"),
-              (3, 33, 65, "float32"), (3, 33, 65, "bfloat16")]
+              (3, 33, 65, "float32"), (3, 33, 65, "bfloat16"),
+              (1, 3840, 4096, "float32"), (4, 3840, 1024, "float32"),
+              (1, 3840, 1024, "float32")]
 # (n, n_prev, M, J, dtype) of the propagate_gram launches: layer 1 (W is
 # 1020 x 784) and layers l >= 2 (1020 x 1020), decentralized and
 # centralized, and ragged edges.
@@ -534,8 +566,10 @@ PROPAGATE_CASES = [(1020, 784, 20, 3000, "float32"), (1020, 1020, 20, 3000, "flo
 GRAM_HEADLINE = (20, 784, 3000, "float32")
 # gram cases also held against a float64 Gram, within GRAM_F64_ULPS f32
 # ulps of max|G| (the bar of test_gram_sums_are_compensated; a 1xTF32 Gram
-# misses it): the headline and the centralized layer.
-GRAM_F64_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32")]
+# misses it): the headline, the centralized layer and the readout's shapes.
+GRAM_F64_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32"),
+                  (1, 3840, 4096, "float32"), (4, 3840, 1024, "float32"),
+                  (1, 3840, 1024, "float32")]
 GRAM_F64_ULPS = 8
 PROPAGATE_HEADLINE = (1020, 1020, 20, 3000, "float32")
 GRAM_MU = 1e-3      # SSFNConfig.mu0, the layer-0 mu
@@ -2770,7 +2804,8 @@ def lint_slice(torch, np, card: str, exact: dict, cases: list) -> dict:
 # Phi-3.5-MoE (32 heads of 128 over 8, full causal), Mixtral-8x22B (48 of
 # 128 over 8, window 4096), InternVL2-1B (14 of 64 over 2: a group of 7)
 # and MusicGen-medium (B=2, 24 heads of 64, S=1500), in bf16 and, where
-# the f32 checks launch it, f32: (B, H, H_kv, S, hd, window, dtype).
+# the f32 checks launch it, f32, and the frozen Danube of phase 16(d)
+# (B=2, S=2048): (B, H, H_kv, S, hd, window, dtype).
 FLASH_CASES = [(1, 32, 32, 8192, 120, 4096, "bfloat16"),
                (1, 32, 8, 8192, 120, 4096, "bfloat16"),   # what the model launches
                (1, 32, 32, 4096, 120, 4096, "bfloat16"),
@@ -2780,7 +2815,8 @@ FLASH_CASES = [(1, 32, 32, 8192, 120, 4096, "bfloat16"),
                (1, 32, 8, 8192, 128, None, "bfloat16"), (1, 32, 8, 8192, 128, None, "float32"),
                (1, 48, 8, 8192, 128, 4096, "bfloat16"),
                (1, 14, 2, 8192, 64, None, "bfloat16"), (1, 14, 2, 8192, 64, None, "float32"),
-               (2, 24, 24, 1500, 64, None, "bfloat16"), (2, 24, 24, 1500, 64, None, "float32")]
+               (2, 24, 24, 1500, 64, None, "bfloat16"), (2, 24, 24, 1500, 64, None, "float32"),
+               (2, 32, 8, 2048, 120, 4096, "bfloat16")]
 FLASH_HEADLINE = (1, 32, 32, 8192, 120, 4096, "bfloat16")
 # flash_attention tolerance, per element: |kernel - plain| <= rel |plain|
 # + 1e-5 max|plain|.  The second term is f32's (KERNEL_TOL: sums in other
@@ -3323,7 +3359,6 @@ def hybrid_slice(torch, np, card: str) -> tuple[int, dict]:
     from repro_torch.launch import serve
     from repro_torch.models import blocks, build_model
     from repro_torch.models.steps import make_loss_fn, make_serve_step
-    from repro_torch.models.transformer import layer_params
     from repro_torch.nn.layers import embed_lookup
 
     cfg = dataclasses.replace(get_config(HYBRID["arch"]), use_pallas_kernels=True)
@@ -3402,9 +3437,8 @@ def hybrid_slice(torch, np, card: str) -> tuple[int, dict]:
     with torch.no_grad():
         x = embed_lookup(params32["embed"], batch["tokens"])
         positions = torch.arange(s, device="cuda")
-        for i in range(model32.num_periods):
-            for j in range(model32.per_period):
-                mp = layer_params(layer_params(params32["mamba"], i), j)
+        for mamba in model32.mamba_layers(params32):
+            for mp in mamba:
                 plain_x, _ = blocks.apply_mamba_layer(mp, x, plain_cfg, None)
                 routed_x, _ = blocks.apply_mamba_layer(mp, x, cfg32, None)
                 gap = ((routed_x - plain_x).abs().max() / (plain_x - x).abs().max()).item()
@@ -3735,7 +3769,7 @@ def xlstm_slice(torch, np, card: str) -> tuple[int, dict]:
     from repro_torch.launch import serve
     from repro_torch.models import blocks, build_model
     from repro_torch.models.steps import make_loss_fn, make_serve_step
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import layer_views
     from repro_torch.nn.layers import embed_lookup
 
     cfg = dataclasses.replace(get_config(XLSTM["arch"]), use_pallas_kernels=True)
@@ -3843,16 +3877,15 @@ def xlstm_slice(torch, np, card: str) -> tuple[int, dict]:
     layer_gap = 0.0
     with torch.no_grad():
         x = embed_lookup(params32["embed"], batch["tokens"])
-        for i in range(model32.num_periods):
-            for j in range(model32.mlstm_per_period):
-                mp = layer_params(layer_params(params32["mlstm"], i), j)
+        slstms = layer_views(params32["slstm"], model32.num_periods)
+        for mlstm, slstm in zip(model32.mlstm_layers(params32), slstms):
+            for mp in mlstm:
                 plain_x, _ = blocks.apply_mlstm_layer(mp, x, plain_cfg, None)
                 routed_x, _ = blocks.apply_mlstm_layer(mp, x, cfg32, None)
                 gap = ((routed_x - plain_x).abs().max() / (plain_x - x).abs().max()).item()
                 layer_gap = max(layer_gap, gap)
                 x = plain_x
-            x, _ = blocks.apply_slstm_layer(layer_params(params32["slstm"], i), x, plain_cfg,
-                                            None)
+            x, _ = blocks.apply_slstm_layer(slstm, x, plain_cfg, None)
         del x, plain_x, routed_x
         routed, _ = model32.forward(params32, {"tokens": batch["tokens"]})
         plain, _ = plain32.forward(params32, {"tokens": batch["tokens"]})
@@ -4186,7 +4219,7 @@ def moe_layer_checks(torch, model32, params32, tokens, label: str) -> dict:
     The tokens whose float64 top-k differs from the f32 one are counted
     and left out of the bar."""
     from repro_torch.models import blocks
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import layer_views
     from repro_torch.nn import moe
     from repro_torch.nn.layers import rms_norm
 
@@ -4199,8 +4232,7 @@ def moe_layer_checks(torch, model32, params32, tokens, label: str) -> dict:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)
         cap = moe.capacity(s, e, k, cfg.capacity_factor)
-        for i in range(cfg.num_layers):
-            lp = layer_params(params32["layers"], i)
+        for i, lp in enumerate(layer_views(params32["layers"], cfg.num_layers)):
             h, _ = blocks.apply_attention(lp["attn"], rms_norm(x, lp["ln1"]), positions, cfg,
                                           None, window=window)
             x = x + h
@@ -4429,6 +4461,544 @@ def audio_slice(torch, np, card: str, spec: dict = AUDIO,
     return a["launches"], summary
 
 
+# ---------------------------------------------------------------- phase 16
+# Model-zoo training and the layer-wise readout at published widths.
+# (a) H2O-Danube3-4B whole (24 layers, bf16 params, f32 moments, the
+# config's remat) through launch.train.train at repro's train_4k sequence
+# length, its batch of 256 cut to 1.
+ZOO_TRAIN = {"arch": "h2o_danube3_4b", "batch": 1, "seq": 4096, "steps": 6, "lr": 3e-4}
+# (b) One layer in f32 (TF32 off), card against a CPU copy of the same
+# seeded weights and batch.  Both sum the same f32 products in different
+# orders (K up to d_ff = 10240 terms, an error of order sqrt(K) 2**-24 ~
+# 6e-6 of a sum), so: loss and grad_norm within 1e-5 relative, each
+# gradient leaf within 1e-4 x max|leaf|.
+GRAD_CHECK = {"arch": "h2o_danube3_4b", "layers": 1, "batch": 1, "seq": 256, "lr": 3e-4}
+GRAD_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "leaf": 1e-4}
+# (c) Two steps of every other family, depth cut to what one card holds
+# beside the gradients and the f32 moments (16 bytes a parameter).  The
+# rate is 1e-2 so that two steps move every bf16 leaf: a norm weight at
+# 1.0 has a bf16 spacing of 2**-8 below it, which a 3e-4 step leaves
+# unchanged (in repro as here).
+FAMILY_STEPS = (
+    ("zamba2_2_7b", {"layers": 6, "seq": 2048, "batch": 1}),    # one period + the shared block
+    ("xlstm_350m", {"layers": None, "seq": 1024, "batch": 1}),
+    ("phi35_moe_42b", {"layers": 2, "seq": 2048, "batch": 1}),
+    ("mixtral_8x22b", {"layers": 1, "seq": 2048, "batch": 1}),  # inside its 4096 window
+    ("internvl2_1b", {"layers": None, "seq": 2048, "batch": 1}),  # 256 patches + 1792 tokens
+    ("musicgen_medium", {"layers": None, "seq": 1500, "batch": 2}),
+)
+FAMILY_LR = 1e-2
+# (d) The readout over the frozen whole Danube (bf16, kernels on): J = B S
+# tokens, a planted label (tokens_t + tokens_{t-1}) mod Q, one readout per
+# tap (the embedding and each layer's output).  Every flash_attention call
+# of (d) is held against its plain version on the same inputs, and every
+# gram call against the float64 Gram of its input (``held_gram_calls``).
+# The last tap split over M=4 workers of 1024 samples, each fewer than its
+# 3840 features, with singular values spanning more than three decades:
+# consensus ADMM at mu=1e-2 approaches the centralized readout slowly
+# there, so examples/layerwise_readout.py's 1e-2 at K=200 is printed
+# beside the gap, not held.  What is held: the K=200 decentralized and
+# centralized solves each against the same consensus computed on the same
+# blocks in float64 by an independent plain loop (``consensus_f64``),
+# within ULP_FACTOR x the decentralized solve's own response to one ulp of
+# input noise, and the K=1000 gap below a quarter of the K=200 one.  The
+# float64 solves' gap shows the creep is the algorithm's on this tap.
+# (e) the sharded solver on 4 gloo ranks against the simulated
+# M=4 solve on the same blocks.  A rank factors its own G = Y_m Y_m^T + I/mu
+# where the simulated solve factors the four as one batch, and the two
+# round differently; at mu=1e-2 the ill-conditioned G turns that into
+# gaps of the order of the simulated solve's own response to one ulp of
+# input noise, which the phase measures.  So 1e-4 x max|z| is held at
+# mu=1e-6 (G near the identity times 1e6), and at mu=1e-2 the gap is held
+# to 10x that one-ulp response.
+READOUT = {"arch": "h2o_danube3_4b", "batch": 2, "seq": 2048, "q": 10, "mu": 1e-2,
+           "iters": 50, "dec_iters": (200, 1000), "workers": 4, "sharded_iters": 100,
+           "sharded_mus": (1e-2, 1e-6), "ranks": 4, "seed": 0}
+EXAMPLE_GAP = 1e-2
+GAP_SHRINK = 4.0
+SHARDED_TOL = 1e-4
+ULP_FACTOR = 10.0
+
+
+class GradCapture:
+    """An optimizer that keeps the gradients it is given, then updates as
+    ``inner`` does: how (b) reads the train step's gradient."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, params, grads, state):
+        self.grads = grads
+        return self.inner.update(params, grads, state)
+
+
+def kernel_counters():
+    from repro_torch.kernels import (flash_attention, gram, matmul_relu, mlstm_scan,
+                                     propagate_gram, ssm_scan)
+
+    return {m.__name__.rsplit(".", 1)[-1]: m for m in (
+        matmul_relu, gram, propagate_gram, flash_attention, ssm_scan, mlstm_scan)}
+
+
+def timed_train(torch, arch: str, **kw) -> dict:
+    """``launch.train.train`` with each train step, and the AdamW update
+    inside it, synchronized and timed (``make_train_step`` and ``AdamW``
+    wrapped for the call), the card's peak memory and every kernel counter
+    read around it."""
+    from repro_torch.launch import train as train_lib
+
+    counters = kernel_counters()
+    step_ms, update_ms = [], []
+    real, real_opt = train_lib.make_train_step, train_lib.AdamW
+
+    class TimedAdamW(real_opt):
+        def update(self, params, grads, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().update(params, grads, state)
+            torch.cuda.synchronize()
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    def timed_make(model, opt):
+        step = real(model, opt)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    for c in counters.values():
+        c.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_accumulated_memory_stats()
+    train_lib.make_train_step, train_lib.AdamW = timed_make, TimedAdamW
+    try:
+        losses = train_lib.train(arch, reduced=False, device="cuda", log_every=1, **kw)
+    finally:
+        train_lib.make_train_step, train_lib.AdamW = real, real_opt
+    launched = {k: c.launch_count() for k, c in counters.items() if c.launch_count()}
+    if launched:
+        raise AssertionError(f"16 {arch}: training launched kernels {launched}; it must take "
+                             "the plain path (no kernel has a backward)")
+    return {"losses": losses, "step_ms": step_ms, "update_ms": update_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)}
+
+
+def train_danube(torch, np, card: str) -> dict:
+    """16(a): H2O-Danube3-4B whole, 6 AdamW steps through launch.train."""
+    from repro_torch.configs import get_config
+
+
+    spec = ZOO_TRAIN
+    cfg = get_config(spec["arch"])
+    free(torch)
+    print(f"16(a) {describe(cfg)}; remat {cfg.remat}, AdamW(lr={spec['lr']}) with f32 "
+          f"moments, B={spec['batch']} S={spec['seq']}", flush=True)
+    run = timed_train(torch, spec["arch"], steps=spec["steps"], batch=spec["batch"],
+                      seq=spec["seq"], lr=spec["lr"])
+    losses, ms = run["losses"], run["step_ms"]
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"16(a) losses {losses}: not finite, or the last two's mean is "
+                             "not below the first")
+    tokens = spec["batch"] * spec["seq"]
+    steady = float(np.median(ms[1:]))
+    update = float(np.median(run["update_ms"][1:]))
+    flops = 6 * cfg.param_count() * tokens
+    print(f"16(a) losses {[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in ms]} "
+          f"(synchronized; median of steps 2-{len(ms)} {steady:.1f} ms, "
+          f"{tokens / steady * 1e3:.0f} tokens/s; of it the AdamW update {update:.1f} ms, "
+          f"the loss, its gradient and grad_norm {steady - update:.1f} ms); peak "
+          f"{run['peak_gb']:.2f} GB, caching-allocator retries {run['alloc_retries']} (each "
+          f"frees the cached blocks and waits for the card); 6*N*T / step = "
+          f"{flops / steady / 1e9:.1f} TFLOP/s (information only: remat runs each layer's "
+          f"forward twice) on {card}", flush=True)
+    return {"arch": spec["arch"], "layers": cfg.num_layers, "losses": losses, "step_ms": ms,
+            "steady_ms": steady, "update_ms": update, "tokens_per_s": tokens / steady * 1e3,
+            "peak_gb": run["peak_gb"], "alloc_retries": run["alloc_retries"],
+            "model_tflops": flops / steady / 1e9}
+
+
+def grad_check(torch, np, card: str) -> dict:
+    """16(b): one make_train_step of one full-width Danube layer in f32 on
+    the card and on a CPU copy of the same weights and batch."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamW
+
+    spec = GRAD_CHECK
+    free(torch)
+    cfg = dataclasses.replace(get_config(spec["arch"]), num_layers=spec["layers"],
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    host = _tree.map_(lambda t: t.cpu(), params)
+    batch = next(iter(TokenStream(cfg.vocab_size, spec["seq"], spec["batch"], seed=0)))
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        opt = GradCapture(AdamW(lr=spec["lr"]))
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, _, metrics = make_train_step(model, opt)(p, opt.init(p), b)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        out[dev] = (loss, gnorm, _tree.leaves(opt.grads), time.perf_counter() - t0)
+    (l_c, n_c, g_c, s_c), (l_h, n_h, g_h, s_h) = out["cuda"], out["cpu"]
+    worst, names = -1.0, None
+    paths = _tree.leaves(_paths(params))
+    for name, a, b in zip(paths, g_c, g_h):
+        gap = float((a.cpu() - b).abs().max() / b.abs().max())
+        if gap > worst:
+            worst, names = gap, name
+    loss_gap, norm_gap = abs(l_c - l_h) / abs(l_h), abs(n_c - n_h) / abs(n_h)
+    print(f"16(b) {cfg.name} 1 layer f32 ({cfg.param_count() / 1e9:.3f} B), B={spec['batch']} "
+          f"S={spec['seq']}: loss card {l_c:.7f} cpu {l_h:.7f} (rel {loss_gap:.2e}), grad_norm "
+          f"card {n_c:.6f} cpu {n_h:.6f} (rel {norm_gap:.2e}); worst leaf {names} "
+          f"{worst:.3e} x max|g|; step {s_c:.2f} s on the card, {s_h:.2f} s on the CPU "
+          f"({card})", flush=True)
+    if not (loss_gap <= GRAD_TOL["loss"] and norm_gap <= GRAD_TOL["grad_norm"]
+            and worst <= GRAD_TOL["leaf"]):
+        raise AssertionError(f"16(b) card vs CPU: loss {loss_gap:.2e}, grad_norm "
+                             f"{norm_gap:.2e}, leaf {names} {worst:.2e} (bars {GRAD_TOL})")
+    del params, host, out
+    return {"loss_rel": loss_gap, "grad_norm_rel": norm_gap, "worst_leaf": names,
+            "worst_leaf_rel": worst, "card_s": s_c, "cpu_s": s_h}
+
+
+def _paths(tree, prefix=""):
+    """The tree with each leaf replaced by its key path, 'a.b.c'."""
+    return {k: _paths(v, f"{prefix}{k}.") if isinstance(v, dict) else f"{prefix}{k}"
+            for k, v in tree.items()}
+
+
+def family_steps(torch, np, card: str) -> dict:
+    """16(c): two train steps of each other family at published widths,
+    depth cut as FAMILY_STEPS says."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch, spec in FAMILY_STEPS:
+        free(torch)
+        cfg = get_config(arch)
+        whole = cfg.num_layers
+        if spec["layers"] is not None:
+            cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+        params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+        before = [t.clone() for t in _tree.leaves(params)]
+        run = timed_train(torch, arch, steps=2, batch=spec["batch"], seq=spec["seq"],
+                          lr=FAMILY_LR, params=params, layers=spec["layers"])
+        after = _tree.leaves(params)
+        with torch.no_grad():
+            same = [i for i, (a, b) in enumerate(zip(before, after)) if torch.equal(a, b)]
+            finite = all(bool(torch.isfinite(t).all()) for t in after)
+        state_gb = sum(t.numel() * (2 * t.element_size() + 8) for t in after) / 1e9
+        cut = f"{cfg.num_layers} of {whole} layers" if spec["layers"] else "whole"
+        if cfg.family == "vlm":
+            cut += f"; {cfg.num_patches} patches + {spec['seq'] - cfg.num_patches} tokens"
+        print(f"16(c) {describe(cfg)} ({cut}), B={spec['batch']} S={spec['seq']}: "
+              f"losses {[round(x, 4) for x in run['losses']]}, step ms "
+              f"{[round(x, 1) for x in run['step_ms']]} (AdamW "
+              f"{[round(x, 1) for x in run['update_ms']]}), peak {run['peak_gb']:.2f} GB "
+              f"(params + grads + moments {state_gb:.1f} GB); leaves unchanged {len(same)} of "
+              f"{len(after)} on {card}", flush=True)
+        if not all(np.isfinite(run["losses"])) or same or not finite:
+            raise AssertionError(f"16(c) {arch}: losses {run['losses']}, unchanged leaves "
+                                 f"{same}, params finite {finite}")
+        out[arch] = {"layers": cfg.num_layers, "losses": run["losses"],
+                     "step_ms": run["step_ms"], "update_ms": run["update_ms"],
+                     "peak_gb": run["peak_gb"]}
+        del params, before, after
+    return out
+
+
+def tap_features(torch, model, params, tokens):
+    """The frozen backbone's embedding and every layer's output, each as a
+    (d, B*S) f32 feature matrix (examples/layerwise_readout.py's taps)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import layer_views
+    from repro_torch.nn.layers import embed_lookup
+
+    cfg = model.cfg
+    x = embed_lookup(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    taps = [x]
+    for layer_p in layer_views(params["layers"], cfg.num_layers):
+        x, _, _ = blocks.apply_transformer_layer(layer_p, x, positions, cfg, None)
+        taps.append(x)
+    return [t.reshape(-1, cfg.d_model).T.float().contiguous() for t in taps]
+
+
+class OpRecorder:
+    """Inside ``with``, every call of ``module.name`` (a kernel's op)
+    keeps its arguments and a copy of its result in ``calls``, so that
+    each can be held against the plain version after the timed work."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self._op = op = getattr(self.module, self.name)
+
+        def call(*args, **kwargs):
+            out = op(*args, **kwargs)
+            self.calls.append((args, kwargs, out.clone()))
+            return out
+
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._op)
+
+
+def held_gram_calls(torch, calls) -> tuple[float, float]:
+    """Over the recorded gram calls, the worst distance of the kernel's G
+    from the float64 Gram of the same input, in f32 ulps of max|G| (the
+    GRAM_F64_CASES bar), and the same for the f32 plain version.  The
+    float64 Gram is the judge here: the tap features keep one sign along
+    many rows, so the f32 plain Gram's own rounding grows with J (no
+    cancellation) past ``gram_tol``.  Each G must be exactly symmetric."""
+    from repro_torch.kernels.gram import gram_ref
+
+    worst = worst_plain = 0.0
+    for (y,), kw, got in calls:
+        if not torch.equal(got, got.mT):
+            raise AssertionError(f"gram y{tuple(y.shape)}: G not exactly symmetric")
+        y64 = y.double()
+        want = y64 @ y64.mT + torch.eye(y.shape[-2], dtype=torch.float64,
+                                        device=y.device) / kw["mu"]
+        ulp = 2.0**-24 * want.abs().max()
+        worst = max(worst, float((got.double() - want).abs().max() / ulp))
+        worst_plain = max(worst_plain,
+                          float((gram_ref(y, **kw).double() - want).abs().max() / ulp))
+        del y64, want
+    return worst, worst_plain
+
+
+def held_flash_calls(calls) -> float:
+    """The worst over the recorded flash_attention calls and their
+    elements of (|kernel - plain| - FLASH_REL |plain|) / (1e-5 max|plain|)
+    (<= 1 passes: ``flash_excess``'s bar)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    worst = -float("inf")
+    for (q, k, v), kw, got in calls:
+        _, floor, excess = flash_excess(got, flash_attention_ref(q, k, v, **kw),
+                                        str(q.dtype).rsplit(".", 1)[-1])
+        worst = max(worst, (excess + floor) / floor)
+    return worst
+
+
+def consensus_f64(torch, yw, tw, mu: float, eps: float, iters: int):
+    """Consensus ADMM under the exact mean (paper Algorithm 1) in float64,
+    written apart from ``core/admm.py``: one inverse of each worker's G,
+    the mean over the worker dim, the Frobenius projection.  (Q, n)."""
+    y, t = yw.double(), tw.double()
+    eye = torch.eye(y.shape[1], dtype=torch.float64, device=y.device)
+    g_inv = torch.linalg.inv(y @ y.mT + eye / mu)
+    a = t @ y.mT
+    z, lam = torch.zeros_like(a[0]), torch.zeros_like(a)
+    for _ in range(iters):
+        o = (a + (z - lam) / mu) @ g_inv
+        avg = (o + lam).mean(0)
+        z = avg * torch.clamp(eps / torch.linalg.vector_norm(avg), max=1.0)
+        lam = lam + o - z
+    return z
+
+
+def _readout_rank(group, y, t, spec):
+    """16(e) on one rank: the sharded solver over this rank's block, at
+    each of ``sharded_mus``."""
+    import torch
+
+    from repro_torch.core import readout
+
+    y, t = torch.from_numpy(y).to(group.device), torch.from_numpy(t).to(group.device)
+    out = []
+    for mu in spec["sharded_mus"]:
+        solver = readout.make_sharded_layer_solver(
+            group, mu=mu, eps_radius=2.0 * spec["q"], num_iters=spec["sharded_iters"])
+        out.append(solver(y, t).z.cpu().numpy())
+    return out
+
+
+def readout_slice(torch, np, card: str) -> tuple[dict, dict]:
+    """16(d) and (e).  Returns (gram and flash_attention launches, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import admm, readout
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import blocks, build_model
+
+    spec = READOUT
+    free(torch)
+    counters = kernel_counters()
+    cfg = dataclasses.replace(get_config(spec["arch"]), use_pallas_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(spec["seed"]))
+    b, s, q, mu = spec["batch"], spec["seq"], spec["q"], spec["mu"]
+    rng = np.random.default_rng(spec["seed"])
+    toks = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = (toks + np.pad(toks, ((0, 0), (1, 0)))[:, :-1]) % q      # token t-1 = 0 at t = 0
+    labels = torch.as_tensor(labels.reshape(-1), device="cuda")
+    targets = torch.nn.functional.one_hot(labels, q).T.float().contiguous()
+    for c in counters.values():
+        c.reset_launch_count()
+    t0 = time.perf_counter()
+    with torch.no_grad(), OpRecorder(blocks, "flash_attention") as flash_calls:
+        feats = tap_features(torch, model, params, torch.as_tensor(toks, device="cuda"))
+        torch.cuda.synchronize()
+    tap_s = time.perf_counter() - t0
+    with torch.no_grad(), OpRecorder(admm, "gram") as gram_calls:
+        del params
+        free(torch)
+        t0 = time.perf_counter()
+        fit = readout.layerwise_backbone_fit(feats, targets, mu=mu, num_iters=spec["iters"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        costs = fit.layer_costs.tolist()
+        acc = [float((torch.argmax(o @ y, dim=0) == labels).float().mean())
+               for o, y in zip(fit.readouts, feats)]
+        launches = {"flash_attention": counters["flash_attention"].launch_count(),
+                    "gram": counters["gram"].launch_count()}
+        n, j = feats[0].shape
+        print(f"16(d) taps of {cfg.name} whole (bf16, kernels on), B={b} S={s}: J={j} tokens, "
+              f"{len(feats)} taps of ({n}, {j}) f32 in {tap_s:.2f} s; layerwise_backbone_fit "
+              f"mu={mu} K={spec['iters']} in {fit_s:.2f} s; launches {launches}; costs "
+              f"{[round(c, 1) for c in costs]}; train accuracy on (t_i + t_(i-1)) mod {q} "
+              f"{[round(a, 4) for a in acc]} on {card}", flush=True)
+        if launches != {"flash_attention": cfg.num_layers, "gram": len(feats)} or \
+                not all(np.isfinite(costs)):
+            raise AssertionError(f"16(d) launches {launches} (expected {cfg.num_layers} "
+                                 f"flash_attention, {len(feats)} gram) or costs {costs}")
+
+        # The last tap over M workers, contiguous sample blocks.
+        m, y, eps = spec["workers"], feats[-1], 2.0 * q
+        sv = torch.linalg.svdvals(y)
+        cond = float((sv[0] ** 2 + 1 / mu) / (sv[-1] ** 2 + 1 / mu))
+        print(f"16(d) last tap: singular values {float(sv[-1]):.4g} to {float(sv[0]):.4g}; "
+              f"Y Y^T + I/mu has condition number {cond:.4g} at mu={mu}", flush=True)
+        yw = y.reshape(n, m, j // m).transpose(0, 1).contiguous()
+        tw = targets.reshape(q, m, j // m).transpose(0, 1).contiguous()
+
+        def rel(a, b):
+            return float(torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b))
+
+        gaps, solves = [], {}
+        t0 = time.perf_counter()
+        for k in spec["dec_iters"]:
+            dec = admm.admm_ridge_consensus(yw, tw, mu=mu, eps_radius=eps, num_iters=k,
+                                            trace_every=0).o_star
+            cen = readout.fit_readout(y, targets, mu=mu, eps_radius=eps, num_iters=k)
+            gaps.append(rel(dec, cen))
+            solves.setdefault("dec", dec)
+            solves.setdefault("cen", cen)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        k0 = spec["dec_iters"][0]
+        up = torch.nextafter(yw, torch.full_like(yw, float("inf")))
+        moved = admm.admm_ridge_consensus(up, tw, mu=mu, eps_radius=eps, num_iters=k0,
+                                          trace_every=0).o_star
+        dec_ulp = rel(moved, solves["dec"])
+        dec64 = consensus_f64(torch, yw, tw, mu, eps, k0)
+        cen64 = consensus_f64(torch, y[None], targets[None], mu, eps, k0)
+        errs64 = {"dec": rel(solves["dec"], dec64), "cen": rel(solves["cen"], cen64)}
+        gap64 = rel(dec64, cen64)
+        del moved, dec64, cen64, solves
+
+        def simulated(y_blocks, mu_):
+            return admm.admm_ridge_consensus(y_blocks, tw, mu=mu_, eps_radius=eps,
+                                             num_iters=spec["sharded_iters"]).o_star
+
+        sims = [simulated(yw, mu_) for mu_ in spec["sharded_mus"]]
+        ulp = float((simulated(up, spec["sharded_mus"][0]) - sims[0]).abs().max()
+                    / sims[0].abs().max())
+        launches["gram"] = counters["gram"].launch_count()
+    expect = len(feats) + 2 * len(gaps) + 1 + len(sims) + 1
+    bar64 = ULP_FACTOR * dec_ulp
+    print(f"16(d) decentralized M={m} vs centralized readout of the last tap: rel gap "
+          f"{gaps[0]:.3e} at K={k0} (the example's bar {EXAMPLE_GAP}; {gap64:.3e} between "
+          f"the same two solves in float64), {gaps[1]:.3e} at K={spec['dec_iters'][1]} (held "
+          f"below 1/{GAP_SHRINK:g} of the first); at K={k0} against the float64 consensus: "
+          f"decentralized {errs64['dec']:.3e}, centralized {errs64['cen']:.3e} (bar "
+          f"{bar64:.3e}: {ULP_FACTOR:g}x the decentralized solve's one-ulp response "
+          f"{dec_ulp:.3e}); {dec_s:.2f} s; gram launches {launches['gram']} (one more a "
+          f"further solve)", flush=True)
+    if not gaps[1] < gaps[0] / GAP_SHRINK or launches["gram"] != expect or \
+            not max(errs64.values()) <= bar64:
+        raise AssertionError(f"16(d) decentralized gaps {gaps}, float64 errors {errs64} "
+                             f"(bar {bar64:.3e}), gram launches {launches['gram']} "
+                             f"(expected {expect})")
+    with torch.no_grad():
+        gram_ulps, plain_ulps = held_gram_calls(torch, gram_calls.calls)
+        held = {"flash_attention": held_flash_calls(flash_calls.calls),
+                "gram": gram_ulps / GRAM_F64_ULPS}
+    print(f"16(d) every kernel call of (d) on the same inputs: flash_attention against its "
+          f"plain version, worst error over its bar {held['flash_attention']:.3f} over "
+          f"{len(flash_calls.calls)} calls; gram against the float64 Gram, worst "
+          f"{gram_ulps:.2f} f32 ulps of max|G| (bar {GRAM_F64_ULPS}; the f32 plain version "
+          f"{plain_ulps:.2f}) over {len(gram_calls.calls)} calls", flush=True)
+    if not (max(held.values()) <= 1.0 and len(flash_calls.calls) == launches["flash_attention"]
+            and len(gram_calls.calls) == launches["gram"]):
+        raise AssertionError(f"16(d) kernel vs plain {held} (<= 1 passes), calls "
+                             f"{len(flash_calls.calls)}/{len(gram_calls.calls)}")
+    del flash_calls, gram_calls
+    with torch.no_grad():
+        y_host, t_host = y.cpu().numpy(), targets.cpu().numpy()
+        sims = [z.cpu().numpy() for z in sims]
+        del feats, fit, y, yw, tw, up
+    free(torch)
+    t0 = time.perf_counter()
+    zs = mesh_lib.spawn_workers(_readout_rank, spec["ranks"], y_host, t_host, spec,
+                                backend="gloo", device="cuda", join_timeout_s=300)
+    wall = time.perf_counter() - t0
+    errs = [max(float(np.abs(z[i] - sim).max()) for z in zs) / float(np.abs(sim).max())
+            for i, sim in enumerate(sims)]
+    bars = [ULP_FACTOR * ulp, SHARDED_TOL]
+    print(f"16(e) make_sharded_layer_solver on {spec['ranks']} gloo ranks sharing the card, "
+          f"K={spec['sharded_iters']}: max|z - simulated| / max|z| = {errs[0]:.3e} at mu="
+          f"{spec['sharded_mus'][0]} (bar {bars[0]:.3e}: {ULP_FACTOR:g}x the simulated "
+          f"solve's one-ulp response {ulp:.3e}), {errs[1]:.3e} at mu={spec['sharded_mus'][1]} "
+          f"(bar {SHARDED_TOL}); {wall:.2f} s wall, the spawn included", flush=True)
+    if not all(e <= b for e, b in zip(errs, bars)):
+        raise AssertionError(f"16(e) sharded vs simulated {errs} (bars {bars})")
+    return launches, {"tap_s": tap_s, "fit_s": fit_s, "costs": costs, "accuracy": acc,
+                      "decentralized_gaps": dict(zip(spec["dec_iters"], gaps)),
+                      "decentralized_s": dec_s, "ulp_response": ulp,
+                      "float64_errs": errs64, "float64_gap": gap64, "dec_ulp_response": dec_ulp,
+                      "kernel_vs_plain": held, "gram_f64_ulps": gram_ulps,
+                      "gram_plain_f64_ulps": plain_ulps,
+                      "singular_values": [float(sv[-1]), float(sv[0])], "condition": cond,
+                      "sharded_errs": dict(zip(spec["sharded_mus"], errs)),
+                      "sharded_wall_s": wall}
+
+
+def zoo_train_slice(torch, np, card: str) -> tuple[dict, dict]:
+    """Phase 16: (a)-(e).  Returns the main path's gram and
+    flash_attention launches (the readout's) and a summary."""
+    t0 = time.perf_counter()
+    summary = {"card": card, "danube": train_danube(torch, np, card),
+               "grad_check": grad_check(torch, np, card),
+               "families": family_steps(torch, np, card)}
+    launches, summary["readout"] = readout_slice(torch, np, card)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"16 done in {summary['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"zoo_train": summary}), flush=True)
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -4461,6 +5031,11 @@ def main() -> int:
             return 0
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if "--zoo-train-only" in args:
+        # Phase 16 alone, for a short card run while it changes.
+        zoo_train_slice(torch, np, card)
+        print(f"card: {card}", flush=True)
+        return 0
 
     cases = kernel_cases(torch, np)
     gram_cases, prop_cases = gram_kernel_cases(torch)
@@ -4499,6 +5074,9 @@ def main() -> int:
                      ("musicgen", lambda: audio_slice(torch, np, card))):
         launched, zoo[key] = run()
         flash_launches += launched
+    zoo_train_launches, _ = zoo_train_slice(torch, np, card)
+    flash_launches += zoo_train_launches["flash_attention"]
+    train_launches["gram"] += zoo_train_launches["gram"]
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)

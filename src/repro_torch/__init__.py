@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of ``repro``: decentralized layer-wise SSFN with
 centralized equivalence (arXiv:2009.13982), trained and served on an
-NVIDIA H100, and the model zoo's dense transformers and Zamba2-style
-hybrid for inference.
+NVIDIA H100; the model zoo (dense, MoE, VLM and audio transformers, the
+Zamba2-style hybrid and xLSTM) served and trained (``launch/serve.py``,
+``launch/train.py``, ``optim/``); and the layer-wise convex readout over
+any of its backbones (``core/readout.py``).
 
 It mirrors ``repro``'s module layout so each ported file has a twin in the
 reference.  It imports ``torch``, ``numpy`` and the standard library only;

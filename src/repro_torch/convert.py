@@ -1,6 +1,6 @@
 """Carry SSFN parameters, random matrices, datasets and model-zoo
-(transformer of every family, hybrid and xLSTM) parameters between
-``repro`` (as numpy arrays) and the port.
+(transformer of every family, hybrid and xLSTM) parameters and optimizer
+states between ``repro`` (as numpy arrays) and the port.
 
 ``repro``'s arrays are JAX arrays; ``np.asarray`` on each gives what
 these functions take and return, so neither package imports the other.
@@ -274,3 +274,28 @@ def transformer_params_to_numpy(params: dict[str, Any]) -> dict[str, Any]:
 
 hybrid_params_to_numpy = transformer_params_to_numpy
 xlstm_params_to_numpy = transformer_params_to_numpy
+
+
+def opt_state_from_numpy(
+    state: dict[str, Any], *, device: str | torch.device | None = None
+) -> dict[str, Any]:
+    """An ``Sgd`` or ``AdamW`` state on ``device`` (``None`` means ``cuda``)
+    from ``jax.tree.map(np.asarray, state)`` of ``repro``'s: ``step`` an
+    int32 0-d tensor, the moments (``m``, and ``v`` for AdamW, each a tree
+    like the params) f32, as both packages keep them."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.tensor(np.asarray(node, np.float32), device=dev)
+
+    out = {k: conv(v) for k, v in state.items() if k != "step"}
+    out["step"] = torch.tensor(np.asarray(state["step"]), dtype=torch.int32, device=dev)
+    return out
+
+
+def opt_state_to_numpy(state: dict[str, Any]) -> dict[str, Any]:
+    """The inverse of :func:`opt_state_from_numpy`: the same tree of host
+    numpy arrays (``step`` int32, the moments f32)."""
+    return transformer_params_to_numpy(state)

@@ -130,17 +130,21 @@ def _worker_stats_local(y_m: Tensor, t_m: Tensor, mu: float):
     return a[0], chol[0], jitter[0]
 
 
-def _o_update(a: Tensor, chol: Tensor, z: Tensor, lam: Tensor, mu: float) -> Tensor:
-    """O_m = (A_m + (Z - Lam_m)/mu) G_m^{-1} via the cached Cholesky factor
-    L_m (G = L L^T): solve Y L^T = R, then O L = Y.
+def solve_right(rhs: Tensor, chol: Tensor) -> Tensor:
+    """R G^{-1} for the Cholesky factor L of G (G = L L^T): solve
+    Y L^T = R, then O L = Y.
 
     These are the two triangular solves of the reference's ``cho_solve``
     (LAPACK's potrs), written out because ``torch.cholesky_solve`` on
     CUDA solves a batch with several right-hand sides one matrix at a
     time, while ``solve_triangular`` takes the M workers in one call."""
-    rhs = a + (z - lam) / mu
     y = torch.linalg.solve_triangular(chol.mT, rhs, upper=True, left=False)
     return torch.linalg.solve_triangular(chol, y, upper=False, left=False)
+
+
+def _o_update(a: Tensor, chol: Tensor, z: Tensor, lam: Tensor, mu: float) -> Tensor:
+    """O_m = (A_m + (Z - Lam_m)/mu) G_m^{-1} via the cached Cholesky factor."""
+    return solve_right(a + (z - lam) / mu, chol)
 
 
 def validate_trace_every(trace_every: int, num_iters: int) -> int:

@@ -20,6 +20,10 @@ version:
                    the final (C, n, m)              (xLSTM's scoring
                                                      forward)
 
+No op has a backward (nor has ``repro``'s): each refuses tensors that
+require grad while grad mode is on (``_autograd.refuse_grad``), on the
+CPU route as on the card, so training takes the plain path.
+
 ``csrc/gram.cuh`` holds the Gram tiles that ``gram.cu`` and
 ``propagate_gram.cu`` share; ``csrc/tensor_core.cuh`` the ``mma.sync``,
 ``ldmatrix`` and ``cp.async`` wrappers of ``flash_attention.cu``'s bf16

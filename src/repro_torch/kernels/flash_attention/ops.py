@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._autograd import refuse_grad
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -16,6 +17,7 @@ def flash_attention(
     tensors take the plain version; every other tensor goes to the CUDA
     kernel, at any S, which launches or raises (see ``flash_attention_cuda``
     for the head_dims it takes)."""
+    refuse_grad("flash_attention", q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, window=window)
     return flash_attention_cuda(q, k, v, window=window)

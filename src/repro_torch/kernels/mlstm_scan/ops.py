@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._autograd import refuse_grad
 from repro_torch.kernels.mlstm_scan.kernel import mlstm_scan_cuda
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
@@ -22,6 +23,7 @@ def mlstm_scan(
     ``mlstm_scan_cuda`` for what it takes; S must be a multiple of
     ``chunk``: the caller pads, where ``repro``'s op falls back to one
     chunk of S)."""
+    refuse_grad("mlstm_scan", q, k, v, i_pre, f_pre)
     if all(t.device.type == "cpu" for t in (q, k, v, i_pre, f_pre)):
         return mlstm_scan_ref(q, k, v, i_pre, f_pre, chunk=chunk)
     return mlstm_scan_cuda(q, k, v, i_pre, f_pre, chunk=chunk)

@@ -9,10 +9,13 @@ dict, so ``convert.hybrid_params_from_numpy`` carries ``repro``'s params
 across unchanged.  The two ``lax.scan``s (periods, Mamba layers within a
 period) become Python loops.  ``forward`` is the full-sequence scoring
 pass (through the ``ssm_scan`` and ``flash_attention`` ops when
-``cfg.use_pallas_kernels``); ``prefill`` and ``decode_step`` take the
-plain chunked scan, the decode recurrence and the plain attention, as the
-reference routes them.  There is one KV cache per shared-attention call,
-stacked on a leading num_periods axis.
+``cfg.use_pallas_kernels``, which only inference may set); ``prefill``
+and ``decode_step`` take the plain chunked scan, the decode recurrence and
+the plain attention, as the reference routes them.  When autograd records,
+``cfg.remat`` recomputes each period (its Mamba layers and the shared
+block) in the backward pass, and the shared block's gradient sums over
+its calls.  There is one KV cache per shared-attention call, stacked on a
+leading num_periods axis.
 """
 from __future__ import annotations
 
@@ -23,7 +26,12 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _attention_collect_kv, _kv_to_cache, layer_params
+from repro_torch.models.transformer import (
+    _attention_collect_kv,
+    _kv_to_cache,
+    layer_views,
+    remat,
+)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm
@@ -61,8 +69,10 @@ class HybridModel:
             "head": dense_init(gen, (d, v), cfg.torch_dtype),
         }
 
-    def _mamba(self, params: Params, i: int, j: int) -> Params:
-        return layer_params(layer_params(params["mamba"], i), j)
+    def mamba_layers(self, params: Params) -> list[list[Params]]:
+        """Views of the Mamba layers, indexed [period][layer]."""
+        return [layer_views(p, self.per_period)
+                for p in layer_views(params["mamba"], self.num_periods)]
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, params["ln_f"]) @ params["head"]
@@ -73,10 +83,16 @@ class HybridModel:
         cfg = self.cfg
         x = embed_lookup(params["embed"], batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
-        for i in range(self.num_periods):
-            for j in range(self.per_period):
-                x, _ = blocks.apply_mamba_layer(self._mamba(params, i, j), x, cfg, None)
-            x, _, _ = blocks.apply_transformer_layer(params["shared_attn"], x, positions, cfg, None)
+
+        def period_body(x, mamba, shared):
+            for mp in mamba:
+                x, _ = blocks.apply_mamba_layer(mp, x, cfg, None)
+            x, _, _ = blocks.apply_transformer_layer(shared, x, positions, cfg, None)
+            return x
+
+        run = remat(period_body, cfg)
+        for mamba in self.mamba_layers(params):
+            x = run(x, mamba, params["shared_attn"])
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------ prefill
@@ -121,10 +137,11 @@ class HybridModel:
             conv=torch.zeros((b, cfg.conv_kernel - 1, di), dtype=x.dtype, device=x.device),
         )
         shared = params["shared_attn"]
+        mamba = self.mamba_layers(params)
         hs, convs, ks, vs = [], [], [], []
         for i in range(self.num_periods):
             for j in range(self.per_period):
-                x, st = blocks.apply_mamba_layer(self._mamba(params, i, j), x, cfg, zero)
+                x, st = blocks.apply_mamba_layer(mamba[i][j], x, cfg, zero)
                 hs.append(st.h)
                 convs.append(st.conv)
             h, (k, v) = _attention_collect_kv(shared, x, positions, cfg, window)
@@ -151,10 +168,11 @@ class HybridModel:
         x = embed_lookup(params["embed"], batch["tokens"])
         positions = cache.attn.index[:1]        # (1,), the same for every call
         ssm = cache.ssm
+        mamba = self.mamba_layers(params)
         for i in range(self.num_periods):
             for j in range(self.per_period):
                 st = ssm_lib.SSMState(h=ssm.h[i, j], conv=ssm.conv[i, j])
-                x, st = blocks.apply_mamba_layer(self._mamba(params, i, j), x, cfg, st)
+                x, st = blocks.apply_mamba_layer(mamba[i][j], x, cfg, st)
                 ssm.h[i, j].copy_(st.h)
                 ssm.conv[i, j].copy_(st.conv)
             a_st = attn_lib.KVCache(k=cache.attn.k[i], v=cache.attn.v[i],

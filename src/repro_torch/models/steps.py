@@ -1,10 +1,18 @@
-"""Loss and step functions for the inference slice: the scoring loss,
-prefill and one greedy decode step.  Port of ``repro/models/steps.py``;
-``make_train_step`` waits for model-zoo training (ROADMAP Queue 1 item 13).
-Callers run these under ``torch.no_grad()``."""
+"""Loss and step functions: the scoring loss, the train step, prefill and
+one greedy decode step.  Port of ``repro/models/steps.py``.
+
+``make_train_step`` differentiates ``make_loss_fn``'s loss with
+``torch.autograd.grad`` over the parameter leaves (grad mode on inside
+it, whatever the caller's) and updates them under ``torch.no_grad()``;
+the other steps record no graph when the caller runs them under
+``torch.no_grad()``, as the serving launchers do.  A model with
+``cfg.use_pallas_kernels`` cannot be trained: no kernel op has a
+backward (``kernels/_autograd.py``), in the port as in ``repro``."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch import _tree
 
 IGNORE = -1
 MOE_AUX_COEF = 0.01
@@ -40,6 +48,51 @@ def make_loss_fn(model):
         return loss
 
     return loss_fn
+
+
+def make_grad_fn(model):
+    """(params, batch) -> (loss, grads): ``make_loss_fn``'s loss (detached)
+    and its gradient, a tree shaped like ``params``.  Every parameter leaf
+    is made to require grad (in place), so the tensors the caller holds
+    are the ones differentiated; a leaf the loss does not reach gets a zero
+    gradient, as ``jax.grad`` gives it."""
+    loss_fn = make_loss_fn(model)
+
+    def grad_fn(params, batch):
+        flat = _tree.leaves(params)
+        for p in flat:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        return loss.detach(), _tree.unflatten(params, grads)
+
+    return grad_fn
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the f32 sum of squares of every leaf, leaf sums added in
+    ``jax.tree.leaves`` order (sorted keys), as ``repro``'s train step
+    reduces them (per leaf, never one flattened vector)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in _tree.leaves(grads)))
+
+
+def make_train_step(model, optimizer):
+    """(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm"}).  The optimizer writes the new params and moments into
+    the tensors it is given (``optim/optimizers.py``) and the step returns
+    them: leaves that require grad, ready for the next step."""
+    grad_fn = make_grad_fn(model)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
+        with torch.no_grad():
+            gnorm = global_norm(grads)
+            params, opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(model):

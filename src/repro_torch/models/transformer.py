@@ -6,11 +6,15 @@ tensors with the reference's names and layout: per-layer weights stacked
 on a leading L axis (``params["layers"]``), so
 ``convert.transformer_params_from_numpy`` carries ``repro``'s params
 across unchanged.  The layer scan becomes a Python loop.  ``forward`` is
-the full-sequence pass that scores a batch (through the flash_attention
-op when ``cfg.use_pallas_kernels``); ``prefill`` and ``decode_step`` take
+the full-sequence pass that scores and trains a batch (through the
+flash_attention op when ``cfg.use_pallas_kernels``, which only inference
+may set: the op has no backward); ``prefill`` and ``decode_step`` take
 the plain chunked and decode attention, as the reference routes them.
-Remat settings shape only a backward pass, which this inference slice
-does not have.
+When autograd records, ``cfg.remat`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint`` for ``jax.checkpoint``), and
+``cfg.remat_block`` = k (with L a multiple of k above it) keeps only
+every k-th layer's input, recomputing each group of k layers with
+per-layer remat inside, as the reference's two-level remat does.
 
 The families differ only at the ends and in the FFN: an MoE model's FFN
 is ``nn/moe.py``'s (its forward returns the layers' mean router aux
@@ -21,9 +25,11 @@ lookups and its head gives (B, S, nc, V) logits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks
@@ -35,9 +41,23 @@ from repro_torch.nn.rope import apply_rope
 Params = dict[str, Any]
 
 
-def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: index the leading L axis of every leaf."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+def layer_views(layers: Params, n: int) -> list[Params]:
+    """All ``n`` layers' parameters as views of the stacked leaves, by one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would give each layer's backward a
+    zero tensor of the whole stacked leaf to add into."""
+    per_leaf = {k: layer_views(v, n) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in layers.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def remat(fn, cfg: ModelConfig):
+    """``fn`` whose activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat`` and
+    autograd is recording; ``fn`` itself otherwise."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
 
 
 class TransformerModel:
@@ -94,13 +114,30 @@ class TransformerModel:
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+
+        def body(x, layer_p):
+            x, _, aux = blocks.apply_transformer_layer(layer_p, x, positions, cfg, None)
+            return x, aux
+
+        def group_body(x, group):
+            auxs = []
+            for layer_p in group:
+                x, aux = step(x, layer_p)
+                auxs.append(aux)
+            return x, torch.stack(auxs)
+
+        layers = layer_views(params["layers"], cfg.num_layers)
+        step = remat(body, cfg)
+        blk, n = cfg.remat_block, cfg.num_layers
+        # Block remat: only the groups' inputs survive the forward pass;
+        # each group of blk layers re-runs in its backward, remat inside.
+        size = blk if blk and n % blk == 0 and n > blk else 1
+        run_group = remat(group_body, cfg) if size > 1 else group_body
         auxs = []
-        for i in range(cfg.num_layers):
-            x, _, aux = blocks.apply_transformer_layer(
-                layer_params(params["layers"], i), x, positions, cfg, None
-            )
+        for g in range(0, n, size):
+            x, aux = run_group(x, layers[g:g + size])
             auxs.append(aux)
-        return self._head(params, x), torch.stack(auxs).mean()
+        return self._head(params, x), torch.cat(auxs).mean()
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params: Params, batch: dict, max_len: int | None = None):
@@ -113,8 +150,7 @@ class TransformerModel:
         positions = torch.arange(s, device=x.device)
         window = cfg.window if cfg.attention == "swa" else None
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            layer_p = layer_params(params["layers"], i)
+        for layer_p in layer_views(params["layers"], cfg.num_layers):
             h, (k, v) = _attention_collect_kv(layer_p, x, positions, cfg, window)
             x = x + h
             f, _ = blocks.apply_ffn(layer_p["ffn"], rms_norm(x, layer_p["ln2"]), cfg)
@@ -144,11 +180,9 @@ class TransformerModel:
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = cache.index[:1]  # (1,), the same for all layers
-        for i in range(cfg.num_layers):
+        for i, layer_p in enumerate(layer_views(params["layers"], cfg.num_layers)):
             layer_cache = attn_lib.KVCache(k=cache.k[i], v=cache.v[i], index=cache.index[i])
-            x, _, _ = blocks.apply_transformer_layer(
-                layer_params(params["layers"], i), x, positions, cfg, layer_cache
-            )
+            x, _, _ = blocks.apply_transformer_layer(layer_p, x, positions, cfg, layer_cache)
         # Every layer's index advanced by one token.
         new_cache = attn_lib.KVCache(k=cache.k, v=cache.v, index=cache.index + 1)
         return self._head(params, x), new_cache

@@ -7,10 +7,13 @@ mlstm_per_period) axes, the sLSTM weights on a leading num_periods axis
 (always allocated, applied only when the config has sLSTM layers), so
 ``convert.xlstm_params_from_numpy`` carries ``repro``'s params across
 unchanged.  The two ``lax.scan``s (periods, mLSTM layers within a period)
-become Python loops.  ``forward`` is the full-sequence scoring pass, every
-layer from the zero state (through the ``mlstm_scan`` op when
-``cfg.use_pallas_kernels``); ``prefill`` and ``decode_step`` take the plain
-chunked scan and the decode recurrences, as the reference routes them.
+become Python loops.  ``forward`` is the full-sequence scoring and
+training pass, every layer from the zero state (through the
+``mlstm_scan`` op when ``cfg.use_pallas_kernels``, which only inference
+may set); ``prefill`` and ``decode_step`` take the plain chunked scan and
+the decode recurrences, as the reference routes them.  When autograd
+records, ``cfg.remat`` recomputes each period (its mLSTM layers and the
+sLSTM layer) in the backward pass.
 The cache is recurrent state only: nothing in it grows with the sequence.
 """
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_views, remat
 from repro_torch.nn import xlstm as xlstm_lib
 from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm
 
@@ -61,8 +64,10 @@ class XLSTMModel:
             "head": dense_init(gen, (d, v), cfg.torch_dtype),
         }
 
-    def _mlstm(self, params: Params, i: int, j: int) -> Params:
-        return layer_params(layer_params(params["mlstm"], i), j)
+    def mlstm_layers(self, params: Params) -> list[list[Params]]:
+        """Views of the mLSTM layers, indexed [period][layer]."""
+        return [layer_views(p, self.mlstm_per_period)
+                for p in layer_views(params["mlstm"], self.num_periods)]
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, params["ln_f"]) @ params["head"]
@@ -72,11 +77,18 @@ class XLSTMModel:
         """Full-sequence forward.  Returns (logits, 0): no MoE term."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], batch["tokens"])
-        for i in range(self.num_periods):
-            for j in range(self.mlstm_per_period):
-                x, _ = blocks.apply_mlstm_layer(self._mlstm(params, i, j), x, cfg, None)
+
+        def period_body(x, mlstm, slstm):
+            for mp in mlstm:
+                x, _ = blocks.apply_mlstm_layer(mp, x, cfg, None)
             if self.has_slstm:
-                x, _ = blocks.apply_slstm_layer(layer_params(params["slstm"], i), x, cfg, None)
+                x, _ = blocks.apply_slstm_layer(slstm, x, cfg, None)
+            return x
+
+        run = remat(period_body, cfg)
+        for mlstm, slstm in zip(self.mlstm_layers(params),
+                                layer_views(params["slstm"], self.num_periods)):
+            x = run(x, mlstm, slstm)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------ prefill
@@ -107,13 +119,15 @@ class XLSTMModel:
         b = x.shape[0]
         m_zero = xlstm_lib.init_mlstm_state(b, cfg.num_heads, cfg.hd, cfg.hd, device=x.device)
         s_zero = xlstm_lib.init_slstm_state(b, cfg.d_model, device=x.device)
+        mlstm = self.mlstm_layers(params)
+        slstm = layer_views(params["slstm"], self.num_periods)
         m_states, s_states = [], []
         for i in range(self.num_periods):
             for j in range(self.mlstm_per_period):
-                x, st = blocks.apply_mlstm_layer(self._mlstm(params, i, j), x, cfg, m_zero)
+                x, st = blocks.apply_mlstm_layer(mlstm[i][j], x, cfg, m_zero)
                 m_states.append(st)
             if self.has_slstm:
-                x, st = blocks.apply_slstm_layer(layer_params(params["slstm"], i), x, cfg,
+                x, st = blocks.apply_slstm_layer(slstm[i], x, cfg,
                                                  s_zero)
             else:
                 st = s_zero
@@ -130,15 +144,17 @@ class XLSTMModel:
         new state into ``cache`` in place and returns (logits, cache)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], batch["tokens"])
+        mlstm = self.mlstm_layers(params)
+        slstm = layer_views(params["slstm"], self.num_periods)
         for i in range(self.num_periods):
             for j in range(self.mlstm_per_period):
                 st = xlstm_lib.MLSTMState(*(t[i, j] for t in cache.mlstm))
-                x, st = blocks.apply_mlstm_layer(self._mlstm(params, i, j), x, cfg, st)
+                x, st = blocks.apply_mlstm_layer(mlstm[i][j], x, cfg, st)
                 for dst, src in zip(cache.mlstm, st):
                     dst[i, j].copy_(src)
             if self.has_slstm:
                 st = xlstm_lib.SLSTMState(*(t[i] for t in cache.slstm))
-                x, st = blocks.apply_slstm_layer(layer_params(params["slstm"], i), x, cfg, st)
+                x, st = blocks.apply_slstm_layer(slstm[i], x, cfg, st)
                 for dst, src in zip(cache.slstm, st):
                     dst[i].copy_(src)
         return self._logits(params, x), cache

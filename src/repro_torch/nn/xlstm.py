@@ -183,11 +183,10 @@ def _recurrent_weights(r_w: torch.Tensor) -> torch.Tensor:
     return r_w.to(torch.float32).permute(1, 2, 0, 3).reshape(h, dh, g * dh)
 
 
-def _slstm_step(gates, r_cat, c, n, h, m, *, out=None):
+def _slstm_step(gates, r_cat, c, n, h, m):
     """One sLSTM step on the (H, B, ...) layout.  ``gates`` (H, B, 4 dh)
     f32 holds the input contributions [z, i, f, o]; the recurrence
-    h @ r_cat is added to it here.  Returns (c, n, h, m); h is written
-    into ``out`` when given."""
+    h @ r_cat is added to it here.  Returns (c, n, h, m)."""
     hh, b, _ = gates.shape
     g = torch.baddbmm(gates, h, r_cat).view(hh, b, 4, -1)
     zx, li, fx, ox = g.unbind(2)
@@ -200,7 +199,7 @@ def _slstm_step(gates, r_cat, c, n, h, m, *, out=None):
     bq = torch.exp(li - m_new)
     c = a * c + bq * z
     n = a * n + bq
-    h = torch.div(o * c, torch.clamp_min(n, 1e-6), out=out)
+    h = (o * c) / torch.clamp_min(n, 1e-6)
     return c, n, h, m_new
 
 
@@ -228,9 +227,11 @@ def slstm_scan(
              .permute(1, 3, 0, 2, 4).reshape(s, num_heads, b, 4 * dh).contiguous())
     r_cat = _recurrent_weights(r_w)
     c, n, h, m = (_heads_first(t, num_heads) for t in state)
-    hs = torch.empty((s, num_heads, b, dh), dtype=torch.float32, device=x_gates.device)
+    steps = []
     for t in range(s):
-        c, n, h, m = _slstm_step(gates[t], r_cat, c, n, h, m, out=hs[t])
+        c, n, h, m = _slstm_step(gates[t], r_cat, c, n, h, m)
+        steps.append(h)
+    hs = torch.stack(steps)
     out = hs.permute(2, 0, 1, 3).reshape(b, s, d).to(x_gates.dtype)
     return out, SLSTMState(c=_heads_last(c), n=_heads_last(n), h=_heads_last(h),
                            m=_heads_last(m))
