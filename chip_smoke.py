@@ -307,7 +307,29 @@ Phases, each of which raises (non-zero exit) on any failed check:
     10x the simulated solve's one-ulp response at mu=1e-2, where f32
     rounding alone moves z by several 1e-3 x max|z|.  A ``{"zoo_train": ...}``
     line.  (``--zoo-train-only`` builds and runs this phase alone.)
-17. The card line, one ``{"kernels": [...]}`` line, and as the last line
+17. The dry-run planners (``launch/dryrun_dssfn.py``, ``launch/dryrun.py``
+    over ``launch/cost_analysis.py``, ``launch/specs.py`` and
+    ``sharding/rules.py``).  (a) ``repro``'s readout dry run at its
+    defaults (n=4096, Q=32, 1048576 tokens, K=100) on the 16x16 plan, both
+    schedules, one rank's share solved on the card with a counting
+    transport: the collectives the schedule names (ADMM: K all-reduces of
+    Q*n*4 bytes and one of K*4; Gram: one of (n+Q)*n*4), FLOPs within 1% of
+    the matrix products (the ``gram`` launch credited with 2n^2J through
+    the kernels' hook), every ``gram`` launch of the phase held against
+    the float64 Gram of its input, the solve's wall time beside its
+    compute term.
+    (b) The 1x1 plan of 16(a)'s step: params + moments + step within 1% of
+    the card's allocation from ``model.init`` to ``opt.init``, the peak
+    within 15% of 16(a)'s ``max_memory_allocated``, the FLOPs within 0.1%
+    of ``FlopCounterMode``'s count of 16(a)'s first step; the achieved
+    TFLOP/s beside the compute term.  (c) ``python -m
+    repro_torch.launch.dryrun --shape train_4k`` in a subprocess: every
+    arch OK on the 16x16 plan, its dominant term and peak GB a device
+    printed against the card's 80 GB (upper bounds: the plan does not
+    split activations under tensor parallelism).  A ``{"dryrun": ...}``
+    line.
+    (``--dryrun-only`` builds and runs 16(a) and this phase alone.)
+18. The card line, one ``{"kernels": [...]}`` line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -552,11 +574,13 @@ def kernel_cases(torch, np):
 # (M, n, J, dtype) of the gram launches: the train's layer 0, decentralized
 # (M=20 workers of 3000) and centralized (one of 60000), ragged edges, and
 # phase 16's readout of Danube's 3840-wide taps: one tap of J=4096 tokens,
-# split over M=4 workers, and one rank's worker of 16(e).
+# split over M=4 workers, and one rank's worker of 16(e); phase 17(a)'s
+# readout dry run: one rank's share (n=4096, J=4096) of 1048576 tokens
+# over 256 ranks.
 GRAM_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32"),
               (3, 33, 65, "float32"), (3, 33, 65, "bfloat16"),
               (1, 3840, 4096, "float32"), (4, 3840, 1024, "float32"),
-              (1, 3840, 1024, "float32")]
+              (1, 3840, 1024, "float32"), (1, 4096, 4096, "float32")]
 # (n, n_prev, M, J, dtype) of the propagate_gram launches: layer 1 (W is
 # 1020 x 784) and layers l >= 2 (1020 x 1020), decentralized and
 # centralized, and ragged edges.
@@ -566,10 +590,10 @@ PROPAGATE_CASES = [(1020, 784, 20, 3000, "float32"), (1020, 1020, 20, 3000, "flo
 GRAM_HEADLINE = (20, 784, 3000, "float32")
 # gram cases also held against a float64 Gram, within GRAM_F64_ULPS f32
 # ulps of max|G| (the bar of test_gram_sums_are_compensated; a 1xTF32 Gram
-# misses it): the headline, the centralized layer and the readout's shapes.
+# misses it): the headline, the centralized layer and the readouts' shapes.
 GRAM_F64_CASES = [(20, 784, 3000, "float32"), (1, 784, 60000, "float32"),
                   (1, 3840, 4096, "float32"), (4, 3840, 1024, "float32"),
-                  (1, 3840, 1024, "float32")]
+                  (1, 3840, 1024, "float32"), (1, 4096, 4096, "float32")]
 GRAM_F64_ULPS = 8
 PROPAGATE_HEADLINE = (1020, 1020, 20, 3000, "float32")
 GRAM_MU = 1e-3      # SSFNConfig.mu0, the layer-0 mu
@@ -4543,18 +4567,43 @@ def kernel_counters():
         matmul_relu, gram, propagate_gram, flash_attention, ssm_scan, mlstm_scan)}
 
 
-def timed_train(torch, arch: str, **kw) -> dict:
+def timed_train(torch, arch: str, count_flops: bool = False, **kw) -> dict:
     """``launch.train.train`` with each train step, and the AdamW update
-    inside it, synchronized and timed (``make_train_step`` and ``AdamW``
-    wrapped for the call), the card's peak memory and every kernel counter
-    read around it."""
+    inside it, synchronized and timed (``make_train_step``,
+    ``build_model`` and ``AdamW`` wrapped for the call), the card's peak
+    memory and every kernel counter read around it.  Also the bytes
+    allocated on the card from just before ``model.init`` to just after
+    ``opt.init`` (params, moments and step), and with ``count_flops`` the
+    FLOPs of the first step as ``FlopCounterMode`` counts them (phase
+    17(b) holds its dry run to both)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.launch import train as train_lib
 
     counters = kernel_counters()
-    step_ms, update_ms = [], []
-    real, real_opt = train_lib.make_train_step, train_lib.AdamW
+    step_ms, update_ms, step_flops, alloc = [], [], [], {}
+    real, real_opt, real_build = (train_lib.make_train_step, train_lib.AdamW,
+                                  train_lib.build_model)
+
+    def measured_build(cfg):
+        model = real_build(cfg)
+        init = model.init
+
+        def measured_init(gen):
+            torch.cuda.synchronize()
+            alloc["before_init"] = torch.cuda.memory_allocated()
+            return init(gen)
+
+        model.init = measured_init
+        return model
 
     class TimedAdamW(real_opt):
+        def init(self, params):
+            state = super().init(params)
+            torch.cuda.synchronize()
+            alloc["after_opt_init"] = torch.cuda.memory_allocated()
+            return state
+
         def update(self, params, grads, state):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4569,7 +4618,12 @@ def timed_train(torch, arch: str, **kw) -> dict:
         def timed(*args):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = step(*args)
+            if step_flops or not count_flops:
+                out = step(*args)
+            else:   # the first step, left out of the steady median
+                with FlopCounterMode(display=False) as counter:
+                    out = step(*args)
+                step_flops.append(counter.get_total_flops())
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return out
@@ -4581,16 +4635,23 @@ def timed_train(torch, arch: str, **kw) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.reset_accumulated_memory_stats()
     train_lib.make_train_step, train_lib.AdamW = timed_make, TimedAdamW
+    train_lib.build_model = measured_build
     try:
         losses = train_lib.train(arch, reduced=False, device="cuda", log_every=1, **kw)
     finally:
         train_lib.make_train_step, train_lib.AdamW = real, real_opt
+        train_lib.build_model = real_build
     launched = {k: c.launch_count() for k, c in counters.items() if c.launch_count()}
     if launched:
         raise AssertionError(f"16 {arch}: training launched kernels {launched}; it must take "
                              "the plain path (no kernel has a backward)")
     return {"losses": losses, "step_ms": step_ms, "update_ms": update_ms,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            # None where the caller passed its own params (no model.init).
+            "init_bytes": (alloc["after_opt_init"] - alloc["before_init"]
+                           if "before_init" in alloc else None),
+            "step_flops": step_flops[0] if step_flops else None,
             "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)}
 
 
@@ -4604,8 +4665,8 @@ def train_danube(torch, np, card: str) -> dict:
     free(torch)
     print(f"16(a) {describe(cfg)}; remat {cfg.remat}, AdamW(lr={spec['lr']}) with f32 "
           f"moments, B={spec['batch']} S={spec['seq']}", flush=True)
-    run = timed_train(torch, spec["arch"], steps=spec["steps"], batch=spec["batch"],
-                      seq=spec["seq"], lr=spec["lr"])
+    run = timed_train(torch, spec["arch"], count_flops=True, steps=spec["steps"],
+                      batch=spec["batch"], seq=spec["seq"], lr=spec["lr"])
     losses, ms = run["losses"], run["step_ms"]
     if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < losses[0]:
         raise AssertionError(f"16(a) losses {losses}: not finite, or the last two's mean is "
@@ -4622,10 +4683,14 @@ def train_danube(torch, np, card: str) -> dict:
           f"frees the cached blocks and waits for the card); 6*N*T / step = "
           f"{flops / steady / 1e9:.1f} TFLOP/s (information only: remat runs each layer's "
           f"forward twice) on {card}", flush=True)
+    print(f"16(a) card bytes from model.init to opt.init {run['init_bytes']}; the first "
+          f"step's FlopCounterMode count {run['step_flops']:.6e} (that step is counted, so "
+          f"its time is left out of the median)", flush=True)
     return {"arch": spec["arch"], "layers": cfg.num_layers, "losses": losses, "step_ms": ms,
             "steady_ms": steady, "update_ms": update, "tokens_per_s": tokens / steady * 1e3,
-            "peak_gb": run["peak_gb"], "alloc_retries": run["alloc_retries"],
-            "model_tflops": flops / steady / 1e9}
+            "peak_gb": run["peak_gb"], "peak_bytes": run["peak_bytes"],
+            "init_bytes": run["init_bytes"], "step_flops": run["step_flops"],
+            "alloc_retries": run["alloc_retries"], "model_tflops": flops / steady / 1e9}
 
 
 def grad_check(torch, np, card: str) -> dict:
@@ -4744,7 +4809,9 @@ def tap_features(torch, model, params, tokens):
 class OpRecorder:
     """Inside ``with``, every call of ``module.name`` (a kernel's op)
     keeps its arguments and a copy of its result in ``calls``, so that
-    each can be held against the plain version after the timed work."""
+    each can be held against the plain version after the timed work.
+    The copy is made outside any dispatch mode, so that a cost analysis
+    recording the call does not count it."""
 
     def __init__(self, module, name):
         self.module, self.name, self.calls = module, name, []
@@ -4753,8 +4820,11 @@ class OpRecorder:
         self._op = op = getattr(self.module, self.name)
 
         def call(*args, **kwargs):
+            from torch.utils._python_dispatch import _disable_current_modes
+
             out = op(*args, **kwargs)
-            self.calls.append((args, kwargs, out.clone()))
+            with _disable_current_modes():
+                self.calls.append((args, kwargs, out.clone()))
             return out
 
         setattr(self.module, self.name, call)
@@ -4999,6 +5069,179 @@ def zoo_train_slice(torch, np, card: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+# Phase 17: the dry-run planners.  (a) repro's readout defaults
+# (launch/dryrun_dssfn.py: n=4096, Q=32, 1048576 tokens, K=100) on the
+# 16x16 plan of 256 H100s, one rank's share (J=4096) solved on the card
+# under the cost analysis.  Its FLOPs are held to the matrix products (the
+# count leaves out factors and triangular solves, as repro's hlo_analysis
+# does): 2(n+Q)nJ for the local statistics, and for ADMM 2QnJ for each of
+# the K objective terms; 1% covers nothing but rounding of the sums, since
+# both are exact integer counts.  (b) The 1x1 plan of 16(a)'s train step:
+# the plan's params, moments and step against the card's allocation from
+# model.init to opt.init within 1% (the caching allocator rounds each
+# block up to 512 bytes); the trace's live peak plus arguments against
+# 16(a)'s max_memory_allocated within 15% (the trace sees PyTorch's ops,
+# not the allocator's blocks, cuBLAS workspaces or fragmentation); its
+# FLOPs against FlopCounterMode's count of 16(a)'s first step within 0.1%
+# (the same registry on the same ops; the dry run's depth extrapolation is
+# exact).  (c) The train_4k sweep of the ten archs on the 16x16 plan, in a
+# subprocess, each combination OK.
+DRYRUN_DSSFN = {"n": 4096, "q": 32, "tokens": 1048576, "iters": 100}
+DRYRUN_FLOPS_REL = 0.01
+DRYRUN_INIT_REL = 0.01
+DRYRUN_PEAK_REL = 0.15
+DRYRUN_STEP_FLOPS_REL = 1e-3
+DRYRUN_SWEEP_TIMEOUT_S = 240
+
+
+def readout_dryrun(torch, card: str) -> tuple[int, dict]:
+    """17(a): both readout schedules' dry runs on the card; returns the
+    gram launches and the results.  Every gram launch (the recorded solve
+    and the timed one) is held against the float64 Gram of its input."""
+    from repro_torch.core import admm
+    from repro_torch.kernels import gram
+    from repro_torch.launch import dryrun_dssfn
+    from repro_torch.launch.mesh import make_production_mesh
+
+    spec = DRYRUN_DSSFN
+    n, q, k = spec["n"], spec["q"], spec["iters"]
+    j = spec["tokens"] // make_production_mesh().size
+    gram.reset_launch_count()
+    out = {}
+    with OpRecorder(admm, "gram") as gram_calls:
+        for mode in dryrun_dssfn.MODES:
+            out[mode] = dryrun_dssfn.dryrun_solver(mode, n=n, q=q, j_total=spec["tokens"],
+                                                   iters=k, device="cuda")
+    launches = gram.launch_count()
+    with torch.no_grad():
+        gram_ulps, plain_ulps = held_gram_calls(torch, gram_calls.calls)
+    shapes = sorted({tuple(y.shape) for (y,), _, _ in gram_calls.calls})
+    print(f"17(a) every gram launch of (a) on the same input against the float64 Gram: worst "
+          f"{gram_ulps:.2f} f32 ulps of max|G| (bar {GRAM_F64_ULPS}; the f32 plain version "
+          f"{plain_ulps:.2f}) over {len(gram_calls.calls)} calls at y{shapes}", flush=True)
+    if not (gram_ulps <= GRAM_F64_ULPS and len(gram_calls.calls) == launches
+            and shapes == [(1, n, j)]):
+        raise AssertionError(f"17(a) gram vs float64 {gram_ulps:.2f} ulps (bar "
+                             f"{GRAM_F64_ULPS}), {len(gram_calls.calls)} calls held of "
+                             f"{launches} launches at {shapes}")
+    del gram_calls
+    for mode, res in out.items():
+        if mode == "admm":
+            products = 2 * (n + q) * n * j + k * 2 * q * n * j
+            want = ({"all-reduce": k + 1}, {"all-reduce": k * q * n * 4 + k * 4})
+        else:
+            products = 2 * (n + q) * n * j
+            want = ({"all-reduce": 1}, {"all-reduce": (n + q) * n * 4})
+        got = (res["collective_counts"], res["collective_bytes"])
+        if got != want:
+            raise AssertionError(f"17(a) {mode}: collectives {got}, the schedule says {want}")
+        if not res["z_finite"] or abs(res["flops_per_device"] - products) > \
+                DRYRUN_FLOPS_REL * products:
+            raise AssertionError(f"17(a) {mode}: {res['flops_per_device']:.6e} FLOPs against "
+                                 f"the products' {products:.6e}, or z not finite")
+        if mode == "admm" and res["kernel_launches"].get("gram") != {
+                "calls": 1, "flops": 2 * n * n * j}:
+            raise AssertionError(f"17(a): the gram launch was not credited with 2n^2J FLOPs: "
+                                 f"{res['kernel_launches']}")
+        r = res["roofline"]
+        print(f"17(a) {mode}: n={n} Q={q} K={k} J={j} a device on the {res['mesh']} plan: "
+              f"{res['flops_per_device']:.6e} FLOPs (products {products:.6e}), "
+              f"{res['hbm_bytes_per_device']:.6e} B written, collectives {got[0]} of "
+              f"{got[1]['all-reduce']} B, wire {res['collective_wire_bytes']:.6e} B; roofline "
+              f"compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
+              f"collective {r['collective_s'] * 1e3:.3f} ms ({r['dominant']}); the solve "
+              f"measured {res['solve_wall_s'] * 1e3:.3f} ms on {card}", flush=True)
+    print("17(a) ADMM issues K all-reduces of (Q, n) and ONE of (K,) for the objective "
+          "trace; repro issues K scalar psums", flush=True)
+    return launches, out
+
+
+def one_card_plan(torch, danube: dict, card: str) -> dict:
+    """17(b): the 1x1 plan of 16(a)'s step against what 16(a) measured."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshPlan
+
+    spec = ZOO_TRAIN
+    res = dryrun.dryrun_one(spec["arch"], "train_4k", plan=MeshPlan(("data", "model"), (1, 1)),
+                            batch=spec["batch"], seq=spec["seq"])
+    trees = res["memory"]["argument_bytes_by_tree"]
+    state = trees["params"] + trees["opt_state"]
+    peak, flops = res["memory"]["peak_bytes_per_device"], res["cost"]["flops_per_device"]
+    checks = (("params + moments + step", state, danube["init_bytes"], DRYRUN_INIT_REL),
+              ("peak", peak, danube["peak_bytes"], DRYRUN_PEAK_REL),
+              ("step FLOPs", flops, danube["step_flops"], DRYRUN_STEP_FLOPS_REL))
+    for what, got, want, rel in checks:
+        if abs(got - want) > rel * want:
+            raise AssertionError(f"17(b) {what}: the plan's {got} against the card's {want}, "
+                                 f"beyond {rel}")
+    r = res["roofline"]
+    achieved = flops / (danube["steady_ms"] / 1e3)
+    print(f"17(b) the 1x1 plan of 16(a) ({spec['arch']} whole, B={spec['batch']} "
+          f"S={spec['seq']}), traced in {res['lower_compile_s']} s: params + moments + step "
+          f"{state} B against the card's {danube['init_bytes']} B; peak {peak / 1e9:.2f} GB "
+          f"against the card's {danube['peak_bytes'] / 1e9:.2f} GB; {flops:.6e} FLOPs "
+          f"against FlopCounterMode's {danube['step_flops']:.6e}; achieved "
+          f"{achieved / 1e12:.1f} TFLOP/s over 16(a)'s median step "
+          f"{danube['steady_ms']:.1f} ms, where compute_s at the bf16 peak is "
+          f"{r['compute_s'] * 1e3:.1f} ms (memory_s {r['memory_s'] * 1e3:.1f} ms) on {card}",
+          flush=True)
+    return {"plan": res, "init_bytes": danube["init_bytes"], "peak_bytes": danube["peak_bytes"],
+            "step_flops": danube["step_flops"], "achieved_tflops": achieved / 1e12}
+
+
+def dryrun_sweep(card: str) -> dict:
+    """17(c): ``python -m repro_torch.launch.dryrun --shape train_4k`` over
+    the ten archs on the 16x16 plan, in a subprocess."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import HARDWARE
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
+             "--out", tmp], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=DRYRUN_SWEEP_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"17(c) the sweep exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        results = {}
+        for arch in ARCHS:
+            with open(os.path.join(tmp, f"{arch}_train_4k_16x16.json")) as f:
+                results[arch] = json.load(f)
+    wall = time.perf_counter() - t0
+    rows = {}
+    for arch, res in results.items():
+        if res["status"] != "OK":
+            raise AssertionError(f"17(c) {arch}: {res['status']}")
+        r, peak = res["roofline"], res["memory"]["peak_bytes_per_device"]
+        bounded = res["cost"]["upper_bounds"]
+        rows[arch] = {"dominant": r["dominant"], "compute_s": r["compute_s"],
+                      "memory_s": r["memory_s"], "collective_s": r["collective_s"],
+                      "peak_gb": peak / 1e9, "trace_s": res["lower_compile_s"],
+                      "useful_flops_ratio": r["useful_flops_ratio"], "upper_bounds": bounded}
+        most = "at most " if bounded else ""
+        print(f"17(c) {arch} train_4k 16x16: {r['dominant']} (compute {most}"
+              f"{r['compute_s']:.4f} s, memory {most}{r['memory_s']:.4f} s, collective "
+              f"{r['collective_s']:.4f} s), peak {most}{peak / 1e9:.2f} GB a device against the "
+              f"card's {HARDWARE['hbm_bytes'] / 1e9:.0f} GB (activations whole under tensor "
+              f"parallelism), traced in {res['lower_compile_s']} s", flush=True)
+    print(f"17(c) the sweep took {wall:.1f} s on {card}'s host", flush=True)
+    return {"archs": rows, "wall_s": wall}
+
+
+def dryrun_slice(torch, card: str, danube: dict) -> tuple[int, dict]:
+    """Phase 17: (a)-(c).  Returns (a)'s gram launches and a summary."""
+    t0 = time.perf_counter()
+    launches, readout = readout_dryrun(torch, card)
+    summary = {"card": card, "readout": readout, "one_card": one_card_plan(torch, danube, card),
+               "sweep": dryrun_sweep(card)}
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"17 done in {summary['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"dryrun": summary}), flush=True)
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -5034,6 +5277,11 @@ def main() -> int:
     if "--zoo-train-only" in args:
         # Phase 16 alone, for a short card run while it changes.
         zoo_train_slice(torch, np, card)
+        print(f"card: {card}", flush=True)
+        return 0
+    if "--dryrun-only" in args:
+        # Phase 17 alone, after the 16(a) train it is held against.
+        dryrun_slice(torch, card, train_danube(torch, np, card))
         print(f"card: {card}", flush=True)
         return 0
 
@@ -5074,9 +5322,11 @@ def main() -> int:
                      ("musicgen", lambda: audio_slice(torch, np, card))):
         launched, zoo[key] = run()
         flash_launches += launched
-    zoo_train_launches, _ = zoo_train_slice(torch, np, card)
+    zoo_train_launches, zoo_train = zoo_train_slice(torch, np, card)
     flash_launches += zoo_train_launches["flash_attention"]
     train_launches["gram"] += zoo_train_launches["gram"]
+    dryrun_launches, _ = dryrun_slice(torch, card, zoo_train["danube"])
+    train_launches["gram"] += dryrun_launches
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)

@@ -138,8 +138,9 @@ class ProgramRecord:
         """One line per call, ``index: name -> dtype[shape], ...``."""
         return "\n".join(f"{i}: {c.render()}" for i, c in enumerate(self.calls))
 
-    def add_kernel(self, name: str, accum_dtype: torch.dtype, outputs) -> None:
-        """The kernel wrappers' hook (:mod:`repro_torch.kernels._record`)."""
+    def add_kernel(self, name: str, accum_dtype: torch.dtype, outputs, inputs=None) -> None:
+        """The kernel wrappers' hook (:mod:`repro_torch.kernels._record`);
+        the record keeps the results, not the inputs."""
         tensors = _tensors(outputs)
         self.calls.append(CallRecord(
             f"kernel:{name}",

@@ -122,5 +122,5 @@ def flash_attention_cuda(
         )
     _launches += 1
     if _record.hook is not None:
-        _record.hook("flash_attention", ACCUM_DTYPE, out)
+        _record.hook("flash_attention", ACCUM_DTYPE, out, ((q, k, v), {"window": window}))
     return out

@@ -101,5 +101,5 @@ def gram_cuda(y: torch.Tensor, *, mu: float) -> torch.Tensor:
         )
     _launches += 1
     if _record.hook is not None:
-        _record.hook("gram", ACCUM_DTYPE, g)
+        _record.hook("gram", ACCUM_DTYPE, g, ((y,), {"mu": mu}))
     return g

@@ -92,5 +92,5 @@ def matmul_relu_cuda(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         )
     _launches += 1
     if _record.hook is not None:
-        _record.hook("matmul_relu", ACCUM_DTYPE, out)
+        _record.hook("matmul_relu", ACCUM_DTYPE, out, ((w, x), {}))
     return out

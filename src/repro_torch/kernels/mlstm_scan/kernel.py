@@ -165,5 +165,6 @@ def mlstm_scan_cuda(
         )
     _launches += 1
     if _record.hook is not None:
-        _record.hook("mlstm_scan", ACCUM_DTYPE, (y, c_out, n_out, m_out))
+        _record.hook("mlstm_scan", ACCUM_DTYPE, (y, c_out, n_out, m_out),
+                     ((q, k, v, i_pre, f_pre), {"chunk": chunk}))
     return y, (c_out, n_out, m_out)

@@ -116,7 +116,7 @@ def propagate_gram_cuda(
         )
     _launches += 1
     if _record.hook is not None:
-        _record.hook("propagate_gram", ACCUM_DTYPE, (y_out, g))
+        _record.hook("propagate_gram", ACCUM_DTYPE, (y_out, g), ((w, y), {"mu": mu}))
     # y32 and ws may be freed on return: the caching allocator hands their
     # memory out again only to work queued after the Gram pass on this stream.
     return y_out, g

@@ -145,5 +145,6 @@ def ssm_scan_cuda(
         )
     _launches += 1
     if _record.hook is not None:
-        _record.hook("ssm_scan", ACCUM_DTYPE, (y, h_final))
+        _record.hook("ssm_scan", ACCUM_DTYPE, (y, h_final),
+                     ((x, dt, a, b_mat, c_mat), {"chunk": chunk}))
     return y, h_final

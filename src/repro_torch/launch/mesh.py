@@ -1,6 +1,16 @@
-"""Worker groups for :class:`repro_torch.core.backend.MeshBackend`.
+"""Worker groups for :class:`repro_torch.core.backend.MeshBackend`, and
+the plans of the production meshes that the dry runs size programs for.
 
-Port of ``repro/launch/mesh.py::make_worker_mesh``.  The reference lays
+Port of ``repro/launch/mesh.py``.  Its two halves:
+
+- **The plan** (:class:`MeshPlan`, :func:`make_production_mesh`,
+  :func:`data_axes_for`, :data:`HARDWARE`): axis names and sizes of a
+  mesh of H100s, touching no device and starting no process, for
+  ``launch/specs.py``, ``launch/dryrun.py`` and ``launch/dryrun_dssfn.py``.
+  ``repro``'s ``make_mesh_compat`` and ``make_host_mesh`` have no
+  counterpart: they build ``jax`` meshes of devices, and nothing here
+  lowers for one.
+- **The runtime** (below), the port of ``make_worker_mesh``.  The reference lays
 its M workers on a 1-D ``workers`` mesh, one per device slot; here the
 worker program runs in W processes (ranks) of a ``torch.distributed``
 process group, and each rank holds a contiguous block of M/W workers as
@@ -48,6 +58,77 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """A mesh of ``prod(shape)`` devices with named axes: a plan, not a
+    group of processes (``repro``'s ``Mesh`` stands in its place in the
+    planners' signatures)."""
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.shape) or min(self.shape, default=1) < 1:
+            raise ValueError(f"a plan needs one size >= 1 per axis, got "
+                             f"{self.axis_names} and {self.shape}")
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def axis_sizes(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshPlan:
+    """The reference's two production meshes as plans of H100s: 256 as
+    (data=16, model=16), or 512 as (pod=2, data=16, model=16), where the
+    ``pod`` axis is one more data-parallel dimension (the batch shards
+    over ``("pod", "data")``)."""
+    if multi_pod:
+        return MeshPlan(("pod", "data", "model"), (2, 16, 16))
+    return MeshPlan(("data", "model"), (16, 16))
+
+
+def data_axes_for(plan: MeshPlan) -> tuple[str, ...]:
+    """The plan's data-parallel axes, in mesh order."""
+    return tuple(a for a in plan.axis_names if a in ("pod", "data"))
+
+
+#: One NVIDIA H100 SXM5 and its links, the rates the dry runs' roofline
+#: terms divide by (dense rates, no sparsity).
+HARDWARE = {
+    # NVIDIA H100 Tensor Core GPU data sheet, SXM5: 989 TFLOP/s dense
+    # bf16 on the tensor cores (1,979 with sparsity).
+    "peak_flops_bf16": 989e12,
+    # The same data sheet: 80 GB of HBM3 at 3.35 TB/s.
+    "hbm_bandwidth": 3.35e12,
+    "hbm_bytes": 80e9,
+    # The same data sheet: NVLink 4 at 900 GB/s per GPU, both directions
+    # together, so 450 GB/s each way, among the 8 GPUs of one HGX H100
+    # board (NVLink Switch within the node).
+    "nvlink_bandwidth": 450e9,
+    "gpus_per_node": 8,
+    # Between nodes: one 400 Gb/s NDR InfiniBand adapter (ConnectX-7) per
+    # GPU, as in NVIDIA's DGX H100 reference design: 50 GB/s each way.
+    "internode_bandwidth": 50e9,
+}
+
+
+def link_bandwidth(group_size: int) -> float:
+    """Bytes per second each way that a collective over ``group_size``
+    GPUs moves per GPU: NVLink within one node of 8, InfiniBand for a
+    group that spans more than one node."""
+    if group_size <= HARDWARE["gpus_per_node"]:
+        return HARDWARE["nvlink_bandwidth"]
+    return HARDWARE["internode_bandwidth"]
+
 
 #: Seconds a collective may wait for a peer before the group raises.
 DEFAULT_TIMEOUT_S = 120.0

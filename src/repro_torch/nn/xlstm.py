@@ -78,9 +78,12 @@ def mlstm_terms(
 
     c_prev, n_prev, m_prev = state.c.to(f32), state.n.to(f32), state.m.to(f32)
     nums, dens, floors = [], [], []
-    for j in range(nc):
-        qk_, kk_, vk_, ik_ = qc[:, j], kc[:, j], vc[:, j], ic[:, j]
-        fcum = torch.cumsum(lf[:, j], dim=1)                    # (B, c, H) inclusive
+    # One unbind a tensor, not a select a chunk: the backward then stacks
+    # the chunks' gradients once (a select's writes all S, so bytes would
+    # grow with S squared).
+    for qk_, kk_, vk_, ik_, lf_ in zip(qc.unbind(1), kc.unbind(1), vc.unbind(1), ic.unbind(1),
+                                       lf.unbind(1)):
+        fcum = torch.cumsum(lf_, dim=1)                         # (B, c, H) inclusive
         # log weights: D[t, s] = F_t - F_s + i_s   (s <= t)
         d_log = fcum[:, :, None, :] - fcum[:, None, :, :] + ik_[:, None, :, :]
         d_log = torch.where(causal, d_log, -torch.inf)
@@ -228,8 +231,11 @@ def slstm_scan(
     r_cat = _recurrent_weights(r_w)
     c, n, h, m = (_heads_first(t, num_heads) for t in state)
     steps = []
-    for t in range(s):
-        c, n, h, m = _slstm_step(gates[t], r_cat, c, n, h, m)
+    # One unbind, not a select a step: the backward then stacks the
+    # steps' gradients once (a select's writes all S, so bytes would grow
+    # with S squared).
+    for g in gates.unbind(0):
+        c, n, h, m = _slstm_step(g, r_cat, c, n, h, m)
         steps.append(h)
     hs = torch.stack(steps)
     out = hs.permute(2, 0, 1, 3).reshape(b, s, d).to(x_gates.dtype)
