@@ -329,7 +329,34 @@ Phases, each of which raises (non-zero exit) on any failed check:
     split activations under tensor parallelism).  A ``{"dryrun": ...}``
     line.
     (``--dryrun-only`` builds and runs 16(a) and this phase alone.)
-18. The card line, one ``{"kernels": [...]}`` line, and as the last line
+18. The model zoo sharded over a (data=2, model=2) grid of 4 gloo ranks
+    sharing the card (``launch/mesh.make_host_mesh``,
+    ``sharding/parallel.py``), seeded weights drawn by each rank in turn.
+    (a) Phi-3.5-MoE at full width, 1 layer, f32, the scoring forward with
+    the kernels on (B=2, S=2048): the gathered logits against the same
+    layer unsharded on the card within 1e-5 x max, the positions whose
+    top-2 routing differs counted and left out; each rank's
+    ``flash_attention`` call (its 16 of 32 heads over 4 of 8 KV heads)
+    against its plain version; the forward's ms a rank, the transport's
+    host ms and of it the wait for the card.  (b) H2O-Danube3-4B at full
+    width, 2 layers, f32, one ``make_train_step`` sharded and unsharded
+    on the same card and batch (B=2, S=4096): loss and grad_norm within
+    1e-5 relative, every gathered gradient leaf within 1e-4 x max, the
+    updated params within 2 lr (a first AdamW step moves an element by
+    about lr, and a gradient near 0 may take the other sign).  (c)
+    ``launch/train.train_grid`` on Danube, 4 bf16 layers with f32 moments,
+    3 steps: step ms, tokens/s, peak GB a rank, losses falling, the
+    transport's calls and bytes by kind, every sum in f32.  (d) Each of
+    (c)'s steps' collectives against ``launch/dryrun.plan_collectives``
+    for the 2x2 plan, through ``executor_collectives`` (its stated
+    modelling differences): equal kind by kind, calls and bytes.  (e)
+    ``launch/serve.py --ranks 4 --model-parallel 2`` on Danube, 2 bf16
+    layers, prompt 2048 + 8, against the unsharded launcher: prefill
+    logits within 2**-6 x max (four bf16 ulps: a rank rounds its
+    row-parallel partial sum before the sum over the row), the greedy
+    tokens' agreement and the decode rates printed.  A ``{"sharded": ...}`` line.
+    (``--sharded-only`` builds and runs this phase alone.)
+19. The card line, one ``{"kernels": [...]}`` line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -5242,6 +5269,475 @@ def dryrun_slice(torch, card: str, danube: dict) -> tuple[int, dict]:
     return launches, summary
 
 
+
+# Phase 18: the model zoo sharded over a (data=2, model=2) grid of 4 gloo
+# ranks sharing the card (launch/mesh.make_host_mesh, sharding/parallel.py).
+# (a) Phi-3.5-MoE at full width, 1 layer, f32, the scoring forward with the
+# kernels on (one flash_attention launch a rank over its 16 of 32 heads and
+# 4 of 8 KV heads), B=2, S=2048.
+SHARDED = {"ranks": 4, "model_parallel": 2, "backend": "gloo", "seed": 0}
+SHARDED_MOE = {"arch": "phi35_moe_42b", "layers": 1, "batch": 2, "seq": 2048}
+# The gathered logits against the same layer unsharded on the card: each
+# rank's products and the all-reduces over the model row add the same f32
+# terms in another order, an error of order sqrt(K) 2**-24 of a sum
+# (16(b)'s f32 bar); positions whose top-2 routing differs between the
+# runs (a near-tie moved by that rounding) are counted and left out.
+SHARDED_LOGIT_TOL = 1e-5
+# (b) H2O-Danube3-4B at full width, 2 layers, f32, one make_train_step
+# sharded and unsharded on the same card and batch: 16(b)'s card-vs-CPU
+# bars (GRAD_TOL) for loss, grad_norm and each gathered gradient leaf.
+SHARDED_GRAD = {"arch": "h2o_danube3_4b", "layers": 2, "batch": 2, "seq": 4096, "lr": 3e-4}
+# After the first AdamW step each element has moved by lr * g / (|g| +
+# eps), about +-lr.  Where |g| > SHARDED_HELD_G = 1e3 eps, a gradient gap
+# dg moves the update by lr eps dg / g**2 at most, far below a thousandth
+# of lr, so at most SHARDED_HELD_FRAC of those elements may part by more
+# than SHARDED_PARAM_NEAR x lr beyond one f32 rounding.  A gradient near 0
+# whose sign the sums' order flips moves the other way, so any element may
+# part by up to 2 lr, and at most SHARDED_PARAM_FRAC of all the elements by
+# more than SHARDED_PARAM_NEAR x lr.  A step not applied, or applied with
+# the wrong sign, parts nearly every held element by about lr.
+SHARDED_PARAM_ULP = 2.0**-23
+SHARDED_PARAM_NEAR, SHARDED_HELD_G = 1e-3, 1e-5
+SHARDED_HELD_FRAC, SHARDED_PARAM_FRAC = 1e-6, 1e-3
+# (c) Danube at full width, 4 layers, bf16 params with f32 moments (16(a)'s
+# setup), AdamW(3e-4), B=2, S=4096, through launch/train.py's grid.
+SHARDED_TRAIN = {"arch": "h2o_danube3_4b", "layers": 4, "batch": 2, "seq": 4096, "steps": 3,
+                 "lr": 3e-4}
+# (e) launch/serve.py on Danube, 2 layers, bf16, sharded and unsharded
+# (FSDP re-gathers every weight each decode step, as GSPMD would under
+# repro's serving rules, so decode is short).  Each rank rounds its
+# row-parallel partial sum to bf16 before the f32 sum over the row, which
+# is rounded to bf16 again: an activation may part from the unsharded
+# one's by about one bf16 ulp (2**-8) a layer, and the head's 3840-term
+# sums carry that into the logits.  Bar: 4 ulps, 2**-6 x max|logits|.
+SHARDED_SERVE = {"arch": "h2o_danube3_4b", "layers": 2, "batch": 2, "prompt": 2048, "gen": 8}
+SHARDED_SERVE_TOL = 2.0**-6
+
+
+def _sharded_tokens(np, cfg, b: int, s: int, seed: int):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
+
+
+def _spool(spool: str, rank: int, name: str, obj) -> str:
+    """Write ``obj`` (a tensor or a tree of CPU tensors) into ``spool`` for
+    the parent (a file moves GBs faster than the result queue's pipe)."""
+    import torch
+
+    path = os.path.join(spool, f"rank{rank}_{name}.pt")
+    torch.save(obj, path)
+    return path
+
+
+def _unspool(torch, path: str):
+    return torch.load(path, mmap=True, weights_only=True)
+
+
+def _sharded_rank(group, spool, moe_spec, grad_spec, train_kw, serve_kw):
+    """Phase 18's work on one rank, one spawn for all of it.  (a): the MoE
+    layer's scoring forward twice (the first recording each
+    flash_attention call and each routing, the second timed); (b): one
+    train step; (c): ``launch/train.train_rank``; (e):
+    ``launch/serve.serve_rank``.  Returns this rank's shards of the
+    logits, gradients and updated params (host numpy), what its kernel
+    counter and transports saw, and the launchers' reports."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding import rules as rules_lib
+
+    stamps = [("start", time.perf_counter())]
+    began = time.time()
+    grid = mesh_lib.make_host_mesh(group, SHARDED["model_parallel"])
+    out = {"rank": grid.rank, "coords": grid.coords, "grid": grid.describe()}
+    cfg = zoo_config({"arch": moe_spec["arch"], "reduced": False},
+                     num_layers=moe_spec["layers"], dtype="float32")
+    model = build_model(cfg)
+    params = rules_lib.init_shard(model, grid, SHARDED["seed"])
+    bl = moe_spec["batch"] // grid.data_parallel
+    rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)
+    tokens = _sharded_tokens(np, cfg, moe_spec["batch"], moe_spec["seq"], SHARDED["seed"])
+    batch = {"tokens": torch.as_tensor(tokens[rows], device=grid.device)}
+    fa.reset_launch_count()
+    with par.use_grid(grid), torch.no_grad():
+        with RouteRecorder() as routes, OpRecorder(blocks, "flash_attention") as rec:
+            logits, _ = model.forward(params, batch)
+        torch.cuda.synchronize()
+        grid.reset_stats()
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        stats = grid.stats()
+    out["launches"] = fa.launch_count()
+    out["host_ms"], out["sync_ms"] = stats["host_s"] * 1e3, stats["sync_s"] * 1e3
+    out["flash_held"] = held_flash_calls(rec.calls)
+    out["flash_shape"] = tuple(rec.calls[0][0][0].shape), tuple(rec.calls[0][0][1].shape)
+    out["logits"] = _spool(spool, grid.rank, "logits", logits.cpu())
+    plan = routes.calls[0][0]
+    out["ids"], out["keep"] = plan.ids.cpu().numpy(), plan.keep.cpu().numpy()
+    del params, logits, rec, routes
+    free(torch)
+    stamps.append(("(a)", time.perf_counter()))
+
+    cfg = dataclasses.replace(zoo_config({"arch": grad_spec["arch"], "reduced": False},
+                                         num_layers=grad_spec["layers"], dtype="float32"),
+                              use_pallas_kernels=False)
+    model = build_model(cfg)
+    params = rules_lib.init_shard(model, grid, SHARDED["seed"])
+    bl = grad_spec["batch"] // grid.data_parallel
+    rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)
+    from repro_torch.data import TokenStream
+
+    whole = next(iter(TokenStream(cfg.vocab_size, grad_spec["seq"], grad_spec["batch"],
+                                  seed=0)))
+    batch = {k: torch.as_tensor(v[rows], device=grid.device) for k, v in whole.items()}
+    opt = GradCapture(AdamW(lr=grad_spec["lr"]))
+    with par.use_grid(grid):
+        grid.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _, metrics = make_train_step(model, opt)(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["loss"], out["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+    out["grads"] = _spool(spool, grid.rank, "grads", _tree.map_(lambda t: t.cpu(), opt.grads))
+    out["params"] = _spool(spool, grid.rank, "params",
+                           _tree.map_(lambda t: t.detach().cpu(), params))
+    del params, opt, metrics, batch
+    free(torch)
+    stamps.append(("(b)", time.perf_counter()))
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import train as train_lib
+
+    out["train"] = train_lib.train_rank(group, train_kw.pop("arch"), SHARDED["model_parallel"],
+                                        False, train_kw)
+    free(torch)
+    stamps.append(("(c)", time.perf_counter()))
+    out["serve"] = serve_lib.serve_rank(group, serve_kw.pop("arch"), SHARDED["model_parallel"],
+                                        serve_kw)
+    stamps.append(("(e)", time.perf_counter()))
+    out["seconds"] = {k: round(t - t0, 1) for (_, t0), (k, t) in zip(stamps, stamps[1:])}
+    out["wall"] = (began, time.time())
+    return out
+
+
+def sharded_moe_reference(torch, np) -> dict:
+    """18(a)'s layer unsharded on the card: its logits and routing (host)."""
+    from repro_torch.models import build_model
+
+    spec = SHARDED_MOE
+    cfg = zoo_config({"arch": spec["arch"], "reduced": False}, num_layers=spec["layers"],
+                     dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SHARDED["seed"]))
+    tokens = _sharded_tokens(np, cfg, spec["batch"], spec["seq"], SHARDED["seed"])
+    with torch.no_grad(), RouteRecorder() as routes:
+        want, _ = model.forward(params, {"tokens": torch.as_tensor(tokens, device="cuda")})
+    plan = routes.calls[0][0]
+    out = {"cfg": cfg, "logits": want.cpu().numpy(), "ids": plan.ids.cpu().numpy(),
+           "keep": plan.keep.cpu().numpy()}
+    del params, routes, plan, want
+    free(torch)
+    return out
+
+
+def sharded_moe_check(torch, np, card: str, ranks: list, ref: dict) -> dict:
+    """18(a): the ranks' gathered logits against the unsharded layer, the
+    positions whose routing flipped left out; each rank's flash_attention
+    call against its plain version; the forward's ms a rank, the
+    transport's host ms and of those the wait for the card."""
+    from repro_torch.launch.mesh import MeshPlan
+    from repro_torch.sharding.rules import unshard_params
+
+    spec, cfg = SHARDED_MOE, ref["cfg"]
+    want, want_ids, want_keep = ref["logits"], ref["ids"], ref["keep"]
+    grid = MeshPlan(("data", "model"), (SHARDED["ranks"] // SHARDED["model_parallel"],
+                                        SHARDED["model_parallel"]))
+    spec_logits = {"x": ("data", None, "model")}
+    got = unshard_params([{"x": _unspool(torch, r["logits"]).numpy()} for r in ranks],
+                         spec_logits, grid)["x"]
+    ids = unshard_params([{"x": r["ids"]} for r in ranks], {"x": ("data", None)}, grid)["x"]
+    keep = unshard_params([{"x": r["keep"]} for r in ranks], {"x": ("data", None)}, grid)["x"]
+    b, s = spec["batch"], spec["seq"]
+    k = ids.shape[1] // s
+    flipped = ((ids != want_ids) | (keep != want_keep)).reshape(b, s, k).any(-1)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want)[~flipped].max())
+    held = max(r["flash_held"] for r in ranks)
+    launches = sum(r["launches"] for r in ranks)
+    for r in ranks:
+        print(f"18(a) rank {r['rank']} {r['coords']}: forward {r['forward_ms']:.1f} ms, "
+              f"transport host {r['host_ms']:.1f} ms of which {r['sync_ms']:.1f} ms waiting "
+              f"for the card; flash_attention q {r['flash_shape'][0]} k {r['flash_shape'][1]}, "
+              f"{r['launches']} launches, worst {r['flash_held']:.3f} of its bar", flush=True)
+    print(f"18(a) {cfg.name} {cfg.num_layers} layer f32, B={b} S={s} on {ranks[0]['grid']}: "
+          f"gathered logits vs unsharded max abs err {err:.3e} (max|logits| {scale:.3e}, tol "
+          f"{SHARDED_LOGIT_TOL} x max) over the {b * s - int(flipped.sum())} positions whose "
+          f"routing agrees ({int(flipped.sum())} flipped), on {card}", flush=True)
+    if not (err <= SHARDED_LOGIT_TOL * scale and held <= 1.0
+            and launches == 2 * SHARDED["ranks"] * cfg.num_layers):
+        raise AssertionError(f"18(a) sharded MoE forward: logits {err:.3e} > "
+                             f"{SHARDED_LOGIT_TOL} x {scale:.3e}, flash_attention {held:.3f} "
+                             f"of its bar, or {launches} launches")
+    return {"logits_err": err / scale, "flipped": int(flipped.sum()), "flash_held": held,
+            "launches": launches, "forward_ms": [r["forward_ms"] for r in ranks],
+            "host_ms": [r["host_ms"] for r in ranks], "sync_ms": [r["sync_ms"] for r in ranks]}
+
+
+def sharded_grad_reference(torch) -> dict:
+    """18(b)'s step unsharded on the card: loss, grad_norm, the gradient
+    and the updated params (host), the step's ms."""
+    from repro_torch import _tree
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamW
+
+    spec = SHARDED_GRAD
+    cfg = dataclasses.replace(zoo_config({"arch": spec["arch"], "reduced": False},
+                                         num_layers=spec["layers"], dtype="float32"),
+                              use_pallas_kernels=False)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SHARDED["seed"]))
+    whole = next(iter(TokenStream(cfg.vocab_size, spec["seq"], spec["batch"], seed=0)))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in whole.items()}
+    opt = GradCapture(AdamW(lr=spec["lr"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, metrics = make_train_step(model, opt)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    want_g = _tree.map_(lambda t: t.cpu(), opt.grads)
+    want_p = _tree.map_(lambda t: t.detach().cpu(), params)
+    del params, opt, metrics, batch
+    free(torch)
+    return {"cfg": cfg, "loss": loss, "grad_norm": gnorm, "grads": want_g, "params": want_p,
+            "step_ms": step_ms}
+
+
+def sharded_grad_check(torch, np, card: str, ranks: list, ref: dict) -> dict:
+    """18(b): the sharded step's loss, grad_norm, gathered gradients and
+    updated params against one unsharded step on the same card, weights
+    and batch."""
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import MeshPlan
+    from repro_torch.sharding import rules as rules_lib
+
+    spec, cfg = SHARDED_GRAD, ref["cfg"]
+    loss, gnorm, step_ms = ref["loss"], ref["grad_norm"], ref["step_ms"]
+    want_g, want_p = ref["grads"], ref["params"]
+    plan = MeshPlan(("data", "model"), (SHARDED["ranks"] // SHARDED["model_parallel"],
+                                        SHARDED["model_parallel"]))
+    rules = rules_lib.AxisRules(mesh=plan, data_axes=("data",), model_axis="model")
+    specs = rules_lib.transformer_param_specs(cfg, rules, plan)
+    host = [{k: _unspool(torch, r[k]) for k in ("grads", "params")} for r in ranks]
+    got_g = rules_lib.unshard_params([h["grads"] for h in host], specs, plan)
+    got_p = rules_lib.unshard_params([h["params"] for h in host], specs, plan)
+    names = _tree.leaves(_paths(want_g))
+    worst, worst_name, p_worst, parted, total = 0.0, None, 0.0, 0, 0
+    held_n, held_parted, held_worst = 0, 0, 0.0
+    bound, near = 2 * spec["lr"], SHARDED_PARAM_NEAR * spec["lr"]
+    for name, g, w, pg, pw in zip(names, _tree.leaves(got_g), _tree.leaves(want_g),
+                                  _tree.leaves(got_p), _tree.leaves(want_p)):
+        gap = float((g - w).abs().max() / w.abs().max())
+        if gap > worst:
+            worst, worst_name = gap, name
+        dp = (pg - pw).abs() - SHARDED_PARAM_ULP * pw.abs()
+        p_worst = max(p_worst, float(dp.max()))
+        parted += int((dp > near).sum())
+        total += dp.numel()
+        held = dp[w.abs() > SHARDED_HELD_G]
+        held_n += held.numel()
+        held_parted += int((held > near).sum())
+        held_worst = max(held_worst, float(held.max()) if held.numel() else 0.0)
+    frac, held_frac = parted / total, held_parted / max(held_n, 1)
+    r0 = ranks[0]
+    loss_gap, norm_gap = abs(r0["loss"] - loss) / abs(loss), abs(r0["grad_norm"] - gnorm) / gnorm
+    print(f"18(b) {cfg.name} {cfg.num_layers} layers f32, B={spec['batch']} S={spec['seq']}: "
+          f"loss sharded {r0['loss']:.7f} unsharded {loss:.7f} (rel {loss_gap:.2e}), grad_norm "
+          f"{r0['grad_norm']:.6f} vs {gnorm:.6f} (rel {norm_gap:.2e}); worst gradient leaf "
+          f"{worst_name} {worst:.3e} x max|g|; updated params within {p_worst:.3e} of each other "
+          f"beyond one rounding (bar 2 lr = {bound:g}); of the {held_n} elements whose "
+          f"|g| > {SHARDED_HELD_G:g}, {held_parted} ({held_frac:.3e}, bar "
+          f"{SHARDED_HELD_FRAC:g}) part by more than {SHARDED_PARAM_NEAR:g} lr, the worst by "
+          f"{held_worst / spec['lr']:.3e} lr; of all {total}, {parted} ({frac:.3e}, bar "
+          f"{SHARDED_PARAM_FRAC:g}); step {max(r['step_ms'] for r in ranks):.0f} ms a rank sharded, "
+          f"{step_ms:.0f} ms unsharded, on {card}", flush=True)
+    if not (loss_gap <= GRAD_TOL["loss"] and norm_gap <= GRAD_TOL["grad_norm"]
+            and worst <= GRAD_TOL["leaf"] and p_worst <= bound
+            and held_frac <= SHARDED_HELD_FRAC and frac <= SHARDED_PARAM_FRAC):
+        raise AssertionError(f"18(b) sharded vs unsharded step: loss {loss_gap:.2e}, grad_norm "
+                             f"{norm_gap:.2e}, leaf {worst_name} {worst:.2e}, params "
+                             f"{p_worst:.2e}, {held_frac:.2e} of the held and {frac:.2e} of "
+                             f"all elements parted (bars {GRAD_TOL}, 2 lr, "
+                             f"{SHARDED_HELD_FRAC:g}, {SHARDED_PARAM_FRAC:g})")
+    return {"loss_rel": loss_gap, "grad_norm_rel": norm_gap, "worst_leaf": worst_name,
+            "worst_leaf_rel": worst, "param_excess": p_worst, "params_parted": parted,
+            "params_parted_frac": frac, "held": held_n, "held_parted": held_parted,
+            "held_worst_lr": held_worst / spec["lr"],
+            "step_ms": [r["step_ms"] for r in ranks], "unsharded_step_ms": step_ms}
+
+
+def sharded_train_kw() -> dict:
+    """(c)'s ``launch/train.train_rank`` arguments (``train``'s)."""
+    spec = SHARDED_TRAIN
+    return {"arch": spec["arch"], "steps": spec["steps"], "batch": spec["batch"],
+            "seq": spec["seq"], "reduced": False, "lr": spec["lr"], "log_every": 1,
+            "checkpoint_path": None, "params": None, "layers": spec["layers"]}
+
+
+def sharded_serve_kw() -> dict:
+    """(e)'s ``launch/serve.serve_rank`` arguments (``serve``'s)."""
+    spec = SHARDED_SERVE
+    return {"arch": spec["arch"], "batch": spec["batch"], "prompt_len": spec["prompt"],
+            "gen_len": spec["gen"], "reduced": False, "seed": SHARDED["seed"], "params": None,
+            "layers": spec["layers"]}
+
+
+def sharded_train(torch, np, card: str, reports: list) -> dict:
+    """18(c) and (d): the ranks' ``launch/train.py`` reports (``train_rank``
+    in each), then each step's collectives against the planner's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshPlan
+
+    spec = SHARDED_TRAIN
+    losses = reports[0]["losses"]
+    for r in reports:
+        print(f"18(c) rank {r['rank']}: step ms {[round(t, 1) for t in r['step_ms']]}, "
+              f"tokens/s {[round(t) for t in r['tokens_per_s']]}, peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB", flush=True)
+    steady = reports[0]["step_stats"][-1]
+    print(f"18(c) {spec['arch']} {spec['layers']} layers bf16 (f32 moments), B={spec['batch']} "
+          f"S={spec['seq']}, {reports[0]['grid']}: losses {[round(x, 4) for x in losses]}; a "
+          f"step's transport (rank 0): {json.dumps({k: [steady['counts'][k], steady['bytes'][k]] for k in steady['counts']})} "
+          f"(count, bytes), host {steady['host_s'] * 1e3:.0f} ms of which "
+          f"{steady['sync_s'] * 1e3:.0f} ms waiting for the card, on {card}", flush=True)
+    if not (all(np.isfinite(losses)) and np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"18(c) sharded train: losses {losses} not finite and falling")
+    sums = {dt for r in reports for s in r["step_stats"] for (kind, dt) in s["dtypes"]
+            if kind != "all-gather"}
+    if sums != {"float32"}:
+        raise AssertionError(f"18(c) a cross-rank sum carried {sums}, not f32 alone")
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), num_layers=spec["layers"])
+    plan = MeshPlan(("data", "model"), (SHARDED["ranks"] // SHARDED["model_parallel"],
+                                        SHARDED["model_parallel"]))
+    want = dryrun.executor_collectives(cfg, plan, spec["batch"], spec["seq"])
+    rules = dryrun.layout_rules("2d", plan)
+    params = dryrun._init_params(cfg)
+    planned: dict = {}
+    for op in dryrun.plan_collectives(cfg, "train", params,
+                                      dryrun.specs_lib.param_spec_tree(params, rules, plan),
+                                      rules, plan, spec["batch"], spec["batch"] // plan.shape[0],
+                                      spec["seq"]):
+        e = planned.setdefault(op.op, [0, 0])
+        e[0] += op.multiplier
+        e[1] += op.multiplier * op.result_bytes
+    print("18(d) kind: planner (ops, bytes) | planner as the transport counts (calls, bytes) | "
+          "transport per rank (calls, bytes)", flush=True)
+    bad = []
+    for kind in sorted(set(want) | set(planned) | set(steady["counts"])):
+        w = want.get(kind, {"count": 0, "bytes": 0})
+        for r in reports:
+            for i, s in enumerate(r["step_stats"]):
+                got = (s["counts"].get(kind, 0), s["bytes"].get(kind, 0))
+                if got != (w["count"], w["bytes"]):
+                    bad.append((r["rank"], i, kind, got, (w["count"], w["bytes"])))
+        print(f"18(d) {kind}: {tuple(planned.get(kind, (0, 0)))} | ({w['count']}, {w['bytes']}) | "
+              f"({steady['counts'].get(kind, 0)}, {steady['bytes'].get(kind, 0)})", flush=True)
+    for note in dryrun.EXECUTOR_DIFFERENCES:
+        print(f"18(d) modelled difference: {note}", flush=True)
+    if bad:
+        raise AssertionError(f"18(d) the transport's collectives differ from the planner's "
+                             f"(rank, step, kind, got, want): {bad[:6]}")
+    return {"losses": losses, "step_ms": [r["step_ms"] for r in reports],
+            "tokens_per_s": [r["tokens_per_s"] for r in reports],
+            "peak_gb": [r["peak_bytes"] / 1e9 for r in reports],
+            "transport": {k: [steady["counts"][k], steady["bytes"][k]] for k in steady["counts"]},
+            "host_ms": steady["host_s"] * 1e3, "sync_ms": steady["sync_s"] * 1e3,
+            "planned": planned}
+
+
+def sharded_serve_reference() -> dict:
+    """18(e)'s unsharded launcher on the same seeded weights and prompts."""
+    from repro_torch.launch import serve as serve_lib
+
+    kw = sharded_serve_kw()
+    return serve_lib.serve(kw.pop("arch"), device="cuda",
+                           **{k: v for k, v in kw.items() if k != "params"})
+
+
+def sharded_serve(torch, np, card: str, grid: dict, one: dict) -> dict:
+    """18(e): the ranks' ``launch/serve.py`` result (``serve_rank`` in
+    each; ``grid`` rank 0's) against the unsharded launcher's, ``one``."""
+    spec = SHARDED_SERVE
+    err, scale = max_err(torch.from_numpy(grid["prefill_logits"]),
+                         torch.from_numpy(one["prefill_logits"]))
+    agree = float((grid["tokens"] == one["tokens"]).mean())
+    print(f"18(e) {spec['arch']} {spec['layers']} layers bf16 serve B={spec['batch']} prompt "
+          f"{spec['prompt']} gen {spec['gen']}: prefill logits sharded vs unsharded max abs err "
+          f"{err:.3e} (max {scale:.3e}, tol {SHARDED_SERVE_TOL} x max); greedy tokens agree "
+          f"{agree:.3f}; prefill {grid['prefill_s']:.3f} s sharded, {one['prefill_s']:.3f} s "
+          f"unsharded; decode {grid['decode_tokens_per_s']:.1f} tok/s sharded, "
+          f"{one['decode_tokens_per_s']:.1f} tok/s unsharded, on {card}", flush=True)
+    if not err <= SHARDED_SERVE_TOL * scale:
+        raise AssertionError(f"18(e) sharded prefill logits {err:.3e} > "
+                             f"{SHARDED_SERVE_TOL} x {scale:.3e}")
+    return {"prefill_err": err / scale, "tokens_agree": agree,
+            "prefill_s": grid["prefill_s"], "unsharded_prefill_s": one["prefill_s"],
+            "decode_tokens_per_s": grid["decode_tokens_per_s"],
+            "unsharded_decode_tokens_per_s": one["decode_tokens_per_s"]}
+
+
+def sharded_slice(torch, np, card: str) -> tuple[int, dict]:
+    """Phase 18: (a)-(e).  Returns (a)'s flash_attention launches (every
+    rank's) and a summary."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    free(torch)
+    # The unsharded references run first, alone on the card, so that no
+    # time of theirs or of the ranks' is taken while the other works.
+    refs = {"moe": sharded_moe_reference(torch, np), "grad": sharded_grad_reference(torch),
+            "serve": sharded_serve_reference()}
+    free(torch)
+    print(f"18 unsharded references done in {time.perf_counter() - t0:.1f} s", flush=True)
+    spool = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_spool_")
+    spawned = time.time()
+    try:
+        ranks = mesh_lib.spawn_workers(
+            _sharded_rank, SHARDED["ranks"], spool, SHARDED_MOE, SHARDED_GRAD,
+            sharded_train_kw(), sharded_serve_kw(), backend=SHARDED["backend"],
+            device="cuda", join_timeout_s=900)
+        returned = time.time()
+        began, ended = min(r["wall"][0] for r in ranks), max(r["wall"][1] for r in ranks)
+        print(f"18 ranks done in {time.perf_counter() - t0:.1f} s: {began - spawned:.1f} s to "
+              f"start, rank 0's seconds by part {ranks[0]['seconds']}, "
+              f"{returned - ended:.1f} s to return", flush=True)
+        summary = {"card": card, "moe": sharded_moe_check(torch, np, card, ranks, refs["moe"]),
+                   "grad": sharded_grad_check(torch, np, card, ranks, refs["grad"])}
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+    reports, served = [r["train"] for r in ranks], ranks[0]["serve"]
+    del ranks
+    free(torch)
+    summary["train"] = sharded_train(torch, np, card, reports)
+    summary["serve"] = sharded_serve(torch, np, card, served, refs["serve"])
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"18 done in {summary['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"sharded": summary}), flush=True)
+    return summary["moe"]["launches"], summary
+
+
 def main() -> int:
     import torch
 
@@ -5277,6 +5773,11 @@ def main() -> int:
     if "--zoo-train-only" in args:
         # Phase 16 alone, for a short card run while it changes.
         zoo_train_slice(torch, np, card)
+        print(f"card: {card}", flush=True)
+        return 0
+    if "--sharded-only" in args:
+        # Phase 18 alone.
+        sharded_slice(torch, np, card)
         print(f"card: {card}", flush=True)
         return 0
     if "--dryrun-only" in args:
@@ -5327,6 +5828,8 @@ def main() -> int:
     train_launches["gram"] += zoo_train_launches["gram"]
     dryrun_launches, _ = dryrun_slice(torch, card, zoo_train["danube"])
     train_launches["gram"] += dryrun_launches
+    sharded_launches, _ = sharded_slice(torch, np, card)
+    flash_launches += sharded_launches
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)

@@ -180,12 +180,14 @@ _HYBRID_F32 = {("mamba", "a_log"), ("mamba", "dt_bias")}
 _XLSTM_F32 = {("mlstm", "wi"), ("mlstm", "wf"), ("slstm", "rw")}
 
 
-def _tree_from_numpy(tree, shapes, dev: torch.device, dt: torch.dtype, keep_f32=frozenset()):
+def _tree_from_numpy(tree, shapes, dev: torch.device, dt: torch.dtype, keep_f32=frozenset(),
+                     cut=None):
     """Tensors on ``dev`` from a tree of numpy arrays matching ``shapes``:
     in ``dt``, except the leaves whose key path is in ``keep_f32``.  A
     tree whose keys or shapes differ raises ``ValueError``.  bf16 arrays
     (numpy has no bf16 of its own) go through f32, which holds every bf16
-    value exactly."""
+    value exactly.  ``cut(path, array)``, if given, slices each array on
+    the host before it is copied (a rank's shard)."""
 
     def conv(node, shape, path):
         if isinstance(shape, dict):
@@ -198,6 +200,8 @@ def _tree_from_numpy(tree, shapes, dev: torch.device, dt: torch.dtype, keep_f32=
         if a.shape != shape:
             where = "".join(f"[{k!r}]" for k in path)
             raise ValueError(f"params{where}: expected shape {shape}, got {a.shape}")
+        if cut is not None:
+            a = cut(path, a)
         if a.dtype.kind != "f" or a.dtype.itemsize < 4:   # bf16 and f16
             a = a.astype(np.float32)
         leaf_dt = torch.float32 if path in keep_f32 else dt
@@ -222,6 +226,72 @@ def transformer_params_from_numpy(
     dt = cfg.torch_dtype if dtype is None else dtype
     return _tree_from_numpy(tree, transformer_param_shapes(cfg), resolve_device(device), dt,
                             _TRANSFORMER_F32)
+
+
+def _shard_cut(cfg: ModelConfig, grid):
+    """``cut`` for :func:`_tree_from_numpy`: each leaf's block on ``grid``'s
+    rank, by the spec tree of ``cfg``'s whole parameters."""
+    from repro_torch.sharding.rules import shard_index, transformer_param_specs
+
+    specs = transformer_param_specs(cfg, grid.rules, grid.plan)
+
+    def cut(path, a):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return a[shard_index(a.shape, spec, grid.plan, grid.coords)]
+
+    return cut
+
+
+def transformer_shard_from_numpy(
+    tree: dict[str, Any],
+    cfg: ModelConfig,
+    grid,
+    *,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """This rank's shard on ``grid`` (a ``launch/mesh.ModelGroup``) of
+    :func:`transformer_params_from_numpy`'s tree: each array is sliced on
+    the host by its spec (``sharding/rules.shard_params_by_name``'s
+    layout) and only the slice is copied to ``device``, so no rank holds
+    the whole weights there."""
+    return _tree_from_numpy(tree, transformer_param_shapes(cfg), resolve_device(device),
+                            cfg.torch_dtype, _TRANSFORMER_F32, cut=_shard_cut(cfg, grid))
+
+
+def transformer_params_from_shards(shards: list, cfg: ModelConfig, plan) -> dict[str, Any]:
+    """The whole tree of host numpy arrays from every rank's shard, a tree
+    of tensors (``shards`` in rank order over ``plan``): the inverse of
+    :func:`transformer_shard_from_numpy` over the ranks.  An ``AdamW``
+    moment tree goes back the same way."""
+    from repro_torch.launch.mesh import data_axes_for
+    from repro_torch.sharding.rules import (AxisRules, transformer_param_specs,
+                                            unshard_params)
+
+    rules = AxisRules(mesh=plan, data_axes=data_axes_for(plan), model_axis="model")
+    host = [transformer_params_to_numpy(s) for s in shards]
+    return unshard_params(host, transformer_param_specs(cfg, rules, plan), plan)
+
+
+def opt_state_shard_from_numpy(
+    state: dict[str, Any], cfg: ModelConfig, grid, *,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """This rank's shard of :func:`opt_state_from_numpy`'s state: the
+    moments cut as the params are (``AdamW`` is elementwise, so a shard's
+    state is the state of its params), ``step`` whole."""
+    cut = _shard_cut(cfg, grid)
+    dev = resolve_device(device)
+
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, path + (k,)) for k, v in node.items()}
+        return torch.tensor(cut(path, np.asarray(node, np.float32)), device=dev)
+
+    out = {k: conv(v, ()) for k, v in state.items() if k != "step"}
+    out["step"] = torch.tensor(np.asarray(state["step"]), dtype=torch.int32, device=dev)
+    return out
 
 
 def hybrid_params_from_numpy(

@@ -265,6 +265,106 @@ def plan_collectives(cfg: ModelConfig, kind: str, params, pspec, rules: AxisRule
     return out
 
 
+#: Where the collectives the port's grid executor runs in a train step
+#: (``sharding/parallel.py`` over ``launch/mesh.ModelGroup``) part from
+#: :func:`plan_collectives`'s model of them: modelling differences, each
+#: applied by :func:`executor_collectives` (ROADMAP Queue 3).
+EXECUTOR_DIFFERENCES = (
+    "calls: a stacked layer leaf is gathered, reduce-scattered and its block all-reduced "
+    "one layer at a time, L calls where the plan counts one op a leaf (the reference's "
+    "scan body holds one)",
+    "bytes: the transport counts the payload a rank hands in: an all-gather's shard, a "
+    "reduce-scatter's whole gradient; the plan counts the gathered leaf and the scattered "
+    "shard",
+    "wire: every cross-rank sum is taken in f32 (4 / itemsize times a bf16 payload), and "
+    "the MoE's tensor-parallel path gathers its expert rows in f32",
+    "passes: a leaf outside remat's blocks (embed, head, patch_proj), or any leaf without "
+    "remat, is gathered once (autograd keeps the gathered weight for the backward); the "
+    "plan gathers every leaf twice",
+    "tensor: a model-split block's output is all-reduced in the forward and its input's "
+    "gradient once in the backward; remat's recompute all-reduces attention's output again "
+    "but stops before the FFN's (the layer's last collective, which no saved tensor needs: "
+    "torch.utils.checkpoint's early stop); the MoE adds its gates' gradient, "
+    "(B, S * top_k) f32",
+    "unplanned: the vocab-parallel embedding's all-reduce, the head's backward all-reduce, "
+    "the cross entropy's max and sums over model, the token count and the loss over data, "
+    "the MoE statistics' mean over data (forward and backward; the recompute stops before "
+    "it), and the gradient norm's one all-reduce over the grid",
+)
+
+
+def executor_collectives(cfg: ModelConfig, plan: MeshPlan, batch: int, seq: int) -> dict:
+    """What the grid executor's transports carry in one train step of a
+    transformer ``cfg`` on ``plan`` ((data..., model), ``repro``'s ``2d``
+    layout) at a global ``batch`` of ``seq`` positions, by kind
+    (``{kind: {"count", "bytes"}}``, bytes as ``Transport.stats`` counts
+    them): :func:`plan_collectives`'s ops with
+    :data:`EXECUTOR_DIFFERENCES` applied."""
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run on a grid yet")
+    rules = layout_rules("2d", plan)
+    params = _init_params(cfg)
+    pspec = specs_lib.param_spec_tree(params, rules, plan)
+    dp = specs_lib.axis_count(rules.data_axes, plan) if rules.data_axes else 1
+    mp = plan.axis_sizes["model"]
+    b_l, layers = batch // dp, cfg.num_layers
+    runs = 2 if cfg.remat else 1
+    d, act = cfg.d_model, cfg.torch_dtype.itemsize
+    tp = mp > 1 and cfg.d_ff % mp == 0
+    moe_tp = bool(cfg.num_experts) and tp and d % dp == 0
+    if cfg.num_experts and tp and not moe_tp:
+        raise ValueError(f"{cfg.name}: split experts on the plain path are not modelled")
+    if cfg.remat and 1 < cfg.remat_block < layers and layers % cfg.remat_block == 0:
+        raise ValueError(f"{cfg.name}: block remat's recompute is not modelled")
+    out: dict = {}
+
+    def add(kind, calls, nbytes):
+        if calls:
+            e = out.setdefault(kind, {"count": 0, "bytes": 0})
+            e["count"] += calls
+            e["bytes"] += calls * nbytes
+
+    for op in plan_collectives(cfg, "train", params, pspec, rules, plan, batch, b_l, seq):
+        tag, name = op.computation.split(":", 1)
+        path = tuple(name.split("/"))
+        stacked = path[0] == "layers"
+        calls = layers if stacked else 1
+        if tag == "tensor":
+            ffn = path[-1] == "ffn"
+            add("all-reduce", layers * (2 if ffn else runs + 1), op.result_bytes // act * 4)
+            if ffn and cfg.num_experts:
+                add("all-reduce", layers, b_l * seq * cfg.top_k * 4)
+            continue
+        es = specs_lib.lookup(params, path).element_size()
+        if tag == "fsdp" and op.op == "all-gather":
+            wire = 4 if moe_tp and stacked and path[-1] in ("wg", "wu", "wd") else es
+            add("all-gather", calls * (runs if stacked else 1),
+                op.result_bytes // op.group_size // calls // es * wire)
+        elif tag == "fsdp-grad":
+            add("reduce-scatter", calls, op.result_bytes * op.group_size // calls // es * 4)
+        elif tag == "dp-grad":
+            add("all-reduce", 1, op.result_bytes // es * 4)
+        else:
+            raise ValueError(f"unknown planned collective {op.computation}")
+    audio = cfg.family == "audio"
+    text = seq - (cfg.num_patches if cfg.family == "vlm" else 0)
+    if mp > 1:
+        add("all-reduce", 1, (cfg.num_codebooks if audio else 1) * b_l * text * d * 4)
+        add("all-reduce", 1, b_l * seq * d * 4)             # the head's input gradient
+        if audio:
+            add("all-reduce", 1, 4)                         # the codebooks' NLL sum
+        else:
+            add("all-reduce", 1, b_l * seq * 4)             # max
+            add("all-reduce", 1, 2 * b_l * seq * 4)         # sum of exp, label logit
+    if dp > 1:
+        add("all-reduce", 2, 4)                             # token count, loss
+        if cfg.num_experts:
+            add("all-reduce", layers * 2, (cfg.num_experts + 2) * 4)
+    if plan.size > 1:
+        add("all-reduce", 1, len(specs_lib.leaves_with_path(params)) * 4)
+    return out
+
+
 # ------------------------------------------------------------------ trace
 
 def _period(cfg: ModelConfig) -> int:

@@ -7,9 +7,15 @@ Port of ``repro/launch/mesh.py``.  Its two halves:
   :func:`data_axes_for`, :data:`HARDWARE`): axis names and sizes of a
   mesh of H100s, touching no device and starting no process, for
   ``launch/specs.py``, ``launch/dryrun.py`` and ``launch/dryrun_dssfn.py``.
-  ``repro``'s ``make_mesh_compat`` and ``make_host_mesh`` have no
-  counterpart: they build ``jax`` meshes of devices, and nothing here
-  lowers for one.
+  ``repro``'s ``make_mesh_compat`` has no counterpart: it builds a
+  ``jax`` mesh of devices, and nothing here lowers for one.
+- **The (data, model) grid** (:class:`ModelGroup`,
+  :func:`make_host_mesh`), the port of ``make_host_mesh(model_parallel)``:
+  the W ranks of one worker group laid out as W / model_parallel data
+  rows by model_parallel columns in ``repro``'s rank order, with a
+  :class:`Transport` for the whole group, one for this rank's model row
+  and one for its data column.  ``sharding/parallel.py`` runs a model
+  over it.
 - **The runtime** (below), the port of ``make_worker_mesh``.  The reference lays
 its M workers on a 1-D ``workers`` mesh, one per device slot; here the
 worker program runs in W processes (ranks) of a ``torch.distributed``
@@ -39,7 +45,8 @@ Gloo's pairs run on the host, so under ``gloo`` a card tensor is staged
 explicitly through a pinned host buffer and back (``describe()`` says
 ``gloo host-staged``); NCCL and CPU tensors go as they are.  It counts
 what it carries by kind (``all-reduce``, ``collective-permute``,
-``all-gather``, ``barrier``), by kind and payload dtype, and by bytes, and
+``all-gather``, ``reduce-scatter``, ``barrier``), by kind and payload
+dtype, and by bytes (the payload this rank hands in), and
 the host time spent in it.  :data:`PROCESS_TALLY` adds up the collectives
 of every transport of this process, so a check can tell whether any ran.
 """
@@ -262,16 +269,41 @@ class Transport:
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along dim 0, in rank order."""
+        """Every rank's ``x`` concatenated along dim 0, in rank order,
+        received into one tensor (staged: one pinned host buffer)."""
         t0 = time.perf_counter()
         x = x.contiguous()
         src = self._out({None: x})[None]
-        outs = [torch.empty_like(src) for _ in range(self.size)]
-        self.pg.allgather([outs], [src]).wait()
-        out = self._back(torch.cat(outs, dim=0))
+        like = torch.empty((self.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device="meta")
+        dst = (self._host("gather", None, like) if self.staged
+               else torch.empty(like.shape, dtype=x.dtype, device=x.device))
+        self.pg._allgather_base(dst, src).wait()
+        out = self._back(dst)
         self.count("all-gather", 1, x.numel() * x.element_size(), x.dtype)
         self.stats.host_s += time.perf_counter() - t0
         return out
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``x`` (size * n, ...), this rank's
+        n rows of it."""
+        import torch.distributed as dist
+
+        if x.shape[0] % self.size:
+            raise ValueError(f"{x.shape[0]} rows do not split over {self.size} ranks")
+        n = x.shape[0] // self.size
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        src = self._out({None: x})[None]
+        out = (self._host("recv", None, src[:n]) if self.staged
+               else torch.empty_like(x[:n]))
+        opts = dist.ReduceScatterOptions()
+        opts.reduceOp = dist.ReduceOp.SUM
+        self.pg.reduce_scatter([out], [list(src.chunk(self.size))], opts).wait()
+        res = self._back(out)
+        self.count("reduce-scatter", 1, x.numel() * x.element_size(), x.dtype)
+        self.stats.host_s += time.perf_counter() - t0
+        return res
 
     def barrier(self) -> None:
         """Return once every rank has reached this call."""
@@ -322,6 +354,11 @@ class WorkerGroup:
     dist_backend: str
     device: torch.device
     transport: Transport
+    #: The store the group met through; sub-groups meet under prefixes of it.
+    store: object = field(default=None, repr=False)
+    timeout_s: float = DEFAULT_TIMEOUT_S
+    #: Grids built over this group so far (each meets under its own prefix).
+    grids_made: int = 0
 
     def __post_init__(self):
         if self.num_workers % self.size:
@@ -344,6 +381,134 @@ class WorkerGroup:
                 f"{self.transport.describe()} on {self.device}")
 
 
+@dataclass
+class ModelGroup:
+    """The ranks of one :class:`WorkerGroup` as a grid of data rows by
+    model columns, laid out by ``plan`` (``("data", "model")`` or
+    ``("pod", "data", "model")``; the last axis is the model axis) in
+    ``repro``'s rank order: rank r sits at data index r // model_parallel
+    (the data axes flattened, the first slowest) and model index
+    r % model_parallel.  ``model`` joins this rank's row (its data index's
+    model_parallel ranks), ``data`` its column (the ranks of its model
+    index); ``world`` is the worker group's own transport."""
+
+    group: WorkerGroup
+    plan: MeshPlan
+    model: Transport
+    data: Transport
+    #: FSDP over the data axes (``AxisRules.fsdp``).
+    fsdp: bool = True
+
+    @property
+    def world(self) -> Transport:
+        return self.group.transport
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    @property
+    def device(self) -> torch.device:
+        return self.group.device
+
+    @property
+    def model_parallel(self) -> int:
+        return self.plan.shape[-1]
+
+    @property
+    def data_parallel(self) -> int:
+        return self.plan.size // self.model_parallel
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_parallel
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_parallel
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index along each axis of the plan."""
+        return dict(zip(self.plan.axis_names,
+                        (int(i) for i in np.unravel_index(self.rank, self.plan.shape))))
+
+    @property
+    def rules(self):
+        """The ``AxisRules`` the plan's layout follows (``repro``'s
+        launchers': batch and FSDP over the data axes, tensor over
+        ``model``)."""
+        from repro_torch.sharding.rules import AxisRules
+
+        return AxisRules(mesh=self.plan, data_axes=data_axes_for(self.plan),
+                         model_axis="model", fsdp=self.fsdp)
+
+    def transports(self) -> dict:
+        return {"world": self.world, "model": self.model, "data": self.data}
+
+    def reset_stats(self) -> None:
+        for t in self.transports().values():
+            t.reset()
+
+    def stats(self) -> dict:
+        """What the three transports carried, added up: ``{"counts",
+        "bytes", "dtypes", "host_s", "sync_s"}``."""
+        out = {"counts": {}, "bytes": {}, "dtypes": {}, "host_s": 0.0, "sync_s": 0.0}
+        for t in self.transports().values():
+            for key in ("counts", "bytes", "dtypes"):
+                for k, v in getattr(t.stats, key).items():
+                    out[key][k] = out[key].get(k, 0) + v
+            out["host_s"] += t.stats.host_s
+            out["sync_s"] += t.stats.sync_s
+        return out
+
+    def describe(self) -> str:
+        return (f"{self.plan.name} grid ({', '.join(self.plan.axis_names)}), "
+                f"{self.world.describe()} on {self.device}")
+
+
+def make_host_mesh(group: WorkerGroup, model_parallel: int = 1, *,
+                   plan: MeshPlan | None = None) -> ModelGroup:
+    """The (data, model) grid over ``group``'s ranks: ``repro``'s
+    ``make_host_mesh(model_parallel)``, a (W / model_parallel,
+    model_parallel) plan, or ``plan`` itself (its size must be the
+    group's; its last axis is the model axis).  Every rank of the group
+    calls this together: it builds the row's and the column's process
+    groups over prefixes of the group's store (each call its own, so the
+    ranks must build their grids in one order)."""
+    if plan is None:
+        if model_parallel < 1 or group.size % model_parallel:
+            raise ValueError(f"model_parallel={model_parallel} does not divide the "
+                             f"{group.size} ranks")
+        plan = MeshPlan(("data", "model"), (group.size // model_parallel, model_parallel))
+    if plan.size != group.size:
+        raise ValueError(f"the {plan.name} plan needs {plan.size} ranks; the group has "
+                         f"{group.size}")
+    if plan.axis_names[-1] != "model":
+        raise ValueError(f"a grid's last axis is the model axis, got {plan.axis_names}")
+    if group.store is None:
+        raise ValueError("the worker group carries no store to build sub-groups over")
+    import torch.distributed as dist
+
+    mp = plan.shape[-1]
+    row, col = group.rank // mp, group.rank % mp
+    group.grids_made += 1
+    tag = f"grid{group.grids_made}"
+
+    def sub(prefix: str, rank: int, size: int) -> Transport:
+        pg = _make_backend(group.dist_backend, dist.PrefixStore(prefix, group.store),
+                           rank, size, group.timeout_s)
+        return Transport(pg, rank=rank, size=size, dist_backend=group.dist_backend,
+                         device=group.device)
+
+    return ModelGroup(group, plan, model=sub(f"{tag}/model-row-{row}", col, mp),
+                      data=sub(f"{tag}/data-column-{col}", row, plan.size // mp))
+
+
 def rank_device(device, local_rank: int) -> torch.device:
     """The device a rank runs on: ``cuda:(local_rank % device_count)`` for
     a card, the CPU as given."""
@@ -359,9 +524,10 @@ def rank_device(device, local_rank: int) -> torch.device:
 def _group(num_workers, store, rank, size, dist_backend, device, timeout_s) -> WorkerGroup:
     if dist_backend == "nccl" and device.type != "cuda":
         raise ValueError("the nccl backend needs a CUDA device; use gloo on the CPU")
-    pg = _make_backend(dist_backend, store, rank, size, min(timeout_s, DEFAULT_TIMEOUT_S))
+    timeout_s = min(timeout_s, DEFAULT_TIMEOUT_S)
+    pg = _make_backend(dist_backend, store, rank, size, timeout_s)
     transport = Transport(pg, rank=rank, size=size, dist_backend=dist_backend, device=device)
-    return WorkerGroup(num_workers, rank, size, dist_backend, device, transport)
+    return WorkerGroup(num_workers, rank, size, dist_backend, device, transport, store, timeout_s)
 
 
 def _in_torchrun() -> bool:
@@ -384,7 +550,9 @@ def _torchrun_group(num_workers, dist_backend, device, timeout_s) -> WorkerGroup
     pg = dist.distributed_c10d._get_default_group()
     transport = Transport(pg, rank=rank, size=size, dist_backend=backend, device=dev)
     m = size if num_workers is None else num_workers
-    return WorkerGroup(m, rank, size, backend, dev, transport)
+    return WorkerGroup(m, rank, size, backend, dev, transport,
+                       dist.distributed_c10d._get_default_store(),
+                       min(timeout_s, DEFAULT_TIMEOUT_S))
 
 
 def make_worker_group(

@@ -8,6 +8,7 @@ the reference's vmapped init stacks them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -24,6 +25,7 @@ from repro_torch.nn import xlstm as xlstm_lib
 from repro_torch.nn.layers import dense_init, dense_init_by_slice, rms_norm, round_up
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
+from repro_torch.sharding import parallel as par
 
 Params = dict[str, Any]
 
@@ -39,6 +41,65 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, .
         "wv": dense_init(gen, stack + (d, cfg.num_kv_heads * hd), dt),
         "wo": dense_init(gen, stack + (cfg.num_heads * hd, d), dt),
     }
+
+
+def local_heads(cfg: ModelConfig) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank: the config's on one device;
+    on a grid, H / model and KV / model where the spec splits ``wq`` and
+    ``wk`` over the model row (their columns divide), else the whole
+    count.  Heads are split in contiguous blocks, so GQA's grouping (query
+    head h reads KV head h // (H / KV)) holds within a rank.  A split that
+    would cut a head raises."""
+    grid = par.current_grid()
+    mp = 1 if grid is None else grid.model_parallel
+    out = []
+    for heads in (cfg.num_heads, cfg.num_kv_heads):
+        if mp == 1 or (heads * cfg.hd) % mp:
+            out.append(heads)
+        elif heads % mp:
+            raise ValueError(f"{cfg.name}: a model row of {mp} would split one of "
+                             f"{heads} heads of {cfg.hd}; choose a model_parallel that "
+                             "divides the head counts")
+        else:
+            out.append(heads // mp)
+    hl, kvl = out
+    if hl % kvl:
+        raise ValueError(f"{cfg.name}: {hl} local query heads over {kvl} KV heads")
+    return hl, kvl
+
+
+def attention_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Rotated q (B, S, H', hd) and k, v (B, S, KV', hd) of x (B, S, d),
+    and this rank's ``wo`` and whether the block is split over the model
+    row.  H' and KV' are this rank's heads, read from the weights' shapes
+    (``local_heads``): on a grid the weights are this rank's shards, their
+    FSDP rows gathered, and x enters the column-parallel products through
+    ``sharding/parallel.enter_model``."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    wq, wk, wv, wo = (par.fsdp(p[n], n, cfg.d_model) for n in ("wq", "wk", "wv", "wo"))
+    split = par.model_split(wq.shape[-1], cfg.num_heads * hd)
+    hl, kvl = local_heads(cfg)
+    if (hl * hd, kvl * hd) != (wq.shape[-1], wk.shape[-1]):
+        raise ValueError(f"attention weights {tuple(wq.shape)}, {tuple(wk.shape)} are not "
+                         f"{hl} and {kvl} heads of {hd}")
+    if split:
+        x = par.enter_model(x)
+    q = (x @ wq).reshape(b, s, hl, hd)
+    k = (x @ wk).reshape(b, s, kvl, hd)
+    v = (x @ wv).reshape(b, s, kvl, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v, wo, split
+
+
+def attention_out(out: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
+    """The output projection of attention's (B, S, H', hd) result: on a
+    grid the row-parallel product, its partial sums added over the model
+    row."""
+    b, s = out.shape[:2]
+    y = out.reshape(b, s, -1) @ wo
+    return par.leave_model(y) if split else y
 
 
 def apply_attention(
@@ -57,14 +118,12 @@ def apply_attention(
     S % 128 == 0), or its plain version on the CPU.  Both compute the same
     exact causal (sliding-window) attention as the chunked path; the op
     takes the KV heads unrepeated, the chunked path repeated.  With a
-    cache, one token is written to it and attends to it."""
-    b, s, _ = x.shape
-    hd = cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    cache, one token is written to it and attends to it.  On a grid every
+    route runs over this rank's heads (``attention_qkv``) and the cache
+    holds them."""
+    s = x.shape[1]
+    q, k, v, wo, split = attention_qkv(p, x, positions, cfg)
+    heads = q.shape[2]
 
     if cache is None:
         if cfg.use_pallas_kernels:  # the op reads each KV head in place (GQA)
@@ -76,16 +135,15 @@ def apply_attention(
             ).transpose(1, 2)
         else:
             out = attn_lib.chunked_causal_attention(
-                q, attn_lib.repeat_kv(k, cfg.num_heads), attn_lib.repeat_kv(v, cfg.num_heads),
+                q, attn_lib.repeat_kv(k, heads), attn_lib.repeat_kv(v, heads),
                 chunk_size=min(cfg.attn_chunk, s), window=window
             )
         new_cache = None
     else:
         cache = attn_lib.cache_update(cache, k, v)
-        out = attn_lib.decode_attention(q, cache, num_heads=cfg.num_heads, window=window)
+        out = attn_lib.decode_attention(q, cache, num_heads=heads, window=window)
         new_cache = cache
-    y = out.reshape(b, s, cfg.num_heads * hd) @ p["wo"]
-    return y, new_cache
+    return attention_out(out, wo, split), new_cache
 
 
 # ---------------------------------------------------------------- mlp / moe
@@ -114,15 +172,21 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ..
 
 
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out, moe_aux_loss); the aux loss is 0 without experts."""
+    """Returns (out, moe_aux_loss); the aux loss is 0 without experts.
+    On a grid the weights are this rank's shards: the MoE takes
+    ``moe_ffn_parallel`` (its aux loss averaged over the data rows), the
+    SwiGLU gathers its FSDP rows and runs column- then row-parallel where
+    d_ff splits over the model row."""
+    grid = par.current_grid()
     if cfg.num_experts:
-        out, stats = moe_lib.moe_ffn(
-            x, p["router"], p["wg"], p["wu"], p["wd"],
-            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-        )
+        fn = moe_lib.moe_ffn if grid is None else functools.partial(
+            moe_lib.moe_ffn_parallel, d_ff=cfg.d_ff)
+        out, stats = fn(x, p["router"], p["wg"], p["wu"], p["wd"],
+                        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
         return out, stats.aux_loss
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return swiglu(x, p["wg"], p["wu"], p["wd"]), aux
+    wg, wu, wd = (par.fsdp(p[n], n, cfg.d_model) for n in ("wg", "wu", "wd"))
+    return swiglu(x, wg, wu, wd, model_split=par.model_split(wd.shape[-2], cfg.d_ff)), aux
 
 
 # ------------------------------------------------------- transformer layer

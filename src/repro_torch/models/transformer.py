@@ -22,6 +22,13 @@ loss); a VLM prepends ``patch_embeds @ patch_proj`` (the stubbed vision
 encoder's output, projected) to the token embeddings when the batch has
 them; an audio model embeds a (B, S, nc) codebook grid as the sum of nc
 lookups and its head gives (B, S, nc, V) logits.
+
+On a (data, model) grid of ranks (``sharding/parallel.use_grid``) the
+same methods run one rank's share, on its shard of the parameters
+(``sharding/rules.shard_params_by_name``) and its data row's sequences:
+the embedding vocab-parallel, attention over this rank's heads, the FFN
+or MoE over its f-slice, and logits split over the model row as the
+reference's are (``_head``); ``models/steps.py`` scores them.
 """
 from __future__ import annotations
 
@@ -35,8 +42,9 @@ from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm
-from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.layers import (dense_init, embed_init, embed_lookup, rms_norm,
+                                   vocab_parallel_embed_lookup)
+from repro_torch.sharding import parallel as par
 
 Params = dict[str, Any]
 
@@ -54,9 +62,19 @@ def layer_views(layers: Params, n: int) -> list[Params]:
 def remat(fn, cfg: ModelConfig):
     """``fn`` whose activations are recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat`` and
-    autograd is recording; ``fn`` itself otherwise."""
+    autograd is recording; ``fn`` itself otherwise.  On a grid the
+    recompute runs under the grid current at the call: the backward of
+    card tensors runs on autograd's device thread, which has none."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
+    grid = par.current_grid()
+    if grid is not None:
+        inner = fn
+
+        def fn(*args):
+            with par.use_grid(grid):
+                return inner(*args)
+
     return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
 
 
@@ -86,26 +104,53 @@ class TransformerModel:
 
     # -------------------------------------------------------------- embed
     def _embed(self, params: Params, batch: dict) -> torch.Tensor:
+        """The token embeddings (and a VLM's projected patches in front).
+        On a grid ``embed`` is this rank's vocab shard: a masked local
+        lookup, added over the model row."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        emb = par.fsdp(params["embed"], "embed", cfg.d_model)
+        vl = emb.shape[-2]
+        start = (par.current_grid().model_index * vl
+                 if par.model_split(vl, cfg.padded_vocab) else None)
         if cfg.family == "audio":
             # tokens (B, S, nc): the codebooks' embeddings summed in order
             # from 0, in the model's dtype, as the reference's sum().
-            x = sum(embed_lookup(params["embed"][c], tokens[..., c])
-                    for c in range(cfg.num_codebooks))
+            parts = [embed_lookup(emb[c], tokens[..., c], start)
+                     for c in range(cfg.num_codebooks)]
+            if start is not None:   # one all-reduce for the nc lookups
+                parts = par.leave_model(torch.stack(parts)).unbind(0)
+            x = sum(parts)
         else:
-            x = embed_lookup(params["embed"], tokens)
+            x = (embed_lookup(emb, tokens) if start is None
+                 else vocab_parallel_embed_lookup(emb, tokens, start))
         if cfg.family == "vlm" and "patch_embeds" in batch:
-            patches = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+            proj = par.fsdp(params["patch_proj"], "patch_proj", cfg.patch_dim)
+            patches = batch["patch_embeds"].to(x.dtype) @ proj
             x = torch.cat([patches, x], dim=1)
         return x
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits (B, S, V) (audio: (B, S, nc, V)).  On a grid they come
+        out split over the model row as ``head``'s columns are, as in the
+        reference (``shard(logits, ..., "tensor")``): (B, S, V / model)
+        from vocab id ``model_index * V / model``; an audio model's nc * V
+        columns split by codebook, (B, S, nc / model, V) from codebook
+        ``model_index * nc / model``."""
         cfg = self.cfg
-        logits = rms_norm(x, params["ln_f"]) @ params["head"]
+        head = par.fsdp(params["head"], "head", cfg.d_model)
+        xn = rms_norm(x, params["ln_f"])
+        full = cfg.padded_vocab * (cfg.num_codebooks if cfg.family == "audio" else 1)
+        if par.model_split(head.shape[-1], full):
+            xn = par.enter_model(xn)
+        logits = xn @ head
         if cfg.family == "audio":
-            b, s, _ = logits.shape
-            return logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
+            b, s, cols = logits.shape
+            if cols % cfg.padded_vocab:
+                raise ValueError(f"{cfg.name}: a model row of "
+                                 f"{par.current_grid().model_parallel} splits a codebook's "
+                                 f"vocab; it must divide the {cfg.num_codebooks} codebooks")
+            return logits.reshape(b, s, cols // cfg.padded_vocab, cfg.padded_vocab)
         return logits
 
     # ------------------------------------------------------------ forward
@@ -162,11 +207,12 @@ class TransformerModel:
         return self._head(params, x[:, -1:, :]), cache
 
     def init_cache(self, batch_size: int, max_len: int, device=None) -> attn_lib.KVCache:
-        """An empty stacked cache: k, v (L, B, slots, KVH, hd), index (L,)."""
+        """An empty stacked cache: k, v (L, B, slots, KVH, hd), index (L,);
+        on a grid KVH is this rank's KV heads and B its data row's."""
         cfg = self.cfg
         slots = min(max_len, cfg.window) if cfg.attention == "swa" else max_len
         dev = resolve_device(device)
-        shape = (cfg.num_layers, batch_size, slots, cfg.num_kv_heads, cfg.hd)
+        shape = (cfg.num_layers, batch_size, slots, blocks.local_heads(cfg)[1], cfg.hd)
         return attn_lib.KVCache(
             k=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             v=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
@@ -190,25 +236,20 @@ class TransformerModel:
 
 def _attention_collect_kv(layer_p, x, positions, cfg, window):
     """Attention that also returns the rotated (k, v) for cache building.
-    Always the plain chunked attention, as the reference's prefill."""
-    p = layer_p["attn"]
-    b, s, _ = x.shape
-    hd = cfg.hd
+    Always the plain chunked attention, as the reference's prefill; on a
+    grid over this rank's heads."""
+    s = x.shape[1]
     xn = rms_norm(x, layer_p["ln1"])
-    q = (xn @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (xn @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (xn @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v, wo, split = blocks.attention_qkv(layer_p["attn"], xn, positions, cfg)
+    heads = q.shape[2]
     out = attn_lib.chunked_causal_attention(
         q,
-        attn_lib.repeat_kv(k, cfg.num_heads),
-        attn_lib.repeat_kv(v, cfg.num_heads),
+        attn_lib.repeat_kv(k, heads),
+        attn_lib.repeat_kv(v, heads),
         chunk_size=min(cfg.attn_chunk, s),
         window=window,
     )
-    y = out.reshape(b, s, cfg.num_heads * hd) @ p["wo"]
-    return y, (k, v)
+    return blocks.attention_out(out, wo, split), (k, v)
 
 
 def _kv_to_cache(kv_stack, seq_len: int, cfg: ModelConfig, max_len: int | None = None):

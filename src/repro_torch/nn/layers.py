@@ -63,9 +63,30 @@ def layer_norm(
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * gamma + beta
 
 
-def embed_lookup(embedding: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of ``embedding`` (V, d) at integer ``ids`` (...) -> (..., d)."""
-    return torch.nn.functional.embedding(ids, embedding)
+def embed_lookup(
+    embedding: torch.Tensor, ids: torch.Tensor, vocab_start: int | None = None
+) -> torch.Tensor:
+    """Rows of ``embedding`` (V, d) at integer ``ids`` (...) -> (..., d).
+    With ``vocab_start``, ``embedding`` is the block of rows from
+    ``vocab_start`` on (one rank's vocab shard): an id outside it looks up
+    a zero row, so the shards' lookups add up to the whole one."""
+    if vocab_start is None:
+        return torch.nn.functional.embedding(ids, embedding)
+    local = ids - vocab_start
+    own = (local >= 0) & (local < embedding.shape[0])
+    rows = torch.nn.functional.embedding(torch.where(own, local, 0), embedding)
+    return rows * own[..., None].to(rows.dtype)
+
+
+def vocab_parallel_embed_lookup(
+    embedding: torch.Tensor, ids: torch.Tensor, vocab_start: int
+) -> torch.Tensor:
+    """The vocab-parallel lookup: this rank's masked lookup of its shard
+    (``vocab_start`` on), added over the model row (``sharding/parallel.
+    leave_model``; one shard holds each id, so the sum is exact)."""
+    from repro_torch.sharding.parallel import leave_model
+
+    return leave_model(embed_lookup(embedding, ids, vocab_start))
 
 
 def round_up(x: int, multiple: int) -> int:

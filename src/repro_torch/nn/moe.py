@@ -9,9 +9,21 @@ Python loop over tokens and no host synchronization.  ``route`` and
 ``dispatch`` together are the reference's ``_route_one``, ``combine`` its
 ``_combine_one``, and ``moe_ffn`` the plain path of its ``_moe_core``.
 
-The reference's ``shard_map`` tensor-parallel path (expert weights split
-over a model axis, combined before the all-reduce) needs a mesh of
-devices and has no one-card counterpart; it is left out.
+On a (data, model) grid of ranks (``sharding/parallel.py``),
+``moe_ffn_parallel`` takes the reference's ``shard_map`` tensor-parallel
+path under its conditions (a model row of more than one rank, a hidden dim f
+that splits over it, the model dim d over the data rows where FSDP is
+on): each rank holds an f-slice of every expert, gathers the FSDP rows
+of ``wg``, ``wu`` and ``wd`` over the data column in f32, routes and
+dispatches its data row's sequences in full, runs its f-slice of each
+expert, combines, and only then adds the partial (B, S, d) outputs over
+the row in f32 (one all-reduce the size of a dense MLP's); the router's
+statistics are averaged over the data rows.  Under any other condition
+on a grid it takes the plain path on whole experts (their split dims
+gathered).  On the backward pass the dispatched tokens' gradient and the
+gates' (each rank's f-slice gives a part of both) are added over the
+row, and the router's own terms, which every rank computes whole, are
+not.
 
 Semantics that decide routing and drops, as in the reference:
 
@@ -32,6 +44,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.sharding import parallel as par
 
 
 class RouterStats(NamedTuple):
@@ -126,6 +140,62 @@ def combine(y_buf: torch.Tensor, plan: Routing, seq_len: int) -> torch.Tensor:
     for k in range(top_k):
         out = out + terms[:, :, k]
     return out
+
+
+def _mean_stats(stats: RouterStats) -> RouterStats:
+    """The statistics averaged over the data rows (``pmean``), one
+    all-reduce for the three."""
+    e = stats.load.shape[0]
+    flat = par.mean_over_data(torch.cat([stats.load, stats.aux_loss[None],
+                                         stats.dropped[None]]))
+    return RouterStats(load=flat[:e], aux_loss=flat[e], dropped=flat[e + 1])
+
+
+def moe_ffn_parallel(
+    x: torch.Tensor,
+    w_router: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    *,
+    top_k: int,
+    capacity_factor: float,
+    d_ff: int,
+) -> tuple[torch.Tensor, RouterStats]:
+    """``moe_ffn`` on a grid: this rank's shards of the weights (``wg``
+    and ``wu`` (E, d or d/data, f or f/model), ``wd`` transposed alike,
+    the router (d or d/data, E)), x its data row's (B/data, S, d), whole
+    on every rank of the row.  ``d_ff`` is the experts' whole hidden dim.
+    Returns the row's (B/data, S, d) output and the statistics averaged
+    over the data rows.  The path is ``repro``'s (``nn/moe.py``): the
+    tensor-parallel one when the row has more than one rank, ``d_ff``
+    splits over it and, with FSDP on, d over the data rows; else the
+    plain one on whole experts."""
+    grid = par.current_grid()
+    _, s, d = x.shape
+    dtype = x.dtype
+    tp = grid.model_parallel
+    fsdp_ok = not grid.fsdp or d % grid.data_parallel == 0
+    router = par.fsdp(w_router, "router", d)
+    num_experts = router.shape[1]
+    cap = capacity(s, num_experts, top_k, capacity_factor)
+    if tp > 1 and d_ff % tp == 0 and fsdp_ok:
+        # Each rank's f-slice; the FSDP rows gathered in f32, as repro's
+        # all_gather in its manual region.
+        wg, wu, wd = (par.fsdp(w, n, d, torch.float32).to(dtype)
+                      for w, n in ((w_gate, "wg"), (w_up, "wu"), (w_down, "wd")))
+        plan, stats = route(x, router, top_k=top_k, cap=cap)
+        buf = dispatch(par.enter_model(x), plan, num_experts, cap)
+        y = expert_ffn(buf, wg, wu, wd)
+        plan = plan._replace(gates=par.enter_model(plan.gates))
+        out = par.leave_model(combine(y, plan, s))
+        return out, _mean_stats(stats)
+    wg, wu, wd = (par.fsdp(w, n, d) for w, n in ((w_gate, "wg"), (w_up, "wu"), (w_down, "wd")))
+    if wg.shape[-1] != d_ff:        # f split but the path is the plain one
+        wg, wu, wd = par.gather_model(wg, -1), par.gather_model(wu, -1), par.gather_model(wd, -2)
+    plan, stats = route(x, router, top_k=top_k, cap=cap)
+    out = combine(expert_ffn(dispatch(x, plan, num_experts, cap), wg, wu, wd), plan, s)
+    return out, _mean_stats(stats)
 
 
 def moe_ffn(

@@ -62,7 +62,7 @@ def test_cli_trains_and_reports(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--arch", "nope"],
-    ["--arch", "stablelm_3b", "--model-parallel", "2"],
+    ["--arch", "stablelm_3b", "--dist-backend", "mpi"],
     ["--arch", "stablelm_3b", "--steps", "x"],
 ])
 def test_cli_refuses_bad_arguments(argv):
