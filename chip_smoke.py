@@ -241,11 +241,12 @@ Phases, each of which raises (non-zero exit) on any failed check:
     another commit, builds DIR's ``mlstm_scan.cu`` as well, times it
     beside every case and in the profile, and requires its f32 outputs
     to equal this kernel's bit for bit.)
-11. The xLSTM slice at full width: xLSTM-350M, all 24 layers (20 mLSTM, 4
-    sLSTM), seeded weights.  (a) A bf16 scoring forward at B=1, S=8192
-    with the kernel on: 20 ``mlstm_scan`` launches, a finite loss, and
-    the kernel's and the sLSTM layers' shares of the forward; one more
-    such forward holds each of its 20 kernel calls against the plain scan
+11. The xLSTM slice at full width: xLSTM-350M, seeded weights, 12 of its
+    24 layers (10 mLSTM, 2 sLSTM) in (a), (b) and (d), all 24 in (c).
+    (a) A bf16 scoring forward at B=1, S=8192 with the kernel on: 10
+    ``mlstm_scan`` launches, a finite loss,
+    and the kernel's and the sLSTM layers' shares of the forward; one more
+    such forward holds each of its 10 kernel calls against the plain scan
     on the same input with phase 10's per-element bar.  (b) In
     f32, every mLSTM layer's kernel call against the plain scan on the
     same input, and the kernel route's logits against the plain route's,
@@ -3793,11 +3794,15 @@ def mlstm_profile(torch, card: str, cases=(MLSTM_HEADLINE,), parent=None) -> dic
 
 
 # The xLSTM slice: xLSTM-350M (arXiv:2405.04517) at its published widths
-# and all 24 layers (4 periods of 5 mLSTM layers and one sLSTM layer);
-# only the number of requests and the generated length are cut.
-XLSTM = {"arch": "xlstm_350m", "score_seq": 8192, "serve_batch": 2,
+# and lengths.  The scoring and f32 passes run 12 of its 24 layers (2 of 4
+# periods of 5 mLSTM layers and one sLSTM layer: the sLSTM's host loop, a
+# few ms a step over 8192 steps a pass, was the smoke's largest share
+# beside phase 17, and phase 18's recurrent grid checks needed the time);
+# serving runs all 24; the number of requests and the generated length
+# are cut.
+XLSTM = {"arch": "xlstm_350m", "layers": 12, "score_seq": 8192, "serve_batch": 2,
          "prompt": 4608, "gen": 16, "seed": 0}
-# (b) holds each of the 20 kernel calls, on the plain route's own input, to
+# (b) holds each of the 10 kernel calls, on the plain route's own input, to
 # 1e-3 of its layer's update (F's rounding, see MLSTM_REL, keeps it far
 # below that), and the logits of the two routes, and (d) those of prefill
 # + decode against the forward, to 0.1 x max|logits|, as the hybrid's: a
@@ -3823,7 +3828,8 @@ def xlstm_slice(torch, np, card: str) -> tuple[int, dict]:
     from repro_torch.models.transformer import layer_views
     from repro_torch.nn.layers import embed_lookup
 
-    cfg = dataclasses.replace(get_config(XLSTM["arch"]), use_pallas_kernels=True)
+    cfg = dataclasses.replace(get_config(XLSTM["arch"]), use_pallas_kernels=True,
+                              num_layers=XLSTM["layers"])
     s, seed = XLSTM["score_seq"], XLSTM["seed"]
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
@@ -4833,6 +4839,11 @@ def tap_features(torch, model, params, tokens):
     return [t.reshape(-1, cfg.d_model).T.float().contiguous() for t in taps]
 
 
+def _clone(out):
+    """A copy of a kernel op's result: a tensor or a nest of tuples of them."""
+    return tuple(_clone(t) for t in out) if isinstance(out, tuple) else out.clone()
+
+
 class OpRecorder:
     """Inside ``with``, every call of ``module.name`` (a kernel's op)
     keeps its arguments and a copy of its result in ``calls``, so that
@@ -4851,7 +4862,7 @@ class OpRecorder:
 
             out = op(*args, **kwargs)
             with _disable_current_modes():
-                self.calls.append((args, kwargs, out.clone()))
+                self.calls.append((args, kwargs, _clone(out)))
             return out
 
         setattr(self.module, self.name, call)
@@ -5312,6 +5323,52 @@ SHARDED_TRAIN = {"arch": "h2o_danube3_4b", "layers": 4, "batch": 2, "seq": 4096,
 # sums carry that into the logits.  Bar: 4 ulps, 2**-6 x max|logits|.
 SHARDED_SERVE = {"arch": "h2o_danube3_4b", "layers": 2, "batch": 2, "prompt": 2048, "gen": 8}
 SHARDED_SERVE_TOL = 2.0**-6
+# Each rank keeps its row-parallel partial in f32 through the sum and
+# rounds once; rounding each partial to bf16 before the sum put (e)'s
+# prefill logits at this gap x max (on an H100 80GB HBM3 at 700 W).
+SHARDED_SERVE_DOUBLE_ROUNDED = 1.11e-2
+# (f) Zamba2-2.7B and (g) xLSTM-350M at full width, one period each (6
+# Mamba2 layers and the shared block; 5 mLSTM and 1 sLSTM), f32, the
+# scoring forward with the kernels on (each rank's ssm_scan over 16 of 32
+# heads of 160, flash_attention over 16 of 32 heads of 80, mlstm_scan
+# over 2 of 4 heads of 256), each call held against its plain version.
+# The gathered logits against the same model unsharded on the card: 1e-4
+# x max, or 10 times the unsharded forward's response to one f32 ulp up on
+# every embedding output where that is larger (these models amplify
+# rounding).
+SHARDED_RECURRENT = {
+    "hybrid": {"arch": "zamba2_2_7b", "layers": 6, "batch": 2, "seq": 2048,
+               "kernels": ("ssm_scan", "flash_attention")},
+    "xlstm": {"arch": "xlstm_350m", "layers": 6, "batch": 2, "seq": 1024,
+              "kernels": ("mlstm_scan",)},
+}
+SHARDED_RECURRENT_TOL, SHARDED_ULP_RESPONSES = 1e-4, 10
+# Rounding noise: every embedding output moved one ulp up or down at
+# random, a quarter of them each way, under SHARDED_NOISE_SEEDS seeds.
+SHARDED_NOISE_SEEDS = 3
+# (h) one make_train_step of each at that depth, f32, B=2, S=1024, against
+# the unsharded step: (b)'s bars, or SHARDED_STEP_NOISE times the largest
+# move of the unsharded step under that noise where larger.  On one card
+# the noise alone moves the hybrid's worst gradient leaf by up to 2.5e-4 x
+# max, and the same step split into two B=1 halves by 2.5e-4, past (b)'s
+# 1e-4 (chip_probe_grid.py layers, on an H100 80GB HBM3 at 700 W); the
+# planted faults of chip_probe_grid.py faults exceed these bars 3.2x and
+# more.
+SHARDED_STEP_NOISE = 4
+# (i) launch/serve.py on both at that depth, bf16, prompt 512 + 8, against
+# the unsharded launcher.  Every layer of the sharded prefill (each Mamba2,
+# mLSTM and sLSTM layer, the shared block's attention and FFN, the head)
+# within (e)'s 2**-6 x max of the unsharded layer on the sharded input to
+# it (models/layer_tap.py), before the layers after it amplify its
+# rounding; the prefill logits within the smallest move the noise gives
+# the unsharded prefill's, and no further from the same weights' f32
+# prefill than the unsharded launcher's are, plus 2**-6 x max.  Their gap
+# to the unsharded logits is printed beside 2**-6 x max too: a bf16 ulp
+# on about a thousandth of a layer's outputs, amplified through 512
+# recurrent steps and the layers after it, puts it past that bar
+# (chip_probe_grid.py layers).
+SHARDED_RECURRENT_STEP = {"batch": 2, "seq": 1024, "lr": 3e-4}
+SHARDED_RECURRENT_SERVE = {"batch": 2, "prompt": 512, "gen": 8}
 
 
 def _sharded_tokens(np, cfg, b: int, s: int, seed: int):
@@ -5423,9 +5480,438 @@ def _sharded_rank(group, spool, moe_spec, grad_spec, train_kw, serve_kw):
     out["serve"] = serve_lib.serve_rank(group, serve_kw.pop("arch"), SHARDED["model_parallel"],
                                         serve_kw)
     stamps.append(("(e)", time.perf_counter()))
+    free(torch)
+    for key in SHARDED_RECURRENT:
+        out[key] = _recurrent_rank(torch, np, group, grid, spool, key)
+        free(torch)
+        stamps.append((f"{key} (f)-(i)", time.perf_counter()))
     out["seconds"] = {k: round(t - t0, 1) for (_, t0), (k, t) in zip(stamps, stamps[1:])}
     out["wall"] = (began, time.time())
     return out
+
+
+def _recurrent_held(torch, name: str, calls) -> float:
+    """The largest excess over its allowance (<= 0 passes) of the recorded
+    f32 calls of ``name``, each against the plain scan on its own input
+    (phases 9-10's per-element bars; ``flash_attention``: the fraction of
+    ``held_flash_calls``' bar less one)."""
+    if name == "flash_attention":
+        return held_flash_calls(calls) - 1.0
+    worst = -float("inf")
+    for args, kw, got in calls:
+        if name == "ssm_scan":
+            from repro_torch.kernels.ssm_scan import ssm_scan_ref
+
+            ex = ssm_excess(torch, got, ssm_scan_ref(*args, **kw), args, kw["chunk"], "float32")
+            worst = max(worst, ex["excess_y"], ex["excess_h"])
+        else:
+            from repro_torch.kernels.mlstm_scan import mlstm_scan_ref
+
+            ex = mlstm_excess(torch, got, mlstm_scan_ref(*args, **kw), args, kw["chunk"],
+                              "float32")
+            worst = max(worst, ex["excess_y"], ex["excess_state"])
+    return worst
+
+
+def _recurrent_rank(torch, np, group, grid, spool, key: str) -> dict:
+    """(f)/(g), (h) and (i) of one model on this rank: the scoring forward
+    twice with the kernels on (the first recording each kernel call, the
+    second timed), one train step, ``launch/serve.serve_rank``."""
+    import contextlib
+
+    from repro_torch import _tree
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.layer_tap import LayerTap
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding import rules as rules_lib
+
+    spec, seed, out = SHARDED_RECURRENT[key], SHARDED["seed"], {}
+    counters = kernel_counters()
+    cfg = zoo_config({"arch": spec["arch"], "reduced": False}, num_layers=spec["layers"],
+                     dtype="float32")
+    model = build_model(cfg)
+    params = rules_lib.init_shard(model, grid, seed)
+    bl = spec["batch"] // grid.data_parallel
+    rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)
+    tokens = _sharded_tokens(np, cfg, spec["batch"], spec["seq"], seed)
+    batch = {"tokens": torch.as_tensor(tokens[rows], device=grid.device)}
+    for name in spec["kernels"]:
+        counters[name].reset_launch_count()
+    with par.use_grid(grid), torch.no_grad():
+        with contextlib.ExitStack() as stack:
+            recs = {name: stack.enter_context(OpRecorder(blocks, name))
+                    for name in spec["kernels"]}
+            logits, _ = model.forward(params, batch)
+        torch.cuda.synchronize()
+        grid.reset_stats()
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        stats = grid.stats()
+    out["launches"] = {name: counters[name].launch_count() for name in spec["kernels"]}
+    out["host_ms"], out["sync_ms"] = stats["host_s"] * 1e3, stats["sync_s"] * 1e3
+    out["held"] = {name: _recurrent_held(torch, name, rec.calls) for name, rec in recs.items()}
+    out["shapes"] = {name: [tuple(a.shape) for a in rec.calls[0][0][:2]]
+                     for name, rec in recs.items()}
+    out["logits"] = _spool(spool, grid.rank, f"{key}_logits", logits.cpu())
+    del params, logits, recs, batch
+    free(torch)
+
+    step = SHARDED_RECURRENT_STEP
+    cfg = dataclasses.replace(cfg, use_pallas_kernels=False)
+    model = build_model(cfg)
+    params = rules_lib.init_shard(model, grid, seed)
+    bl = step["batch"] // grid.data_parallel
+    rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)
+    whole = next(iter(TokenStream(cfg.vocab_size, step["seq"], step["batch"], seed=0)))
+    batch = {k: torch.as_tensor(v[rows], device=grid.device) for k, v in whole.items()}
+    opt = GradCapture(AdamW(lr=step["lr"]))
+    with par.use_grid(grid):
+        grid.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _, metrics = make_train_step(model, opt)(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["step_stats"] = grid.stats()
+    out["loss"], out["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+    out["grads"] = _spool(spool, grid.rank, f"{key}_grads",
+                          _tree.map_(lambda t: t.cpu(), opt.grads))
+    del params, opt, metrics, batch
+    free(torch)
+
+    serve = SHARDED_RECURRENT_SERVE
+    with LayerTap() as tap:
+        out["serve"] = serve_lib.serve_rank(
+            group, spec["arch"], SHARDED["model_parallel"],
+            {"batch": serve["batch"], "prompt_len": serve["prompt"], "gen_len": serve["gen"],
+             "reduced": False, "seed": seed, "params": None, "layers": spec["layers"]})
+    out["serve_calls"] = _spool(spool, grid.rank, f"{key}_serve_calls", tap.calls)
+    out["coords"] = grid.coords
+    return out
+
+
+def _noisy_embed(torch, embed, seed: int):
+    """``embed`` with every output moved one ulp of its dtype up or down
+    at random, a quarter of them each way (the gradient passes)."""
+    def call(*args):
+        e = embed(*args)
+        gen = torch.Generator(device=e.device).manual_seed(seed)
+        r = torch.randint(0, 4, e.shape, generator=gen, device=e.device)
+        up = torch.nextafter(e, e.new_full((), float("inf")))
+        down = torch.nextafter(e, e.new_full((), -float("inf")))
+        return e + (torch.where(r == 0, up, torch.where(r == 1, down, e)) - e).detach()
+
+    return call
+
+
+def _serve_model(torch, key: str, dtype: str | None = None):
+    """(i)'s model as ``launch/serve.py`` builds it unsharded (bf16, or
+    ``dtype``), its seeded params on the card and the seeded prompt."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.train import _config
+    from repro_torch.models import build_model
+
+    spec, serve = SHARDED_RECURRENT[key], SHARDED_RECURRENT_SERVE
+    cfg = _config(spec["arch"], False, spec["layers"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SHARDED["seed"]))
+    if dtype is not None:
+        from repro_torch import _tree
+
+        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        params = _tree.map_(lambda t: t.to(getattr(torch, dtype)), params)
+    prompt = serve_lib._prompt(cfg, serve["batch"], serve["prompt"], SHARDED["seed"])
+    return model, params, {"tokens": torch.as_tensor(prompt["tokens"], device="cuda")}
+
+
+def _prefill_logits(torch, model, params, prompt):
+    """The prompt's last-position logits (host f32), as the launcher's
+    prefill gives them."""
+    serve = SHARDED_RECURRENT_SERVE
+    with torch.no_grad():
+        logits, _ = model.prefill(params, prompt, max_len=serve["prompt"] + serve["gen"])
+    return logits[:, -1].float().cpu()
+
+
+def sharded_recurrent_reference(torch, np, key: str) -> dict:
+    """(f)/(g), (h) and (i) of one model unsharded on the card: the
+    forward's logits and its response to one f32 ulp up on every embedding
+    output; one train step's loss, grad_norm and gradient (host), and the
+    step's largest move under rounding noise on the embedding outputs; the
+    serving launcher's result, the smallest move of its prefill logits
+    under that noise, and the same weights' prefill logits in f32."""
+    from repro_torch import _tree
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import build_model, hybrid_model, xlstm_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamW
+
+    spec, seed = SHARDED_RECURRENT[key], SHARDED["seed"]
+    cfg = zoo_config({"arch": spec["arch"], "reduced": False}, num_layers=spec["layers"],
+                     dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    tokens = _sharded_tokens(np, cfg, spec["batch"], spec["seq"], seed)
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    module = hybrid_model if key == "hybrid" else xlstm_model
+    embed = module.embed_tokens
+
+    def embed_up(*a):
+        """The embedding outputs one ulp of their dtype up (the gradient
+        passes)."""
+        e = embed(*a)
+        return e + (torch.nextafter(e, e.new_full((), float("inf"))) - e).detach()
+
+    with torch.no_grad():
+        want, _ = model.forward(params, batch)
+        module.embed_tokens = embed_up
+        try:
+            moved, _ = model.forward(params, batch)
+        finally:
+            module.embed_tokens = embed
+    out = {"cfg": cfg, "logits": want.cpu().numpy(),
+           "ulp_response": (moved - want).abs().max().item()}
+    del params, want, moved, batch
+    free(torch)
+
+    step = SHARDED_RECURRENT_STEP
+    cfg = dataclasses.replace(cfg, use_pallas_kernels=False)
+    model = build_model(cfg)
+    whole = next(iter(TokenStream(cfg.vocab_size, step["seq"], step["batch"], seed=0)))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in whole.items()}
+    response = {"loss": 0.0, "grad_norm": 0.0, "leaf": 0.0}
+    for noise in (None,) + tuple(range(SHARDED_NOISE_SEEDS)):
+        # After the plain step, the same step under rounding noise on the
+        # embedding outputs: how far it alone moves the loss, grad_norm and
+        # gradient.
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        opt = GradCapture(AdamW(lr=step["lr"]))
+        if noise is not None:
+            module.embed_tokens = _noisy_embed(torch, embed, noise)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, _, metrics = make_train_step(model, opt)(params, opt.init(params), batch)
+            torch.cuda.synchronize()
+        finally:
+            module.embed_tokens = embed
+        if noise is None:
+            out.update(step_cfg=cfg, step_ms=(time.perf_counter() - t0) * 1e3,
+                       loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                       grads=_tree.map_(lambda t: t.cpu(), opt.grads))
+        else:
+            moved = {
+                "loss": abs(float(metrics["loss"]) - out["loss"]) / abs(out["loss"]),
+                "grad_norm": abs(float(metrics["grad_norm"]) - out["grad_norm"]) / out["grad_norm"],
+                "leaf": max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                            for g, w in zip(_tree.leaves(opt.grads), _tree.leaves(out["grads"])))}
+            response = {k: max(v, moved[k]) for k, v in response.items()}
+        del params, opt, metrics
+        free(torch)
+    out["step_noise_response"] = response
+    del batch
+    serve = SHARDED_RECURRENT_SERVE
+    out["serve"] = serve_lib.serve(spec["arch"], device="cuda", batch=serve["batch"],
+                                   prompt_len=serve["prompt"], gen_len=serve["gen"],
+                                   reduced=False, seed=seed, layers=spec["layers"])
+    free(torch)
+    # The prefill under rounding noise on its bf16 embedding outputs, and
+    # the same weights' prefill in f32.
+    model, params, prompt = _serve_model(torch, key)
+    want = torch.from_numpy(out["serve"]["prefill_logits"])
+    moves = []
+    for noise in range(SHARDED_NOISE_SEEDS):
+        module.embed_tokens = _noisy_embed(torch, embed, noise)
+        try:
+            moves.append(float((_prefill_logits(torch, model, params, prompt) - want).abs().max()))
+        finally:
+            module.embed_tokens = embed
+    out["serve_noise_response"] = min(moves)
+    del params
+    free(torch)
+    model, params, prompt = _serve_model(torch, key, "float32")
+    out["serve_f32"] = _prefill_logits(torch, model, params, prompt)
+    del params
+    free(torch)
+    return out
+
+
+def sharded_serve_layers(torch, key: str, ranks: list) -> dict:
+    """(i)'s layers: every tapped call of the ranks' sharded prefill
+    (``models/layer_tap.py``), gathered, against the unsharded layer on
+    the same input (a replay of the unsharded prefill), each as max abs
+    err / max|unsharded output|; also each input's gap to the unsharded
+    run's own input to that layer (how the rounding grows)."""
+    from repro_torch.models.layer_tap import LayerTap, gather_calls
+
+    calls, rows_agree = gather_calls([(r[key]["coords"], _unspool(torch, r[key]["serve_calls"]))
+                                      for r in ranks])
+    model, params, prompt = _serve_model(torch, key)
+    with LayerTap() as own:
+        _prefill_logits(torch, model, params, prompt)
+    with LayerTap(replay=calls) as one:
+        _prefill_logits(torch, model, params, prompt)
+    del params
+    free(torch)
+    if [c[0] for c in calls] != [c[0] for c in one.calls]:
+        raise AssertionError(f"18(i) the sharded prefill's layers {[c[0] for c in calls]} are "
+                             f"not the unsharded one's {[c[0] for c in one.calls]}")
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    gaps = [(name, rel(got, want)) for (name, _, got), (_, _, want) in zip(calls, one.calls)]
+    name, worst = max(gaps, key=lambda g: g[1])
+    return {"gaps": gaps, "worst": worst, "name": name, "rows_agree": rows_agree,
+            "inputs": [rel(x, w) for (_, x, _), (_, w, _) in zip(calls, own.calls)]}
+
+
+def sharded_recurrent_check(torch, np, card: str, ranks: list, ref: dict, key: str) -> dict:
+    """(f)/(g), (h) and (i) of one model: the gathered logits against the
+    unsharded forward, each rank's kernel calls against their plain
+    versions; the train step against the unsharded one and its transports
+    against ``executor_collectives``; the served prefill logits and tokens
+    against the unsharded launcher's."""
+    from repro_torch import _tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshPlan
+    from repro_torch.sharding import rules as rules_lib
+
+    spec, cfg = SHARDED_RECURRENT[key], ref["cfg"]
+    part = "(f)" if key == "hybrid" else "(g)"
+    plan = MeshPlan(("data", "model"), (SHARDED["ranks"] // SHARDED["model_parallel"],
+                                        SHARDED["model_parallel"]))
+    got = rules_lib.unshard_params(
+        [{"x": _unspool(torch, r[key]["logits"]).numpy()} for r in ranks],
+        {"x": ("data", None, "model")}, plan)["x"]
+    want = ref["logits"]
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    bar = max(SHARDED_RECURRENT_TOL * scale, SHARDED_ULP_RESPONSES * ref["ulp_response"])
+    held = {n: max(r[key]["held"][n] for r in ranks) for n in spec["kernels"]}
+    launches = {n: sum(r[key]["launches"][n] for r in ranks) for n in spec["kernels"]}
+    for r in ranks:
+        x = r[key]
+        print(f"18{part} rank {r['rank']} {r['coords']}: forward {x['forward_ms']:.1f} ms, "
+              f"transport host {x['host_ms']:.1f} ms of which {x['sync_ms']:.1f} ms waiting for "
+              f"the card; kernel calls (first two inputs' shapes) {x['shapes']}, launches "
+              f"{x['launches']}, worst excess over the per-element allowance {x['held']} "
+              f"(<= 0 passes)", flush=True)
+    print(f"18{part} {cfg.name} {cfg.num_layers} layers f32, B={spec['batch']} S={spec['seq']} on "
+          f"{ranks[0]['grid']}: gathered logits vs unsharded max abs err {err:.3e} (max|logits| "
+          f"{scale:.3e}; bar {bar:.3e} = max({SHARDED_RECURRENT_TOL} x max, "
+          f"{SHARDED_ULP_RESPONSES} x the unsharded forward's one-ulp response "
+          f"{ref['ulp_response']:.3e})), on {card}", flush=True)
+    calls = spec["layers"] if key == "hybrid" else spec["layers"] - 1
+    want_launches = {n: 2 * SHARDED["ranks"] * (1 if n == "flash_attention" else calls)
+                     for n in spec["kernels"]}
+    if not (err <= bar and all(v <= 0.0 for v in held.values()) and launches == want_launches):
+        raise AssertionError(f"18{part} sharded {key} forward: logits {err:.3e} > {bar:.3e}, "
+                             f"kernel calls {held} over their bars, or launches {launches} "
+                             f"(want {want_launches})")
+
+    step, scfg = SHARDED_RECURRENT_STEP, ref["step_cfg"]
+    specs = rules_lib.param_specs(scfg, rules_lib.AxisRules(mesh=plan, data_axes=("data",),
+                                                            model_axis="model"), plan)
+    got_g = rules_lib.unshard_params([_unspool(torch, r[key]["grads"]) for r in ranks],
+                                     specs, plan)
+    worst, worst_name = 0.0, None
+    for name, g, w in zip(_tree.leaves(_paths(ref["grads"])), _tree.leaves(got_g),
+                          _tree.leaves(ref["grads"])):
+        gap = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if gap > worst:
+            worst, worst_name = gap, name
+    r0 = ranks[0][key]
+    loss_gap = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm_gap = abs(r0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    response = ref["step_noise_response"]
+    bars = {k: max(v, SHARDED_STEP_NOISE * response[k]) for k, v in GRAD_TOL.items()}
+    wanted = dryrun.executor_collectives(scfg, plan, step["batch"], step["seq"])
+    bad = []
+    for r in ranks:
+        st = r[key]["step_stats"]
+        seen = {k: {"count": st["counts"][k], "bytes": st["bytes"][k]} for k in st["counts"]}
+        if seen != wanted:
+            bad.append((r["rank"], seen))
+    sums = {dt for r in ranks for (kind, dt) in r[key]["step_stats"]["dtypes"]
+            if kind != "all-gather"}
+    print(f"18(h) {cfg.name} {scfg.num_layers} layers f32 (remat {scfg.remat}), "
+          f"B={step['batch']} S={step['seq']}: loss sharded {r0['loss']:.7f} unsharded "
+          f"{ref['loss']:.7f} (rel {loss_gap:.2e}), grad_norm {r0['grad_norm']:.6f} vs "
+          f"{ref['grad_norm']:.6f} (rel {norm_gap:.2e}); worst gradient leaf {worst_name} "
+          f"{worst:.3e} x max|g|; bars {bars} (18(b)'s, or {SHARDED_STEP_NOISE} x the largest "
+          f"move of the unsharded step under random one-ulp noise on the embedding outputs over "
+          f"{SHARDED_NOISE_SEEDS} seeds, {response}, where larger); step {max(r[key]['step_ms'] for r in ranks):.0f} ms a rank "
+          f"sharded, {ref['step_ms']:.0f} ms unsharded; transport per rank "
+          f"{json.dumps(wanted)} (executor_collectives, every rank equal: {not bad}), host "
+          f"{r0['step_stats']['host_s'] * 1e3:.0f} ms of which "
+          f"{r0['step_stats']['sync_s'] * 1e3:.0f} ms waiting for the card, on {card}",
+          flush=True)
+    if not (loss_gap <= bars["loss"] and norm_gap <= bars["grad_norm"]
+            and worst <= bars["leaf"] and not bad and sums == {"float32"}):
+        raise AssertionError(f"18(h) sharded vs unsharded {key} step: loss {loss_gap:.2e}, "
+                             f"grad_norm {norm_gap:.2e}, leaf {worst_name} {worst:.2e} (bars "
+                             f"{bars}), sums in {sums}, transports off the planner's "
+                             f"{bad[:2]} (want {wanted})")
+
+    serve, grid_s, one = SHARDED_RECURRENT_SERVE, ranks[0][key]["serve"], ref["serve"]
+    layers = sharded_serve_layers(torch, key, ranks)
+    got_s = torch.from_numpy(grid_s["prefill_logits"])
+    want_s = torch.from_numpy(one["prefill_logits"])
+    s_err, s_scale = max_err(got_s, want_s)
+    f32 = ref["serve_f32"]
+    to_f32 = {"sharded": max_err(got_s, f32)[0], "unsharded": max_err(want_s, f32)[0]}
+    f32_bar = to_f32["unsharded"] + SHARDED_SERVE_TOL * s_scale
+    agree = float((grid_s["tokens"] == one["tokens"]).mean())
+    print(f"18(i) {spec['arch']} {spec['layers']} layers bf16 serve B={serve['batch']} prompt "
+          f"{serve['prompt']} gen {serve['gen']}: every layer of the sharded prefill vs the "
+          f"unsharded layer on its input, worst {layers['worst']:.3e} x max ({layers['name']}; "
+          f"bar {SHARDED_SERVE_TOL}; model rows equal {layers['rows_agree']}); prefill logits "
+          f"sharded vs unsharded max abs err {s_err:.3e} (max {s_scale:.3e}, "
+          f"{s_err / s_scale:.3e} x max, beside 2**-6 = {SHARDED_SERVE_TOL}; bar "
+          f"{ref['serve_noise_response'] / s_scale:.3e} x max, the smallest move of the unsharded "
+          f"prefill's under random one-ulp noise on the embedding outputs over "
+          f"{SHARDED_NOISE_SEEDS} seeds); vs the same weights' f32 prefill: sharded "
+          f"{to_f32['sharded'] / s_scale:.3e}, unsharded {to_f32['unsharded'] / s_scale:.3e} x "
+          f"max (bar {f32_bar / s_scale:.3e}); greedy tokens agree {agree:.3f}; "
+          f"prefill {grid_s['prefill_s']:.3f} s sharded, {one['prefill_s']:.3f} s unsharded; "
+          f"decode {grid_s['decode_tokens_per_s']:.1f} tok/s sharded, "
+          f"{one['decode_tokens_per_s']:.1f} tok/s unsharded, on {card}", flush=True)
+    for i, (name, gap) in enumerate(layers["gaps"]):
+        print(f"18(i) {key} prefill call {i} {name}: input vs the unsharded run's "
+              f"{layers['inputs'][i]:.3e} x max, output vs the unsharded layer on that input "
+              f"{gap:.3e} x max", flush=True)
+    if not (layers["worst"] <= SHARDED_SERVE_TOL and layers["rows_agree"]
+            and s_err <= ref["serve_noise_response"] and to_f32["sharded"] <= f32_bar):
+        raise AssertionError(f"18(i) sharded {key} prefill: worst layer {layers['name']} "
+                             f"{layers['worst']:.3e} x max (bar {SHARDED_SERVE_TOL}), model rows "
+                             f"equal {layers['rows_agree']}, logits {s_err:.3e} (bar "
+                             f"{ref['serve_noise_response']:.3e}), to f32 {to_f32['sharded']:.3e} "
+                             f"(bar {f32_bar:.3e})")
+    return {"logits_err": err / scale, "bar": bar / scale,
+            "ulp_response": ref["ulp_response"] / scale, "held": held, "launches": launches,
+            "forward_ms": [r[key]["forward_ms"] for r in ranks],
+            "host_ms": [r[key]["host_ms"] for r in ranks],
+            "sync_ms": [r[key]["sync_ms"] for r in ranks],
+            "step": {"loss_rel": loss_gap, "grad_norm_rel": norm_gap, "worst_leaf": worst_name,
+                     "worst_leaf_rel": worst, "noise_response": response, "bars": bars,
+                     "step_ms": [r[key]["step_ms"] for r in ranks],
+                     "unsharded_step_ms": ref["step_ms"], "transport": wanted},
+            "serve": {"prefill_err": s_err / s_scale, "layer_worst": layers["worst"],
+                      "layer_worst_name": layers["name"],
+                      "noise_response": ref["serve_noise_response"] / s_scale,
+                      "to_f32": {k: v / s_scale for k, v in to_f32.items()},
+                      "tokens_agree": agree,
+                      "prefill_s": grid_s["prefill_s"], "unsharded_prefill_s": one["prefill_s"],
+                      "decode_tokens_per_s": grid_s["decode_tokens_per_s"],
+                      "unsharded_decode_tokens_per_s": one["decode_tokens_per_s"]}}
 
 
 def sharded_moe_reference(torch, np) -> dict:
@@ -5537,7 +6023,7 @@ def sharded_grad_check(torch, np, card: str, ranks: list, ref: dict) -> dict:
     plan = MeshPlan(("data", "model"), (SHARDED["ranks"] // SHARDED["model_parallel"],
                                         SHARDED["model_parallel"]))
     rules = rules_lib.AxisRules(mesh=plan, data_axes=("data",), model_axis="model")
-    specs = rules_lib.transformer_param_specs(cfg, rules, plan)
+    specs = rules_lib.param_specs(cfg, rules, plan)
     host = [{k: _unspool(torch, r[k]) for k in ("grads", "params")} for r in ranks]
     got_g = rules_lib.unshard_params([h["grads"] for h in host], specs, plan)
     got_p = rules_lib.unshard_params([h["params"] for h in host], specs, plan)
@@ -5685,7 +6171,10 @@ def sharded_serve(torch, np, card: str, grid: dict, one: dict) -> dict:
     agree = float((grid["tokens"] == one["tokens"]).mean())
     print(f"18(e) {spec['arch']} {spec['layers']} layers bf16 serve B={spec['batch']} prompt "
           f"{spec['prompt']} gen {spec['gen']}: prefill logits sharded vs unsharded max abs err "
-          f"{err:.3e} (max {scale:.3e}, tol {SHARDED_SERVE_TOL} x max); greedy tokens agree "
+          f"{err:.3e} (max {scale:.3e}: {err / scale:.3e} x max with f32 row-parallel partials, "
+          f"{SHARDED_SERVE_DOUBLE_ROUNDED:.2e} with each partial rounded to bf16 first; tol "
+          f"{SHARDED_SERVE_TOL} x max); "
+          f"greedy tokens agree "
           f"{agree:.3f}; prefill {grid['prefill_s']:.3f} s sharded, {one['prefill_s']:.3f} s "
           f"unsharded; decode {grid['decode_tokens_per_s']:.1f} tok/s sharded, "
           f"{one['decode_tokens_per_s']:.1f} tok/s unsharded, on {card}", flush=True)
@@ -5698,9 +6187,10 @@ def sharded_serve(torch, np, card: str, grid: dict, one: dict) -> dict:
             "unsharded_decode_tokens_per_s": one["decode_tokens_per_s"]}
 
 
-def sharded_slice(torch, np, card: str) -> tuple[int, dict]:
-    """Phase 18: (a)-(e).  Returns (a)'s flash_attention launches (every
-    rank's) and a summary."""
+def sharded_slice(torch, np, card: str) -> tuple[dict, dict]:
+    """Phase 18: (a)-(i).  Returns the kernel launches of every rank's
+    main paths ((a)'s flash_attention, (f)'s ssm_scan and flash_attention,
+    (g)'s mlstm_scan) and a summary."""
     from repro_torch.launch import mesh as mesh_lib
 
     t0 = time.perf_counter()
@@ -5710,6 +6200,8 @@ def sharded_slice(torch, np, card: str) -> tuple[int, dict]:
     refs = {"moe": sharded_moe_reference(torch, np), "grad": sharded_grad_reference(torch),
             "serve": sharded_serve_reference()}
     free(torch)
+    for key in SHARDED_RECURRENT:
+        refs[key] = sharded_recurrent_reference(torch, np, key)
     print(f"18 unsharded references done in {time.perf_counter() - t0:.1f} s", flush=True)
     spool = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_spool_")
     spawned = time.time()
@@ -5725,6 +6217,8 @@ def sharded_slice(torch, np, card: str) -> tuple[int, dict]:
               f"{returned - ended:.1f} s to return", flush=True)
         summary = {"card": card, "moe": sharded_moe_check(torch, np, card, ranks, refs["moe"]),
                    "grad": sharded_grad_check(torch, np, card, ranks, refs["grad"])}
+        for key in SHARDED_RECURRENT:
+            summary[key] = sharded_recurrent_check(torch, np, card, ranks, refs.pop(key), key)
     finally:
         shutil.rmtree(spool, ignore_errors=True)
     reports, served = [r["train"] for r in ranks], ranks[0]["serve"]
@@ -5735,7 +6229,11 @@ def sharded_slice(torch, np, card: str) -> tuple[int, dict]:
     summary["phase_s"] = time.perf_counter() - t0
     print(f"18 done in {summary['phase_s']:.1f} s", flush=True)
     print(json.dumps({"sharded": summary}), flush=True)
-    return summary["moe"]["launches"], summary
+    launches = {"flash_attention": summary["moe"]["launches"]}
+    for key in SHARDED_RECURRENT:
+        for name, n in summary[key]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches, summary
 
 
 def main() -> int:
@@ -5829,7 +6327,9 @@ def main() -> int:
     dryrun_launches, _ = dryrun_slice(torch, card, zoo_train["danube"])
     train_launches["gram"] += dryrun_launches
     sharded_launches, _ = sharded_slice(torch, np, card)
-    flash_launches += sharded_launches
+    flash_launches += sharded_launches["flash_attention"]
+    ssm_launches += sharded_launches["ssm_scan"]
+    mlstm_launches += sharded_launches["mlstm_scan"]
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)

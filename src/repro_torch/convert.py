@@ -170,6 +170,17 @@ def xlstm_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     }
 
 
+def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
+    """The shape tree of ``cfg``'s parameters, by family: a hybrid's
+    (:func:`hybrid_param_shapes`), an xLSTM's (:func:`xlstm_param_shapes`)
+    or a transformer's (:func:`transformer_param_shapes`)."""
+    if cfg.family == "hybrid":
+        return hybrid_param_shapes(cfg)
+    if cfg.family == "ssm":
+        return xlstm_param_shapes(cfg)
+    return transformer_param_shapes(cfg)
+
+
 #: Transformer parameters that ``repro`` keeps in f32 whatever the model's
 #: dtype: the MoE router.
 _TRANSFORMER_F32 = {("layers", "ffn", "router")}
@@ -228,12 +239,17 @@ def transformer_params_from_numpy(
                             _TRANSFORMER_F32)
 
 
+def _f32_leaves(cfg: ModelConfig) -> set:
+    """The key paths of ``cfg``'s family that ``repro`` keeps in f32."""
+    return {"hybrid": _HYBRID_F32, "ssm": _XLSTM_F32}.get(cfg.family, _TRANSFORMER_F32)
+
+
 def _shard_cut(cfg: ModelConfig, grid):
     """``cut`` for :func:`_tree_from_numpy`: each leaf's block on ``grid``'s
-    rank, by the spec tree of ``cfg``'s whole parameters."""
-    from repro_torch.sharding.rules import shard_index, transformer_param_specs
+    rank, by the spec tree of ``cfg``'s whole parameters (any family)."""
+    from repro_torch.sharding.rules import param_specs, shard_index
 
-    specs = transformer_param_specs(cfg, grid.rules, grid.plan)
+    specs = param_specs(cfg, grid.rules, grid.plan)
 
     def cut(path, a):
         spec = specs
@@ -244,34 +260,37 @@ def _shard_cut(cfg: ModelConfig, grid):
     return cut
 
 
-def transformer_shard_from_numpy(
+def shard_from_numpy(
     tree: dict[str, Any],
     cfg: ModelConfig,
     grid,
     *,
     device: str | torch.device | None = None,
 ) -> dict[str, Any]:
-    """This rank's shard on ``grid`` (a ``launch/mesh.ModelGroup``) of
-    :func:`transformer_params_from_numpy`'s tree: each array is sliced on
-    the host by its spec (``sharding/rules.shard_params_by_name``'s
-    layout) and only the slice is copied to ``device``, so no rank holds
-    the whole weights there."""
-    return _tree_from_numpy(tree, transformer_param_shapes(cfg), resolve_device(device),
-                            cfg.torch_dtype, _TRANSFORMER_F32, cut=_shard_cut(cfg, grid))
+    """This rank's shard on ``grid`` (a ``launch/mesh.ModelGroup``) of the
+    tree :func:`transformer_params_from_numpy`, :func:`hybrid_params_from_
+    numpy` or :func:`xlstm_params_from_numpy` gives for ``cfg``'s family:
+    each array is sliced on the host by its spec
+    (``sharding/rules.shard_params_by_name``'s layout) and only the slice
+    is copied to ``device`` (the family's f32 leaves in f32), so no rank
+    holds the whole weights there."""
+    return _tree_from_numpy(tree, param_shapes(cfg), resolve_device(device), cfg.torch_dtype,
+                            _f32_leaves(cfg), cut=_shard_cut(cfg, grid))
 
 
-def transformer_params_from_shards(shards: list, cfg: ModelConfig, plan) -> dict[str, Any]:
+
+def params_from_shards(shards: list, cfg: ModelConfig, plan) -> dict[str, Any]:
     """The whole tree of host numpy arrays from every rank's shard, a tree
     of tensors (``shards`` in rank order over ``plan``): the inverse of
-    :func:`transformer_shard_from_numpy` over the ranks.  An ``AdamW``
+    :func:`shard_from_numpy` over the ranks, for any family.  An ``AdamW``
     moment tree goes back the same way."""
     from repro_torch.launch.mesh import data_axes_for
-    from repro_torch.sharding.rules import (AxisRules, transformer_param_specs,
-                                            unshard_params)
+    from repro_torch.sharding.rules import AxisRules, param_specs, unshard_params
 
     rules = AxisRules(mesh=plan, data_axes=data_axes_for(plan), model_axis="model")
     host = [transformer_params_to_numpy(s) for s in shards]
-    return unshard_params(host, transformer_param_specs(cfg, rules, plan), plan)
+    return unshard_params(host, param_specs(cfg, rules, plan), plan)
+
 
 
 def opt_state_shard_from_numpy(

@@ -272,7 +272,7 @@ def plan_collectives(cfg: ModelConfig, kind: str, params, pspec, rules: AxisRule
 EXECUTOR_DIFFERENCES = (
     "calls: a stacked layer leaf is gathered, reduce-scattered and its block all-reduced "
     "one layer at a time, L calls where the plan counts one op a leaf (the reference's "
-    "scan body holds one)",
+    "scan body holds one); the hybrid's shared block once a call, once a period",
     "bytes: the transport counts the payload a rank hands in: an all-gather's shard, a "
     "reduce-scatter's whole gradient; the plan counts the gathered leaf and the scattered "
     "shard",
@@ -282,10 +282,23 @@ EXECUTOR_DIFFERENCES = (
     "remat, is gathered once (autograd keeps the gathered weight for the backward); the "
     "plan gathers every leaf twice",
     "tensor: a model-split block's output is all-reduced in the forward and its input's "
-    "gradient once in the backward; remat's recompute all-reduces attention's output again "
-    "but stops before the FFN's (the layer's last collective, which no saved tensor needs: "
-    "torch.utils.checkpoint's early stop); the MoE adds its gates' gradient, "
-    "(B, S * top_k) f32",
+    "gradient once in the backward; remat's recompute all-reduces the output again but "
+    "stops before a remat block's last collective (the FFN's, or the sLSTM's output, which "
+    "no saved tensor needs: torch.utils.checkpoint's early stop); the MoE adds its gates' "
+    "gradient, (B, S * top_k) f32",
+    "norms: the Mamba2, mLSTM and sLSTM norms over split channels all-reduce their sum of "
+    "squares over model, (B, S, 1) f32, in the forward (again in the recompute) and in the "
+    "backward",
+    "sliced: a leaf or activation whole on every rank of the row but read by its own heads "
+    "or channels alone (Mamba2's dt, A, conv_b with gn; the mLSTM's input and forget "
+    "pre-activations, its gn; the sLSTM's rw, its gn) is sliced with no collective and its "
+    "gradient all-gathered over model in the backward; GSPMD would keep them whole on every "
+    "device",
+    "Mamba2's B and C, whole on every rank, all-reduce their gradient over model in the "
+    "backward, (2, B, S, ds) f32",
+    "sLSTM gates: the executor all-gathers the gate pre-activations over model (each "
+    "rank's wx columns are gate blocks, not heads) and reduce-scatters their gradient, "
+    "(B, S, 4d) f32; the reference's GSPMD picks its own resharding",
     "unplanned: the vocab-parallel embedding's all-reduce, the head's backward all-reduce, "
     "the cross entropy's max and sums over model, the token count and the loss over data, "
     "the MoE statistics' mean over data (forward and backward; the recompute stops before "
@@ -293,29 +306,46 @@ EXECUTOR_DIFFERENCES = (
 )
 
 
+def _uses(cfg: ModelConfig, path: tuple) -> tuple[int, int, bool]:
+    """(layers stacked in the leaf, its applications in a forward pass,
+    whether they run inside remat's blocks) of the parameter at
+    ``path``."""
+    periods = cfg.num_layers // _period(cfg)
+    if path[0] in ("layers", "mamba"):
+        return cfg.num_layers, cfg.num_layers, True
+    if path[0] == "shared_attn":
+        return 1, periods, True
+    if path[0] == "mlstm":
+        return cfg.num_layers - periods, cfg.num_layers - periods, True
+    if path[0] == "slstm":
+        return periods, periods, True
+    return 1, 1, False
+
+
 def executor_collectives(cfg: ModelConfig, plan: MeshPlan, batch: int, seq: int) -> dict:
-    """What the grid executor's transports carry in one train step of a
-    transformer ``cfg`` on ``plan`` ((data..., model), ``repro``'s ``2d``
+    """What the grid executor's transports carry in one train step of
+    ``cfg`` (any family) on ``plan`` ((data..., model), ``repro``'s ``2d``
     layout) at a global ``batch`` of ``seq`` positions, by kind
     (``{kind: {"count", "bytes"}}``, bytes as ``Transport.stats`` counts
     them): :func:`plan_collectives`'s ops with
     :data:`EXECUTOR_DIFFERENCES` applied."""
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run on a grid yet")
     rules = layout_rules("2d", plan)
     params = _init_params(cfg)
     pspec = specs_lib.param_spec_tree(params, rules, plan)
     dp = specs_lib.axis_count(rules.data_axes, plan) if rules.data_axes else 1
     mp = plan.axis_sizes["model"]
-    b_l, layers = batch // dp, cfg.num_layers
+    b_l = batch // dp
     runs = 2 if cfg.remat else 1
     d, act = cfg.d_model, cfg.torch_dtype.itemsize
     tp = mp > 1 and cfg.d_ff % mp == 0
     moe_tp = bool(cfg.num_experts) and tp and d % dp == 0
     if cfg.num_experts and tp and not moe_tp:
         raise ValueError(f"{cfg.name}: split experts on the plain path are not modelled")
-    if cfg.remat and 1 < cfg.remat_block < layers and layers % cfg.remat_block == 0:
+    if (cfg.remat and 1 < cfg.remat_block < cfg.num_layers
+            and cfg.num_layers % cfg.remat_block == 0):
         raise ValueError(f"{cfg.name}: block remat's recompute is not modelled")
+    if cfg.family == "ssm" and cfg.slstm_period <= 1:
+        raise ValueError(f"{cfg.name}: an xLSTM without sLSTM layers is not modelled")
     out: dict = {}
 
     def add(kind, calls, nbytes):
@@ -324,24 +354,44 @@ def executor_collectives(cfg: ModelConfig, plan: MeshPlan, batch: int, seq: int)
             e["count"] += calls
             e["bytes"] += calls * nbytes
 
+    tokens = b_l * seq
     for op in plan_collectives(cfg, "train", params, pspec, rules, plan, batch, b_l, seq):
         tag, name = op.computation.split(":", 1)
         path = tuple(name.split("/"))
-        stacked = path[0] == "layers"
-        calls = layers if stacked else 1
+        stack, apps, in_remat = _uses(cfg, path)
         if tag == "tensor":
-            ffn = path[-1] == "ffn"
-            add("all-reduce", layers * (2 if ffn else runs + 1), op.result_bytes // act * 4)
-            if ffn and cfg.num_experts:
-                add("all-reduce", layers, b_l * seq * cfg.top_k * 4)
+            block = path[-1]
+            if block in ("ffn", "slstm"):       # the remat block's last collective
+                add("all-reduce", apps * 2, tokens * d * 4)
+            else:
+                add("all-reduce", apps * (runs + 1), tokens * d * 4)
+            if block == "ffn" and cfg.num_experts:
+                add("all-reduce", apps, tokens * cfg.top_k * 4)
+            if block in ("mamba", "mlstm", "slstm"):
+                add("all-reduce", apps * (runs + 1), tokens * 4)       # the norm's squares
+            if block == "mamba":
+                h, di = cfg.ssm_heads // mp, cfg.d_inner_eff // mp
+                add("all-reduce", apps, 2 * tokens * cfg.ssm_state * 4)  # B and C
+                for nbytes in (tokens * h * 4, h * 4, 2 * di * act):     # dt, A, conv_b + gn
+                    add("all-gather", apps, nbytes)
+            elif block == "mlstm":
+                h = cfg.num_heads // mp
+                add("all-gather", apps, 2 * tokens * h * 4)            # input, forget gates
+                add("all-gather", apps, h * cfg.hd * act)               # gn
+            elif block == "slstm":
+                h, dh = cfg.num_heads // mp, d // cfg.num_heads
+                add("all-gather", apps * runs, tokens * 4 * d // mp * act)   # the gates
+                add("reduce-scatter", apps, tokens * 4 * d * 4)
+                add("all-gather", apps, 4 * h * dh * dh * 4)           # rw
+                add("all-gather", apps, d // mp * act)                  # gn
             continue
         es = specs_lib.lookup(params, path).element_size()
         if tag == "fsdp" and op.op == "all-gather":
-            wire = 4 if moe_tp and stacked and path[-1] in ("wg", "wu", "wd") else es
-            add("all-gather", calls * (runs if stacked else 1),
-                op.result_bytes // op.group_size // calls // es * wire)
+            wire = 4 if moe_tp and path[0] == "layers" and path[-1] in ("wg", "wu", "wd") else es
+            add("all-gather", apps * (runs if in_remat else 1),
+                op.result_bytes // op.group_size // stack // es * wire)
         elif tag == "fsdp-grad":
-            add("reduce-scatter", calls, op.result_bytes * op.group_size // calls // es * 4)
+            add("reduce-scatter", apps, op.result_bytes * op.group_size // stack // es * 4)
         elif tag == "dp-grad":
             add("all-reduce", 1, op.result_bytes // es * 4)
         else:
@@ -350,16 +400,16 @@ def executor_collectives(cfg: ModelConfig, plan: MeshPlan, batch: int, seq: int)
     text = seq - (cfg.num_patches if cfg.family == "vlm" else 0)
     if mp > 1:
         add("all-reduce", 1, (cfg.num_codebooks if audio else 1) * b_l * text * d * 4)
-        add("all-reduce", 1, b_l * seq * d * 4)             # the head's input gradient
+        add("all-reduce", 1, tokens * d * 4)                # the head's input gradient
         if audio:
             add("all-reduce", 1, 4)                         # the codebooks' NLL sum
         else:
-            add("all-reduce", 1, b_l * seq * 4)             # max
-            add("all-reduce", 1, 2 * b_l * seq * 4)         # sum of exp, label logit
+            add("all-reduce", 1, tokens * 4)                # max
+            add("all-reduce", 1, 2 * tokens * 4)            # sum of exp, label logit
     if dp > 1:
         add("all-reduce", 2, 4)                             # token count, loss
         if cfg.num_experts:
-            add("all-reduce", layers * 2, (cfg.num_experts + 2) * 4)
+            add("all-reduce", cfg.num_layers * 2, (cfg.num_experts + 2) * 4)
     if plan.size > 1:
         add("all-reduce", 1, len(specs_lib.leaves_with_path(params)) * 4)
     return out

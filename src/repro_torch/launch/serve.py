@@ -18,12 +18,12 @@ Prefill and decode take the plain attention and the plain chunked scans
 or decode recurrences, as in the reference, so no kernel launches here.
 It runs on ``cuda`` unless ``--device cpu`` is given.
 
-``--ranks W --model-parallel N`` serves a transformer (dense, MoE, VLM or
-audio) sharded over a (W / N, N) grid of ranks, ``repro``'s
+``--ranks W --model-parallel N`` serves any zoo model (the transformers,
+the hybrid, xLSTM) sharded over a (W / N, N) grid of ranks, ``repro``'s
 ``make_host_mesh(model_parallel)``, as ``launch/train.py`` trains one:
 each rank holds its shard of the weights (the seeded init drawn in turn,
 ``sharding/rules.init_shard``), prefills and decodes its data row's
-prompts over its heads and vocab shard, and picks each token across the
+prompts over its heads, channels and vocab shard, and picks each token across the
 row's vocab shards (``models/steps.next_tokens``).  Rank 0 prints the
 prefill time and the decode rate; the tokens are gathered over the data
 rows.
@@ -149,7 +149,7 @@ def serve_rank(group, arch: str, model_parallel: int, kw: dict) -> dict:
     prompts on its shard.  Returns :func:`serve`'s keys with the tokens
     and prefill logits of the whole batch (gathered over the grid) and
     ``"grid"``."""
-    from repro_torch.convert import transformer_shard_from_numpy
+    from repro_torch.convert import shard_from_numpy
     from repro_torch.sharding import parallel as par
     from repro_torch.sharding import rules as rules_lib
 
@@ -163,7 +163,7 @@ def serve_rank(group, arch: str, model_parallel: int, kw: dict) -> dict:
     if kw["params"] is None:
         params = rules_lib.init_shard(model, grid, seed)
     else:
-        params = transformer_shard_from_numpy(kw["params"], cfg, grid, device=dev)
+        params = shard_from_numpy(kw["params"], cfg, grid, device=dev)
     bl = batch // grid.data_parallel
     rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)
     prompt = {k: torch.as_tensor(v[rows], dtype=torch.float32 if v.dtype.kind == "f" else None,

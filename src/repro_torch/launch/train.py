@@ -19,8 +19,8 @@ the stubbed vision encoder, are drawn each step from
 the plain path (no kernel op has a backward) with the config's remat.  It
 runs on ``cuda`` unless ``--device cpu`` is given.
 
-``--ranks W --model-parallel N`` trains a transformer (dense, MoE, VLM or
-audio) sharded over a (W / N, N) grid of ranks, ``repro``'s
+``--ranks W --model-parallel N`` trains any zoo model (the transformers,
+the hybrid, xLSTM) sharded over a (W / N, N) grid of ranks, ``repro``'s
 ``make_host_mesh(model_parallel)`` (one card shows one device, so the
 rank count is given, as ``train_dssfn --ranks`` takes it): W processes
 (``launch/mesh.spawn_workers``; inside ``torchrun`` its ranks), each
@@ -167,7 +167,7 @@ def train_rank(group, arch: str, model_parallel: int, production_mesh: bool, kw:
     grid's transports carried in each step (by kind: counts, bytes, payload
     dtypes)."""
     from repro_torch._device import synchronize
-    from repro_torch.convert import transformer_shard_from_numpy
+    from repro_torch.convert import shard_from_numpy
     from repro_torch.sharding import parallel as par
     from repro_torch.sharding import rules as rules_lib
 
@@ -180,11 +180,11 @@ def train_rank(group, arch: str, model_parallel: int, production_mesh: bool, kw:
         raise ValueError(f"batch {batch} does not split over {grid.data_parallel} data rows")
     model = build_model(cfg)
     opt = AdamW(lr=kw["lr"])
-    specs = rules_lib.transformer_param_specs(cfg, grid.rules, grid.plan)
+    specs = rules_lib.param_specs(cfg, grid.rules, grid.plan)
     if kw["params"] is None:
         params = rules_lib.init_shard(model, grid)
     else:
-        params = transformer_shard_from_numpy(kw["params"], cfg, grid, device=dev)
+        params = shard_from_numpy(kw["params"], cfg, grid, device=dev)
     opt_state = opt.init(params)
     bl = batch // grid.data_parallel
     rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)

@@ -22,7 +22,8 @@ from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn import xlstm as xlstm_lib
-from repro_torch.nn.layers import dense_init, dense_init_by_slice, rms_norm, round_up
+from repro_torch.nn.layers import (dense_init, dense_init_by_slice, rms_norm, rms_norm_split,
+                                   round_up)
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
 from repro_torch.sharding import parallel as par
@@ -68,6 +69,37 @@ def local_heads(cfg: ModelConfig) -> tuple[int, int]:
     return hl, kvl
 
 
+def local_units(cfg: ModelConfig, units: int, local: int, full: int) -> int:
+    """How many of a block's ``units`` heads this rank holds when it holds
+    ``local`` of the ``full`` channels they fill (a ``"T"`` dim split over
+    the model row in contiguous blocks); a split that cuts a head
+    raises."""
+    if local == full:
+        return units
+    if (units * local) % full:
+        raise ValueError(f"{cfg.name}: a model row of {full // local} would split one of "
+                         f"{units} heads; choose a model_parallel that divides the head count")
+    return units * local // full
+
+
+def local_block(cfg: ModelConfig, *path: str) -> int:
+    """The last dim of this rank's block of the parameter at ``path``
+    (``"mamba", "in_x"``): the whole dim with no grid current, else as the
+    planner's spec tree (``rules.param_specs``) cuts it over the model
+    row, the layout the layers read from their shards.  What a cache or a
+    zero state is sized by before any weight is at hand."""
+    from repro_torch.convert import param_shapes
+    from repro_torch.launch.specs import lookup
+    from repro_torch.sharding import rules as rules_lib
+
+    full = lookup(param_shapes(cfg), path)[-1]
+    grid = par.current_grid()
+    if grid is None:
+        return full
+    spec = lookup(rules_lib.param_specs(cfg, grid.rules, grid.plan), path)
+    return full // rules_lib.axes_size(spec[-1], grid.plan)
+
+
 def attention_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Rotated q (B, S, H', hd) and k, v (B, S, KV', hd) of x (B, S, d),
     and this rank's ``wo`` and whether the block is split over the model
@@ -96,10 +128,10 @@ def attention_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mode
 def attention_out(out: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
     """The output projection of attention's (B, S, H', hd) result: on a
     grid the row-parallel product, its partial sums added over the model
-    row."""
+    row in f32 (``parallel.row_parallel``)."""
     b, s = out.shape[:2]
-    y = out.reshape(b, s, -1) @ wo
-    return par.leave_model(y) if split else y
+    y = out.reshape(b, s, -1)
+    return par.row_parallel(y, wo) if split else y @ wo
 
 
 def apply_attention(
@@ -265,29 +297,49 @@ def apply_mamba_layer(
     The sequence is padded with dt = 0 steps (no decay, no input) to whole
     chunks of min(cfg.ssm_chunk, S rounded up to 16); the reference's
     chunk is min(cfg.ssm_chunk, S).  The two give the same function, and
-    the kernel takes only chunks that are multiples of 16."""
+    the kernel takes only chunks that are multiples of 16.
+
+    On a grid the layer runs this rank's block of di / model channels and
+    H / model heads (``repro`` constrains ``xs`` and ``z`` on "tensor"):
+    ``in_x`` and ``in_z`` column-parallel, B and C whole (their gradient
+    summed over the row by ``enter_model``), dt, A, ``conv_b`` and ``gn``
+    sliced to this rank's heads and channels, the gated norm over all di
+    (``rms_norm_split``) and ``out`` row-parallel; the state holds this
+    rank's heads and channels."""
     b, s, _ = x.shape
-    di = cfg.d_inner_eff
-    h_heads = cfg.ssm_heads
-    dh = di // h_heads
+    di, ds = cfg.d_inner_eff, cfg.ssm_state
+    dh = di // cfg.ssm_heads
     res = x
     xn = rms_norm(x, p["ln"])
-    xs = xn @ p["in_x"]
-    z = xn @ p["in_z"]
-    bm = xn @ p["in_b"]
-    cm = xn @ p["in_c"]
-    dt = torch.nn.functional.softplus((xn @ p["in_dt"]).float() + p["dt_bias"])
+    in_x, in_z, in_b, in_c, in_dt, w_out = (
+        par.fsdp(p[n], n, cfg.d_model) for n in ("in_x", "in_z", "in_b", "in_c", "in_dt", "out"))
+    dl = in_x.shape[-1]
+    split = par.model_split(dl, di)
+    h_heads = local_units(cfg, cfg.ssm_heads, dl, di)
+    xin = par.enter_model(xn) if split else xn
+    xs = xin @ in_x
+    z = xin @ in_z
+    bm = xn @ in_b
+    cm = xn @ in_c
+    dt = torch.nn.functional.softplus((xn @ in_dt).float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
+    conv_b, gn = p["conv_b"], p["gn"]
+    if split:
+        # Every rank's heads read B and C whole; dt, A, conv_b and gn
+        # are cut to this rank's heads and channels.
+        bm, cm = par.enter_model(torch.stack([bm, cm])).unbind(0)
+        dt, a = par.slice_model(dt, -1), par.slice_model(a, -1)
+        conv_b, gn = par.slice_model(torch.stack([conv_b, gn]), -1).unbind(0)
 
     if state is not None and s == 1:
-        xs, conv_new = ssm_lib.causal_conv1d(xs, p["conv_w"], p["conv_b"], state.conv)
+        xs, conv_new = ssm_lib.causal_conv1d(xs, p["conv_w"], conv_b, state.conv)
         y, h_new = ssm_lib.ssm_decode_step(
             xs.reshape(b, h_heads, dh), dt[:, 0], a, bm[:, 0], cm[:, 0], state.h
         )
-        y = y.reshape(b, 1, di)
+        y = y.reshape(b, 1, dl)
         new_state = ssm_lib.SSMState(h=h_new, conv=conv_new)
     else:
-        xs, conv_new = ssm_lib.causal_conv1d(xs, p["conv_w"], p["conv_b"])
+        xs, conv_new = ssm_lib.causal_conv1d(xs, p["conv_w"], conv_b)
         chunk = min(cfg.ssm_chunk, round_up(s, 16))
         pad = (-s) % chunk
         if pad:
@@ -297,13 +349,12 @@ def apply_mamba_layer(
         if cfg.use_pallas_kernels and state is None:
             y, h_new = ssm_scan(x4, dt, a, bm, cm, chunk=chunk)
         else:
-            h0 = torch.zeros((b, h_heads, dh, cfg.ssm_state), dtype=torch.float32,
-                             device=x.device)
+            h0 = torch.zeros((b, h_heads, dh, ds), dtype=torch.float32, device=x.device)
             y, h_new = ssm_lib.chunked_ssm_scan(x4, dt, a, bm, cm, h0, chunk=chunk)
-        y = y[:, :s].reshape(b, s, di)
+        y = y[:, :s].reshape(b, s, dl)
         new_state = ssm_lib.SSMState(h=h_new, conv=conv_new) if state is not None else None
-    y = rms_norm(y * torch.nn.functional.silu(z), p["gn"])
-    return res + y @ p["out"], new_state
+    y = rms_norm_split(y * torch.nn.functional.silu(z), gn, di)
+    return res + (par.row_parallel(y, w_out) if split else y @ w_out), new_state
 
 
 # ------------------------------------------------------------ xlstm layers
@@ -345,16 +396,32 @@ def apply_mlstm_layer(
     +1e9 (nothing enters, nothing decays) to whole chunks of
     min(cfg.ssm_chunk, S rounded up to 16); the reference's chunk is
     min(cfg.ssm_chunk, S).  The two give the same function, and the kernel
-    takes only chunks that are multiples of 16."""
+    takes only chunks that are multiples of 16.
+
+    On a grid the layer runs this rank's H / model heads (``repro``
+    constrains q, k and v on "tensor"): ``wq``, ``wk`` and ``wv``
+    column-parallel, the replicated gate projections' pre-activations
+    sliced to this rank's heads, the norm over all h * hd
+    (``rms_norm_split``) and ``out`` row-parallel; the state holds this
+    rank's heads."""
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.hd
+    hd, width = cfg.hd, cfg.num_heads * cfg.hd
     res = x
     xn = rms_norm(x, p["ln"])
-    q = (xn @ p["wq"]).reshape(b, s, h, hd)
-    k = (xn @ p["wk"]).reshape(b, s, h, hd)
-    v = (xn @ p["wv"]).reshape(b, s, h, hd)
-    i_pre = xn.float() @ p["wi"]
-    f_pre = xn.float() @ p["wf"] + 3.0
+    wq, wk, wv, wi, wf, w_out = (
+        par.fsdp(p[n], n, cfg.d_model) for n in ("wq", "wk", "wv", "wi", "wf", "out"))
+    split = par.model_split(wq.shape[-1], width)
+    h = local_units(cfg, cfg.num_heads, wq.shape[-1], width)
+    xin = par.enter_model(xn) if split else xn
+    q = (xin @ wq).reshape(b, s, h, hd)
+    k = (xin @ wk).reshape(b, s, h, hd)
+    v = (xin @ wv).reshape(b, s, h, hd)
+    i_pre = xn.float() @ wi
+    f_pre = xn.float() @ wf + 3.0
+    gn = p["gn"]
+    if split:
+        i_pre, f_pre = par.slice_model(torch.stack([i_pre, f_pre]), -1).unbind(0)
+        gn = par.slice_model(gn, -1)
 
     if state is not None and s == 1:
         y, new_state = xlstm_lib.mlstm_decode_step(
@@ -378,8 +445,8 @@ def apply_mlstm_layer(
             if state is None:
                 new_state = None
         y = y[:, :s].reshape(b, s, h * hd)
-    y = rms_norm(y, p["gn"])
-    return res + y @ p["out"], new_state
+    y = rms_norm_split(y, gn, width)
+    return res + (par.row_parallel(y, w_out) if split else y @ w_out), new_state
 
 
 def init_slstm_layer(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
@@ -407,11 +474,36 @@ def apply_slstm_layer(
     """An sLSTM layer on x (B, S, d): the step-by-step recurrence from
     ``state`` (or the zero state), which has no kernel in the reference
     either.  Returns (x + the layer's output, the new state, or None when
-    no state was given)."""
-    b, _, d = x.shape
+    no state was given).
+
+    On a grid ``wx``'s columns split in contiguous blocks of the four
+    gates [z, i, f, o] (a rank of a row of 2 holds [z, i] or [f, o]), the
+    one layout the planner reads; the gate pre-activations are gathered
+    over the row (the gradient reduce-scattered back), each rank runs the
+    recurrence over its H / model heads, their columns of every gate, with
+    its block of ``rw`` and a (B, d / model) state, the norm over all d
+    (``rms_norm_split``) and ``out`` row-parallel (its rows are the heads'
+    channels)."""
+    b, s, d = x.shape
     res = x
-    x_gates = rms_norm(x, p["ln"]) @ p["wx"]
-    st0 = state if state is not None else xlstm_lib.init_slstm_state(b, d, device=x.device)
-    hs, new_state = xlstm_lib.slstm_scan(x_gates, p["rw"], st0, cfg.num_heads)
-    y = rms_norm(hs.to(x.dtype), p["gn"]) @ p["out"]
+    xn = rms_norm(x, p["ln"])
+    wx, w_out = par.fsdp(p["wx"], "wx", d), par.fsdp(p["out"], "out", d)
+    rw, gn = p["rw"], p["gn"]
+    if par.model_split(wx.shape[-1], 4 * d):
+        grid = par.current_grid()
+        dl = wx.shape[-1] // 4
+        heads = local_units(cfg, cfg.num_heads, dl, d)
+        if not par.model_split(w_out.shape[-2], d):
+            raise ValueError(f"{cfg.name}: the sLSTM's wx splits over the model row but its "
+                             "out does not")
+        gates = par.gather_model(par.enter_model(xn) @ wx, -1, scatter=True)
+        lo = grid.model_index * dl
+        x_gates = gates.reshape(b, s, 4, d)[..., lo:lo + dl].reshape(b, s, 4 * dl)
+        rw, gn = par.slice_model(rw, 1), par.slice_model(gn, -1)
+    else:
+        dl, heads, x_gates = d, cfg.num_heads, xn @ wx
+    st0 = state if state is not None else xlstm_lib.init_slstm_state(b, dl, device=x.device)
+    hs, new_state = xlstm_lib.slstm_scan(x_gates, rw, st0, heads)
+    y = rms_norm_split(hs.to(x.dtype), gn, d)
+    y = par.row_parallel(y, w_out) if dl != d else y @ w_out
     return res + y, new_state if state is not None else None

@@ -16,6 +16,14 @@ the plain attention, as the reference routes them.  When autograd records,
 block) in the backward pass, and the shared block's gradient sums over
 its calls.  There is one KV cache per shared-attention call, stacked on a
 leading num_periods axis.
+
+On a (data, model) grid of ranks (``sharding/parallel.use_grid``) the
+same methods run one rank's share on its shard of the parameters: the
+embedding and head vocab-parallel (``transformer.embed_tokens``,
+``head_logits``), each Mamba2 layer over this rank's heads and channels
+(``blocks.apply_mamba_layer``), the shared block over its attention
+heads and FFN slice; the cache holds this rank's states, conv inputs and
+KV heads.
 """
 from __future__ import annotations
 
@@ -29,12 +37,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     _attention_collect_kv,
     _kv_to_cache,
+    embed_tokens,
+    head_logits,
     layer_views,
     remat,
 )
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm as ssm_lib
-from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm
+from repro_torch.nn.layers import dense_init, embed_init, rms_norm
 
 Params = dict[str, Any]
 
@@ -75,13 +85,20 @@ class HybridModel:
                 for p in layer_views(params["mamba"], self.num_periods)]
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, params["ln_f"]) @ params["head"]
+        return head_logits(params, x, self.cfg)
+
+    def _local(self) -> tuple[int, int]:
+        """(SSM heads, inner channels) of this rank: its block of
+        ``in_x``'s channels as the spec tree cuts them, and their heads."""
+        cfg = self.cfg
+        dl = blocks.local_block(cfg, "mamba", "in_x")
+        return blocks.local_units(cfg, cfg.ssm_heads, dl, cfg.d_inner_eff), dl
 
     # ------------------------------------------------------------ forward
     def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  Returns (logits, 0): no MoE term."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"])
+        x = embed_tokens(params, batch["tokens"], cfg)
         positions = torch.arange(x.shape[1], device=x.device)
 
         def period_body(x, mamba, shared):
@@ -99,18 +116,19 @@ class HybridModel:
     def init_cache(self, batch_size: int, max_len: int, device=None) -> HybridCache:
         """An empty cache: zero SSM states and conv inputs for every Mamba
         layer, and one KV cache of min(max_len, window) slots (SWA) per
-        shared-attention call."""
+        shared-attention call; on a grid of this rank's heads, channels and
+        KV heads, B its data row's."""
         cfg = self.cfg
         dev = resolve_device(device)
-        di = cfg.d_inner_eff
+        heads, dl = self._local()
         pm = (self.num_periods, self.per_period, batch_size)
         ssm = ssm_lib.SSMState(
-            h=torch.zeros(pm + (cfg.ssm_heads, di // cfg.ssm_heads, cfg.ssm_state),
+            h=torch.zeros(pm + (heads, cfg.d_inner_eff // cfg.ssm_heads, cfg.ssm_state),
                           dtype=torch.float32, device=dev),
-            conv=torch.zeros(pm + (cfg.conv_kernel - 1, di), dtype=cfg.torch_dtype, device=dev),
+            conv=torch.zeros(pm + (cfg.conv_kernel - 1, dl), dtype=cfg.torch_dtype, device=dev),
         )
         slots = min(max(max_len, 1), cfg.window) if cfg.attention == "swa" else max(max_len, 1)
-        shape = (self.num_periods, batch_size, slots, cfg.num_kv_heads, cfg.hd)
+        shape = (self.num_periods, batch_size, slots, blocks.local_heads(cfg)[1], cfg.hd)
         attn = attn_lib.KVCache(
             k=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             v=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
@@ -125,16 +143,16 @@ class HybridModel:
         positions (defaults to the prompt length).  Returns (logits of the
         last position, cache)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"])
+        x = embed_tokens(params, batch["tokens"], cfg)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)
         window = cfg.window if cfg.attention == "swa" else None
-        di = cfg.d_inner_eff
+        heads, dl = self._local()
         # The zero state each layer starts from; only an S = 1 prompt reads it.
         zero = ssm_lib.SSMState(
-            h=torch.zeros((b, cfg.ssm_heads, di // cfg.ssm_heads, cfg.ssm_state),
+            h=torch.zeros((b, heads, cfg.d_inner_eff // cfg.ssm_heads, cfg.ssm_state),
                           dtype=torch.float32, device=x.device),
-            conv=torch.zeros((b, cfg.conv_kernel - 1, di), dtype=x.dtype, device=x.device),
+            conv=torch.zeros((b, cfg.conv_kernel - 1, dl), dtype=x.dtype, device=x.device),
         )
         shared = params["shared_attn"]
         mamba = self.mamba_layers(params)
@@ -165,7 +183,7 @@ class HybridModel:
         conv inputs and the token's KV into ``cache`` in place and returns
         (logits, cache with index + 1)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"])
+        x = embed_tokens(params, batch["tokens"], cfg)
         positions = cache.attn.index[:1]        # (1,), the same for every call
         ssm = cache.ssm
         mamba = self.mamba_layers(params)

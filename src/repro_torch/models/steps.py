@@ -140,16 +140,14 @@ def make_grad_fn(model):
 def _leaf_specs(cfg, rules, plan) -> tuple:
     from repro_torch.launch.specs import leaves_with_path, lookup
 
-    specs = rules_lib.transformer_param_specs(cfg, rules, plan)
+    specs = rules_lib.param_specs(cfg, rules, plan)
     return tuple(lookup(specs, path) for path, _ in leaves_with_path(
-        rules_lib.transformer_param_shapes_meta(cfg)))
+        rules_lib.param_shapes_meta(cfg)))
 
 
 def leaf_specs(cfg, grid) -> tuple:
-    """The spec of every parameter leaf of ``cfg``'s transformer on
-    ``grid``, in ``jax.tree.leaves`` order."""
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run on a grid yet")
+    """The spec of every parameter leaf of ``cfg``'s model (any family)
+    on ``grid``, in ``jax.tree.leaves`` order."""
     return _leaf_specs(cfg, grid.rules, grid.plan)
 
 

@@ -78,6 +78,39 @@ def remat(fn, cfg: ModelConfig):
     return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
 
 
+def _vocab_start(emb: torch.Tensor, cfg: ModelConfig) -> int | None:
+    """The first vocab id of this rank's ``embed`` rows (V or V / model of
+    them), or None where the vocabulary is whole."""
+    vl = emb.shape[-2]
+    return (par.current_grid().model_index * vl
+            if par.model_split(vl, cfg.padded_vocab) else None)
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings (B, S, d) of a text model's ``tokens``.  On a
+    grid ``embed`` is this rank's vocab shard, its FSDP rows gathered: a
+    masked local lookup, added over the model row (every family's
+    vocab-parallel embedding)."""
+    emb = par.fsdp(params["embed"], "embed", cfg.d_model)
+    start = _vocab_start(emb, cfg)
+    return (embed_lookup(emb, tokens) if start is None
+            else vocab_parallel_embed_lookup(emb, tokens, start))
+
+
+def head_logits(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                full: int | None = None) -> torch.Tensor:
+    """``rms_norm(x, ln_f) @ head``: the logits over ``full`` columns
+    (default the padded vocabulary).  On a grid ``head`` is this rank's
+    block of columns, its FSDP rows gathered, and the logits come out
+    split over the model row as its columns are (the normed input enters
+    the column-parallel product through ``enter_model``)."""
+    head = par.fsdp(params["head"], "head", cfg.d_model)
+    xn = rms_norm(x, params["ln_f"])
+    if par.model_split(head.shape[-1], full or cfg.padded_vocab):
+        xn = par.enter_model(xn)
+    return xn @ head
+
+
 class TransformerModel:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -109,11 +142,9 @@ class TransformerModel:
         lookup, added over the model row."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        emb = par.fsdp(params["embed"], "embed", cfg.d_model)
-        vl = emb.shape[-2]
-        start = (par.current_grid().model_index * vl
-                 if par.model_split(vl, cfg.padded_vocab) else None)
         if cfg.family == "audio":
+            emb = par.fsdp(params["embed"], "embed", cfg.d_model)
+            start = _vocab_start(emb, cfg)
             # tokens (B, S, nc): the codebooks' embeddings summed in order
             # from 0, in the model's dtype, as the reference's sum().
             parts = [embed_lookup(emb[c], tokens[..., c], start)
@@ -122,8 +153,7 @@ class TransformerModel:
                 parts = par.leave_model(torch.stack(parts)).unbind(0)
             x = sum(parts)
         else:
-            x = (embed_lookup(emb, tokens) if start is None
-                 else vocab_parallel_embed_lookup(emb, tokens, start))
+            x = embed_tokens(params, tokens, cfg)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             proj = par.fsdp(params["patch_proj"], "patch_proj", cfg.patch_dim)
             patches = batch["patch_embeds"].to(x.dtype) @ proj
@@ -138,12 +168,8 @@ class TransformerModel:
         columns split by codebook, (B, S, nc / model, V) from codebook
         ``model_index * nc / model``."""
         cfg = self.cfg
-        head = par.fsdp(params["head"], "head", cfg.d_model)
-        xn = rms_norm(x, params["ln_f"])
         full = cfg.padded_vocab * (cfg.num_codebooks if cfg.family == "audio" else 1)
-        if par.model_split(head.shape[-1], full):
-            xn = par.enter_model(xn)
-        logits = xn @ head
+        logits = head_logits(params, x, cfg, full)
         if cfg.family == "audio":
             b, s, cols = logits.shape
             if cols % cfg.padded_vocab:

@@ -15,6 +15,13 @@ the decode recurrences, as the reference routes them.  When autograd
 records, ``cfg.remat`` recomputes each period (its mLSTM layers and the
 sLSTM layer) in the backward pass.
 The cache is recurrent state only: nothing in it grows with the sequence.
+
+On a (data, model) grid of ranks (``sharding/parallel.use_grid``) the
+same methods run one rank's share on its shard of the parameters: the
+embedding and head vocab-parallel (``transformer.embed_tokens``,
+``head_logits``), each mLSTM and sLSTM layer over this rank's heads
+(``blocks.apply_mlstm_layer``, ``apply_slstm_layer``); the cache holds
+this rank's heads' states.
 """
 from __future__ import annotations
 
@@ -25,9 +32,9 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_views, remat
+from repro_torch.models.transformer import embed_tokens, head_logits, layer_views, remat
 from repro_torch.nn import xlstm as xlstm_lib
-from repro_torch.nn.layers import dense_init, embed_init, embed_lookup, rms_norm
+from repro_torch.nn.layers import dense_init, embed_init
 
 Params = dict[str, Any]
 
@@ -70,13 +77,30 @@ class XLSTMModel:
                 for p in layer_views(params["mlstm"], self.num_periods)]
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, params["ln_f"]) @ params["head"]
+        return head_logits(params, x, self.cfg)
+
+    def _local(self) -> tuple[int, int]:
+        """(mLSTM heads, sLSTM channels) of this rank: the heads of its
+        block of ``wq``'s columns and a quarter of its block of ``wx``'s
+        (four gates), as the spec tree cuts them."""
+        cfg = self.cfg
+        heads = blocks.local_units(cfg, cfg.num_heads, blocks.local_block(cfg, "mlstm", "wq"),
+                                   cfg.num_heads * cfg.hd)
+        return heads, blocks.local_block(cfg, "slstm", "wx") // 4
+
+    def _zero(self, batch: int, device) -> tuple:
+        """The zero mLSTM and sLSTM states of one layer, this rank's
+        heads and channels."""
+        cfg = self.cfg
+        heads, d = self._local()
+        return (xlstm_lib.init_mlstm_state(batch, heads, cfg.hd, cfg.hd, device=device),
+                xlstm_lib.init_slstm_state(batch, d, device=device))
 
     # ------------------------------------------------------------ forward
     def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  Returns (logits, 0): no MoE term."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"])
+        x = embed_tokens(params, batch["tokens"], cfg)
 
         def period_body(x, mlstm, slstm):
             for mp in mlstm:
@@ -94,14 +118,11 @@ class XLSTMModel:
     # ------------------------------------------------------------ prefill
     def init_cache(self, batch_size: int, max_len: int, device=None) -> XLSTMCache:
         """The zero state of every layer (m at -1e30); ``max_len`` is
-        ignored, as a recurrent state has no per-position slots."""
+        ignored, as a recurrent state has no per-position slots.  On a
+        grid of this rank's heads and channels, B its data row's."""
         del max_len
-        cfg = self.cfg
-        dev = resolve_device(device)
-        h, hd = cfg.num_heads, cfg.hd
         pm = (self.num_periods, self.mlstm_per_period)
-        m_one = xlstm_lib.init_mlstm_state(batch_size, h, hd, hd, device=dev)
-        s_one = xlstm_lib.init_slstm_state(batch_size, cfg.d_model, device=dev)
+        m_one, s_one = self._zero(batch_size, resolve_device(device))
         return XLSTMCache(
             mlstm=xlstm_lib.MLSTMState(*(t.expand(pm + t.shape).clone() for t in m_one)),
             slstm=xlstm_lib.SLSTMState(
@@ -115,10 +136,8 @@ class XLSTMModel:
         cache to size).  Returns (logits of the last position, cache)."""
         del max_len
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"])
-        b = x.shape[0]
-        m_zero = xlstm_lib.init_mlstm_state(b, cfg.num_heads, cfg.hd, cfg.hd, device=x.device)
-        s_zero = xlstm_lib.init_slstm_state(b, cfg.d_model, device=x.device)
+        x = embed_tokens(params, batch["tokens"], cfg)
+        m_zero, s_zero = self._zero(x.shape[0], x.device)
         mlstm = self.mlstm_layers(params)
         slstm = layer_views(params["slstm"], self.num_periods)
         m_states, s_states = [], []
@@ -143,7 +162,7 @@ class XLSTMModel:
         """One-token step.  batch['tokens']: (B, 1).  Writes every layer's
         new state into ``cache`` in place and returns (logits, cache)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"])
+        x = embed_tokens(params, batch["tokens"], cfg)
         mlstm = self.mlstm_layers(params)
         slstm = layer_views(params["slstm"], self.num_periods)
         for i in range(self.num_periods):

@@ -51,6 +51,24 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma
 
 
+def rms_norm_split(x: torch.Tensor, gamma: torch.Tensor, width: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` over a last axis of ``width`` entries of which x
+    holds this rank's block (``gamma`` its block too), split over the
+    model row: the f32 sum of squares added over the row
+    (``sharding/parallel.sum_over_model``) and divided by the whole
+    width, in :func:`rms_norm`'s cast order.  With x whole it is
+    :func:`rms_norm`."""
+    if x.shape[-1] == width:
+        return rms_norm(x, gamma, eps)
+    from repro_torch.sharding.parallel import sum_over_model
+
+    dt = x.dtype
+    x32 = x.float()
+    var = sum_over_model(torch.sum(x32 * x32, dim=-1, keepdim=True)) / width
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
 def layer_norm(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sharding.parallel import enter_model, leave_model
+from repro_torch.sharding.parallel import enter_model, row_parallel
 
 
 def swiglu(
@@ -14,9 +14,9 @@ def swiglu(
     ``model_split`` the weights are this rank's f-slice on a grid
     (``sharding/parallel.py``): ``w_gate``/``w_up`` column-parallel,
     ``w_down`` row-parallel, and the partial outputs added over the model
-    row, where ``repro`` constrains h to (batch, None, tensor)."""
+    row in f32 (``row_parallel``), where ``repro`` constrains h to
+    (batch, None, tensor)."""
     if model_split:
         x = enter_model(x)
     h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
-    out = h @ w_down
-    return leave_model(out) if model_split else out
+    return row_parallel(h, w_down) if model_split else h @ w_down

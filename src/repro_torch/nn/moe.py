@@ -117,24 +117,30 @@ def dispatch(x: torch.Tensor, plan: Routing, num_experts: int, cap: int) -> torc
 
 
 def expert_ffn(
-    buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
+    buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+    *, partial: bool = False,
 ) -> torch.Tensor:
     """silu(buf @ wg) * (buf @ wu) @ wd per expert, in the buffers' dtype:
-    buf (B, E, C, d), wg/wu (E, d, f), wd (E, f, d) -> (B, E, C, d)."""
+    buf (B, E, C, d), wg/wu (E, d, f), wd (E, f, d) -> (B, E, C, d).
+    With ``partial`` (a rank's f-slice) the down product is returned in
+    f32, unrounded (``parallel.matmul_f32``), for the sum over the row."""
     b, e, c, d = buf.shape
     flat = buf.transpose(0, 1).reshape(e, b * c, d)                # (E, B*C, d)
     h = torch.nn.functional.silu(torch.bmm(flat, w_gate)) * torch.bmm(flat, w_up)
-    return torch.bmm(h, w_down).reshape(e, b, c, -1).transpose(0, 1)
+    y = par.matmul_f32(h, w_down) if partial else torch.bmm(h, w_down)
+    return y.reshape(e, b, c, -1).transpose(0, 1)
 
 
-def combine(y_buf: torch.Tensor, plan: Routing, seq_len: int) -> torch.Tensor:
+def combine(y_buf: torch.Tensor, plan: Routing, seq_len: int,
+            gate_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The (B, S, d) output from the expert outputs y_buf (B, E, C, d):
     token t adds its K gathered rows, each times bf(gate * keep), in
-    order from 0, in y_buf's dtype."""
+    order from 0, in y_buf's dtype (bf: rounded to ``gate_dtype``, by
+    default y_buf's)."""
     b = y_buf.shape[0]
     top_k = plan.ids.shape[1] // seq_len
     gathered = y_buf[_batch_index(plan), plan.ids, plan.slot]       # (B, S*K, d)
-    w = (plan.gates * plan.keep.float()).to(y_buf.dtype)
+    w = (plan.gates * plan.keep.float()).to(gate_dtype or y_buf.dtype).to(y_buf.dtype)
     terms = (gathered * w[..., None]).reshape(b, seq_len, top_k, -1)
     out = torch.zeros_like(terms[:, :, 0])
     for k in range(top_k):
@@ -186,9 +192,12 @@ def moe_ffn_parallel(
                       for w, n in ((w_gate, "wg"), (w_up, "wu"), (w_down, "wd")))
         plan, stats = route(x, router, top_k=top_k, cap=cap)
         buf = dispatch(par.enter_model(x), plan, num_experts, cap)
-        y = expert_ffn(buf, wg, wu, wd)
+        # The partial products stay f32 through the combine and the sum
+        # over the row, rounded to x's dtype once (gates rounded as the
+        # one-device combine rounds them).
+        y = expert_ffn(buf, wg, wu, wd, partial=True)
         plan = plan._replace(gates=par.enter_model(plan.gates))
-        out = par.leave_model(combine(y, plan, s))
+        out = par.leave_model(combine(y, plan, s, dtype)).to(dtype)
         return out, _mean_stats(stats)
     wg, wu, wd = (par.fsdp(w, n, d) for w, n in ((w_gate, "wg"), (w_up, "wu"), (w_down, "wd")))
     if wg.shape[-1] != d_ff:        # f split but the path is the plain one

@@ -13,9 +13,19 @@ input and the models run as on one device).  The layout, Megatron's:
   sequences), and within a model row every rank holds the same
   activations;
 - a ``"T"`` weight is split over the model axis: a column-parallel
-  product (``wq``/``wk``/``wv``, ``wg``/``wu``, ``head``) takes its input
-  through :func:`enter_model`, a row-parallel one (``wo``, ``wd``) gives
-  its partial sum to :func:`leave_model`;
+  product (``wq``/``wk``/``wv``, ``wg``/``wu``, ``in_x``/``in_z``,
+  ``wx``, ``head``) takes its input through :func:`enter_model`, a
+  row-parallel one (``wo``, ``wd``, ``out``) is :func:`row_parallel`:
+  its partial sum kept in f32 through :func:`leave_model` and rounded to
+  the model's dtype once, after the sum;
+- a leaf or an activation that is whole on every rank of the row but
+  feeds only this rank's heads or channels (Mamba2's ``a_log``,
+  ``dt_bias``, ``conv_b``, ``gn`` and ``dt``, the mLSTM's gate
+  pre-activations, the sLSTM's ``rw``) is cut by :func:`slice_model`; a
+  whole activation every rank's heads read (Mamba2's B and C) goes
+  through :func:`enter_model`, whose backward sums the heads' parts; a
+  norm over split channels adds its sum of squares over the row
+  (:func:`sum_over_model`);
 - an ``"F"`` weight is split over the data axes (FSDP) and all-gathered
   where it is used (:func:`fsdp`), one layer at a time; the gather's
   backward reduce-scatters the gradient;
@@ -32,7 +42,11 @@ function                      forward                         backward
 :func:`enter_model`           identity                        all-reduce over model
 :func:`leave_model`           all-reduce over model           identity
 :func:`gather_data`           all-gather over data            reduce-scatter over data
-:func:`gather_model`          all-gather over model           this rank's slice
+:func:`gather_model`          all-gather over model           this rank's slice, or
+                                                              (``scatter``) reduce-scatter
+                                                              over model
+:func:`slice_model`           this rank's block               all-gather over model
+:func:`sum_over_model`        all-reduce over model (f32)     all-reduce over model
 :func:`mean_over_data`        all-reduce mean over data       all-reduce mean over data
 ============================  ==============================  ===========================
 
@@ -128,10 +142,80 @@ class _LeaveModel(torch.autograd.Function):
         return g, None
 
 
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, transport):
+        ctx.transport = transport
+        return sum_f32(transport, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_f32(ctx.transport, g), None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's block along ``dim``; the backward all-gathers the
+    blocks' gradients, so every rank holds the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, transport, dim):
+        if x.shape[dim] % transport.size:
+            raise ValueError(f"a dim of {x.shape[dim]} entries does not split over "
+                             f"{transport.size} ranks")
+        ctx.transport, ctx.dim = transport, dim
+        n = x.shape[dim] // transport.size
+        return x.narrow(dim, transport.rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(ctx.transport, g, ctx.dim), None, None
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` (a (..., K), b (K, N) or batched alike) with the product
+    returned in f32, unrounded: on the card cuBLAS's ``out_dtype`` (the
+    operands stay bf16 on the tensor cores; ``aten::mm.dtype`` has no
+    derivative, hence this Function), on the CPU the operands upcast (no
+    CPU kernel takes ``out_dtype``).  The backward takes the
+    gradient in the operands' dtype, as the one-device product's does:
+    the caller rounds the (summed) result to that dtype, so the gradient
+    arrives as values of it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type != "cuda":
+            return a.float() @ b.float()
+        if b.ndim == 2:
+            flat = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return flat.reshape(a.shape[:-1] + (b.shape[-1],))
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.transpose(-1, -2)
+        if b.ndim == 2:
+            gb = a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        else:
+            gb = a.transpose(-1, -2) @ g
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in f32 and returned unrounded (``a @ b`` itself
+    for f32 operands): the partial product of a row-parallel matrix
+    product, rounded once after the sum over the model row."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    return _MatmulF32.apply(a, b)
+
+
 class _Gather(torch.autograd.Function):
     """All-gather along ``dim``; the backward sums the gradient over the
     ranks and keeps this rank's block (``scatter``), or only keeps it
-    (every rank computed the same gradient: the model axis)."""
+    (every rank computed the same gradient)."""
 
     @staticmethod
     def forward(ctx, w, transport, dim, wire_dtype, scatter):
@@ -197,12 +281,45 @@ def gather_data(w: torch.Tensor, dim: int, wire_dtype: torch.dtype | None = None
     return _Gather.apply(w, t, dim % w.ndim, wire_dtype, True)
 
 
-def gather_model(w: torch.Tensor, dim: int) -> torch.Tensor:
-    """``w``'s blocks along ``dim`` gathered over the model row, for a
-    product every rank of the row computes whole; the backward keeps this
-    rank's block of the (row-wide identical) gradient."""
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The row-parallel product ``x @ w`` on a grid (x this rank's
+    columns, w its rows): each rank's partial product kept in f32
+    (:func:`matmul_f32`), added over the model row in f32 and rounded to
+    x's dtype once, as one device's product rounds its f32 sum once; an
+    f32 model's product as it was."""
     t = _model(current_grid())
-    return w if t is None else _Gather.apply(w, t, dim % w.ndim, None, False)
+    if t is None:
+        return x @ w
+    return _LeaveModel.apply(matmul_f32(x, w), t).to(x.dtype)
+
+
+def gather_model(w: torch.Tensor, dim: int, *, scatter: bool = False) -> torch.Tensor:
+    """``w``'s blocks along ``dim`` gathered over the model row.  The
+    backward keeps this rank's block of the gradient: of a row-wide
+    identical one (every rank computes the product whole), or with
+    ``scatter`` of its sum over the row, reduce-scattered in f32 (each
+    rank's use of the whole tensor gives a part: the sLSTM reads its own
+    heads' columns of every gate)."""
+    t = _model(current_grid())
+    return w if t is None else _Gather.apply(w, t, dim % w.ndim, None, scatter)
+
+
+def slice_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, which is whole on every
+    rank of the model row (a whole leaf, or an activation a replicated
+    product gave), for this rank's heads or channels; the backward
+    all-gathers the blocks' gradients over the row, so the whole
+    gradient is the same on every rank."""
+    t = _model(current_grid())
+    return x if t is None else _Slice.apply(x, t, dim % x.ndim)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model row, f32 on the wire (each rank's
+    output reads the row-wide sum); the backward all-reduces the
+    gradient, as every rank's use of the sum gives a part of it."""
+    t = _model(current_grid())
+    return x if t is None else _SumModel.apply(x, t)
 
 
 def mean_over_data(x: torch.Tensor) -> torch.Tensor:

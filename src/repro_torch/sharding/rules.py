@@ -186,7 +186,7 @@ def unshard_params(shards: list, specs, plan: MeshPlan):
     def join(path, first):
         spec = tuple(lookup(specs, path)) + (None,) * first.ndim
         parts = [lookup(s, path) for s in shards]
-        shape = tuple(d * _split(names, plan) for d, names in zip(first.shape, spec))
+        shape = tuple(d * axes_size(names, plan) for d, names in zip(first.shape, spec))
         if isinstance(first, torch.Tensor):
             out = torch.empty(shape, dtype=first.dtype, device=first.device)
         else:
@@ -198,7 +198,9 @@ def unshard_params(shards: list, specs, plan: MeshPlan):
     return tree_map_with_path(join, shards[0])
 
 
-def _split(names, plan: MeshPlan) -> int:
+def axes_size(names, plan: MeshPlan) -> int:
+    """How many blocks a spec entry (an axis, a tuple of axes or None)
+    cuts its dim into on ``plan``."""
     if names is None:
         return 1
     n = 1
@@ -240,25 +242,25 @@ def is_split(spec, axes) -> bool:
     return False
 
 
-def transformer_param_shapes_meta(cfg):
-    """A transformer's (dense, MoE, VLM or audio) whole parameters as
-    ``meta`` tensors (shapes only, f32)."""
-    from repro_torch.convert import transformer_param_shapes
+def param_shapes_meta(cfg):
+    """A zoo model's whole parameters as ``meta`` tensors (shapes only,
+    f32), by ``cfg.family`` (``convert.param_shapes``)."""
+    from repro_torch.convert import param_shapes
 
     def meta(node):
         if isinstance(node, dict):
             return {k: meta(v) for k, v in node.items()}
         return torch.empty(node, device="meta")
 
-    return meta(transformer_param_shapes(cfg))
+    return meta(param_shapes(cfg))
 
 
-def transformer_param_specs(cfg, rules: AxisRules, plan: MeshPlan):
-    """The spec tree of a transformer's whole parameters under ``rules``
-    on ``plan``, from their shapes alone."""
+def param_specs(cfg, rules: AxisRules, plan: MeshPlan):
+    """The spec tree of a zoo model's whole parameters (every family)
+    under ``rules`` on ``plan``, from their shapes alone."""
     from repro_torch.launch.specs import param_spec_tree
 
-    return param_spec_tree(transformer_param_shapes_meta(cfg), rules, plan)
+    return param_spec_tree(param_shapes_meta(cfg), rules, plan)
 
 
 def init_shard(model, grid, seed: int = 0):
@@ -268,7 +270,7 @@ def init_shard(model, grid, seed: int = 0):
     the rest, so the device holds one whole copy at most beside the
     shards; every rank's shard is a block of the same numbers a one-rank
     run draws on that device."""
-    specs = transformer_param_specs(model.cfg, grid.rules, grid.plan)
+    specs = param_specs(model.cfg, grid.rules, grid.plan)
     shard = None
     for turn in range(grid.size):
         if turn == grid.rank:

@@ -95,15 +95,14 @@ def test_layout_round_trip(arch, shape):
 
 @pytest.mark.parametrize("case", ["moe", "audio"])
 def test_convert_shard_round_trip(case):
-    """``convert.transformer_shard_from_numpy`` and
-    ``opt_state_shard_from_numpy`` cut each rank's shard of ``repro``'s
-    numpy params and AdamW state on the host; ``transformer_params_from_
-    shards`` puts the ranks' shards back bit for bit."""
+    """``convert.shard_from_numpy`` and ``opt_state_shard_from_numpy`` cut
+    each rank's shard of ``repro``'s numpy params and AdamW state on the
+    host; ``params_from_shards`` puts the ranks' shards back bit for
+    bit."""
     import types
 
-    from repro_torch.convert import (opt_state_shard_from_numpy,
-                                     transformer_params_from_shards,
-                                     transformer_shard_from_numpy)
+    from repro_torch.convert import (opt_state_shard_from_numpy, params_from_shards,
+                                     shard_from_numpy)
 
     cfg = _config(case)
     params = {k: v for k, v in _reference(case)["params"].items()}
@@ -115,11 +114,11 @@ def test_convert_shard_round_trip(case):
     rules = rules_lib.AxisRules(mesh=plan, data_axes=("data",), model_axis="model")
     grids = [types.SimpleNamespace(rules=rules, plan=plan, coords=_coords(plan, r))
              for r in range(plan.size)]
-    shards = [transformer_shard_from_numpy(params, cfg, g, device="cpu") for g in grids]
+    shards = [shard_from_numpy(params, cfg, g, device="cpu") for g in grids]
     states = [opt_state_shard_from_numpy(state, cfg, g, device="cpu") for g in grids]
     for whole, parts in ((params, shards), (state["m"], [st["m"] for st in states]),
                          (state["v"], [st["v"] for st in states])):
-        back = transformer_params_from_shards(parts, cfg, plan)
+        back = params_from_shards(parts, cfg, plan)
         for (path, want), (_, got) in zip(specs_lib.leaves_with_path(whole),
                                           specs_lib.leaves_with_path(back), strict=True):
             np.testing.assert_array_equal(got, np.asarray(want, np.float32), err_msg=str(path))
@@ -189,13 +188,13 @@ class _Capture(AdamW):
 def _rank_case(grid, cfg, params_np, batch):
     """One config on this rank: gathered logits, loss, grad norm,
     gathered gradients, the train step's collectives."""
-    from repro_torch.convert import transformer_shard_from_numpy
+    from repro_torch.convert import shard_from_numpy
     from repro_torch.models.steps import make_train_step
     from repro_torch.sharding import parallel as par
 
     model = build_model(cfg)
-    specs = rules_lib.transformer_param_specs(cfg, grid.rules, grid.plan)
-    local = transformer_shard_from_numpy(params_np, cfg, grid, device="cpu")
+    specs = rules_lib.param_specs(cfg, grid.rules, grid.plan)
+    local = shard_from_numpy(params_np, cfg, grid, device="cpu")
     bl = B // grid.data_parallel
     rows = slice(grid.data_index * bl, (grid.data_index + 1) * bl)
     lb = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
@@ -224,12 +223,12 @@ def _threaded_backward(grid, cfg, params_np, batch) -> bool:
     grid) equals the backward on this one."""
     import threading
 
-    from repro_torch.convert import transformer_shard_from_numpy
+    from repro_torch.convert import shard_from_numpy
     from repro_torch.models.steps import make_loss_fn
     from repro_torch.sharding import parallel as par
 
     model = build_model(cfg)
-    local = transformer_shard_from_numpy(params_np, cfg, grid, device="cpu")
+    local = shard_from_numpy(params_np, cfg, grid, device="cpu")
     leaves = [p.requires_grad_(True) for p in _tree.leaves(local)]
     bl = B // grid.data_parallel
     lb = {k: torch.from_numpy(v[grid.data_index * bl:(grid.data_index + 1) * bl])
