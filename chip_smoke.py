@@ -147,21 +147,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
 5f. ``MeshBackend`` over ``torch.distributed`` at full width (phase 5's
    geometry and seed; each train traces its layers' last iteration).
    (a) ExactMean through ``train_dssfn.main --backend mesh --ranks 4
-   --dist-backend gloo``: four ranks of five workers share the card,
-   each staging its messages through pinned host memory; 4 ``gram`` and
-   80 ``propagate_gram`` launches summed over the ranks, each layer's
-   readout gap to phase 5's simulated run printed and held to 1e-4 at
-   layers 0-2, the equivalence bars against phase 5's centralized run,
-   the eq.-15 scalars equal to phase 5's.  (b) ``gossip:52:4``, 3 layers
-   (depth cut), the simulated run and the mesh twice: readouts within
-   1e-4, each layer's final consensus error within 1e-4 x max|O_l|, the
-   point-to-point messages, permutes and bytes the schedule predicts,
-   the second mesh run bit-equal to the first.  (c) One NCCL rank holding
+   --dist-backend gloo``, 6 layers (depth cut: R is drawn in layer order,
+   so its layers are phase 5's first 6): four ranks of five workers share
+   the card, each staging its messages through pinned host memory; 4
+   ``gram`` and 24 ``propagate_gram`` launches summed over the ranks,
+   each layer's readout gap to phase 5's simulated run printed and held
+   to 1e-4 at layers 0-2, the equivalence bars against phase 5's
+   centralized run cut to 6 layers, the eq.-15 scalars equal to phase
+   5's over those layers.  (b) ``gossip:52:4``, 3 layers (depth cut),
+   the simulated run and the mesh: readouts within 1e-4, each layer's
+   final consensus error within 1e-4 x max|O_l|, the point-to-point
+   messages, permutes and bytes the schedule predicts; then the mesh's
+   first layer again, its readouts bit-equal to the first run's.  (c) One NCCL rank holding
    all 20 workers, 3 layers: within 1e-4 of phase 5's readouts, its NCCL
    all-reduces counted.  (d) (a)'s stack served through ``ServeEngine``
-   (20 ``matmul_relu`` launches; bit-equal to its ``ssfn.predict``,
-   within 1e-4 x max of its float64 forward, and off phase 5's logits by
-   no more than the two runs' readouts account for), then the chaos
+   (6 ``matmul_relu`` launches; bit-equal to its ``ssfn.predict``,
+   within 1e-4 x max of its float64 forward, and off the logits of phase
+   5's net cut to 6 layers by no more than the two runs' readouts
+   account for), then the chaos
    drill's mesh leg on the card, its stats and outcomes the CPU drill's.
    (e) Per rank: train time, train ms per ADMM iteration, host ms in the
    transport and of it the wait for the card, beside phase 5's.  A
@@ -324,7 +327,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
     within 15% of 16(a)'s ``max_memory_allocated``, the FLOPs within 0.1%
     of ``FlopCounterMode``'s count of 16(a)'s first step; the achieved
     TFLOP/s beside the compute term.  (c) ``python -m
-    repro_torch.launch.dryrun --shape train_4k`` in a subprocess: every
+    repro_torch.launch.dryrun --shape train_4k`` in a subprocess (it needs
+    no card, so it runs on the host beside phase 16): every
     arch OK on the 16x16 plan, its dominant term and peak GB a device
     printed against the card's 80 GB (upper bounds: the plan does not
     split activations under tensor parallelism).  A ``{"dryrun": ...}``
@@ -340,12 +344,12 @@ Phases, each of which raises (non-zero exit) on any failed check:
     ``flash_attention`` call (its 16 of 32 heads over 4 of 8 KV heads)
     against its plain version; the forward's ms a rank, the transport's
     host ms and of it the wait for the card.  (b) H2O-Danube3-4B at full
-    width, 2 layers, f32, one ``make_train_step`` sharded and unsharded
+    width, 1 layer, f32, one ``make_train_step`` sharded and unsharded
     on the same card and batch (B=2, S=4096): loss and grad_norm within
     1e-5 relative, every gathered gradient leaf within 1e-4 x max, the
     updated params within 2 lr (a first AdamW step moves an element by
     about lr, and a gradient near 0 may take the other sign).  (c)
-    ``launch/train.train_grid`` on Danube, 4 bf16 layers with f32 moments,
+    ``launch/train.train_grid`` on Danube, 2 bf16 layers with f32 moments,
     3 steps: step ms, tokens/s, peak GB a rank, losses falling, the
     transport's calls and bytes by kind, every sum in f32.  (d) Each of
     (c)'s steps' collectives against ``launch/dryrun.plan_collectives``
@@ -357,7 +361,26 @@ Phases, each of which raises (non-zero exit) on any failed check:
     row-parallel partial sum before the sum over the row), the greedy
     tokens' agreement and the decode rates printed.  A ``{"sharded": ...}`` line.
     (``--sharded-only`` builds and runs this phase alone.)
-19. The card line, one ``{"kernels": [...]}`` line, and as the last line
+19. The examples: each twin of ``examples/*.py`` in ``examples/torch_port/``
+    (``main(["--device", "cuda"])``, in this process) at its script's
+    defaults (``train_lm`` 200 steps of B=8, S=256), its own asserts, and
+    every number it prints that ``repro``'s script printed in the stdout
+    stored under ``tests/data/torch_examples_repro/`` held at the bars of
+    ``tests/torch_examples_record.py`` (quickstart, gossip_vs_spectral_gap,
+    robust_networks, layerwise_readout, serve_decode's dSSFN line, and
+    ``train_lm`` once more at its record's 2 steps of B=1, S=32: the
+    threefry keys draw ``repro``'s data, matrices and weights); each twin's
+    wall time and kernel launches (counters set to 0 before each), the
+    dSSFN twins' ``gram``, ``propagate_gram`` and ``matmul_relu`` launches
+    checked against their configs, and every one of those calls recorded
+    with copies of its inputs and held on them: ``gram`` within 8 f32
+    ulps of max|G| of the float64 Gram, ``propagate_gram``'s Y' within
+    1e-5 x max|plain| and its G within 8 ulps of the float64 Gram of its
+    Y', ``matmul_relu`` within 1e-5 x max|plain| (calls held = launches).
+    ``train_lm``'s 200 steps must pass the script's own "improved" (the
+    last loss below the first less 0.5).  An ``{"examples": ...}`` line.
+    (``--examples-only`` builds and runs this phase alone.)
+20. The card line, one ``{"kernels": [...]}`` line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -368,6 +391,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2471,6 +2495,14 @@ MESH_RANKS = 4
 MESH_GAP = 1e-4
 MESH_BAR_LAYERS = 3
 MESH_DEPTH = 3          # (b) and (c): depth cut, width full
+# (a)'s depth cut.  The launcher draws R_1..R_L from its generator in layer
+# order and layer l's solve reads only the layers before it, so a 6-layer
+# train's O_0..O_6 are phase 5's 20-layer train's, and phase 5's nets cut
+# to their first 6 layers are what (a) is held to.
+MESH_DEPTH_A = 6
+# (b)'s second mesh run repeats its first layer solves: bit for bit the
+# first run's O_0 and O_1.
+MESH_REPEAT_DEPTH = 1
 
 
 def mesh_argv(artifact: str, ranks: int, dist: str, *extra: str) -> list[str]:
@@ -2500,18 +2532,19 @@ def predicted_messages(perms, m: int, ranks: int) -> tuple[int, int]:
 
 def mesh_slice(torch, np, card: str, exact: dict) -> dict:
     """Phase 5f: (a) ExactMean under --backend mesh on 4 gloo ranks,
-    20 layers; (b) the paper's gossip on the same ranks, 3 layers, beside
-    the simulated run, twice; (c) one NCCL rank holding all 20 workers;
+    6 layers; (b) the paper's gossip on the same ranks, 3 layers, beside
+    the simulated run, and its first layer again; (c) one NCCL rank
+    holding all 20 workers;
     (d) (a)'s stack served and drilled; (e) where the time goes.  Returns
     each kernel's launches over the phase."""
-    from repro_torch.core import equivalence, ssfn, topology
+    from repro_torch.core import equivalence, layerwise, ssfn, topology
     from repro_torch.core.policy import RingGossip
     from repro_torch.kernels import matmul_relu
     from repro_torch.launch import train_dssfn
     from repro_torch import serve
 
     m, q, k, layers = TRAIN["M"], TRAIN["Q"], TRAIN["K"], TRAIN["L"]
-    run_d, run_c, dec, cen, data = (exact[x] for x in ("run_d", "run_c", "dec", "cen", "data"))
+    run_d, dec, cen, data = (exact[x] for x in ("run_d", "dec", "cen", "data"))
     launches = {"gram": 0, "propagate_gram": 0, "matmul_relu": 0}
     out = {"card": card, "ranks": MESH_RANKS}
 
@@ -2525,31 +2558,38 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
             launches[key] += got[key]
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
-        # (a) ExactMean, 20 layers, 4 gloo ranks on the card.
+        # (a) ExactMean, MESH_DEPTH_A layers, 4 gloo ranks on the card.
+        depth_a = MESH_DEPTH_A
+        dec_a = ssfn.SSFNParams(o=dec.o[:depth_a + 1], r=dec.r[:depth_a])
+        cen_a = ssfn.SSFNParams(o=cen.o[:depth_a + 1], r=cen.r[:depth_a])
         path_a = os.path.join(tmp, "mesh_exact")
-        res = train_dssfn.main(mesh_argv(path_a, MESH_RANKS, "gloo"))
+        res = train_dssfn.main(mesh_argv(path_a, MESH_RANKS, "gloo", "--layers", str(depth_a)))
         run = res["runs"][0]
-        count("(a)", run, MESH_RANKS, layers)
+        count("(a)", run, MESH_RANKS, depth_a)
         params = card_params(torch, path_a)
         if not all(bool(torch.isfinite(o).all()) for o in params.o):
             raise AssertionError("5f(a): non-finite readouts")
-        gaps = rel_gaps(torch, params.o, dec.o)
+        gaps = rel_gaps(torch, params.o, dec_a.o)
         if not max(gaps[:MESH_BAR_LAYERS]) <= MESH_GAP:
             raise AssertionError(f"5f(a) readouts vs phase 5's simulated run: {gaps[:3]} "
                                  f"> {MESH_GAP} at layers 0-2")
-        if run["comm_scalars"] != run_d["comm_scalars"]:
-            raise AssertionError(f"5f(a) eq.-15 scalars {run['comm_scalars']} != "
-                                 f"{run_d['comm_scalars']}")
-        rep = equivalence.compare(cen, params, data.x_test, q)
-        acc_gap = abs(run["test_accuracy"] - run_c["test_accuracy"])
+        # Eq. 15 counts K Q n_l scalars a layer: phase 5's less its last layers.
+        want_comm = run_d["comm_scalars"] * (TRAIN["P"] + depth_a * TRAIN["n"]) \
+            // (TRAIN["P"] + layers * TRAIN["n"])
+        if run["comm_scalars"] != want_comm:
+            raise AssertionError(f"5f(a) eq.-15 scalars {run['comm_scalars']} != {want_comm}, "
+                                 f"phase 5's over its first {depth_a} layers")
+        rep = equivalence.compare(cen_a, params, data.x_test, q)
+        acc_cen = layerwise.accuracy(cen_a, data.x_test, data.y_test, q)
+        acc_gap = abs(run["test_accuracy"] - acc_cen)
         check_equivalence("5f(a)", rep, acc_gap)
-        print(f"5f(a) {run['backend']}: {run['wall_time_s']:.3f} s (phase 5 "
-              f"{run_d['wall_time_s']:.3f} s), launches {run['kernel_launches']} summed over "
-              f"{run['ranks']} ranks, collectives {run['collective_counts']}; readout gaps to "
-              f"phase 5's simulated run by layer {['%.2e' % g for g in gaps]}; test accuracy "
-              f"{run['test_accuracy']:.4f} (phase 5 {run_d['test_accuracy']:.4f}); against "
-              f"the centralized run agreement {rep.agreement:.4f}, accuracy gap "
-              f"{acc_gap:.4f}; eq.-15 scalars {run['comm_scalars']} == phase 5's on {card}",
+        print(f"5f(a) {run['backend']}, {depth_a} layers: {run['wall_time_s']:.3f} s (phase 5's "
+              f"{layers} {run_d['wall_time_s']:.3f} s), launches {run['kernel_launches']} summed "
+              f"over {run['ranks']} ranks, collectives {run['collective_counts']}; readout gaps "
+              f"to phase 5's simulated run by layer {['%.2e' % g for g in gaps]}; test accuracy "
+              f"{run['test_accuracy']:.4f}; against phase 5's centralized run cut to "
+              f"{depth_a} layers agreement {rep.agreement:.4f}, accuracy gap {acc_gap:.4f}; "
+              f"eq.-15 scalars {run['comm_scalars']} == phase 5's over those layers on {card}",
               flush=True)
         out["a"] = {"wall_s": run["wall_time_s"], "gaps": gaps, "agreement": rep.agreement,
                     "acc_gap": acc_gap, "test_accuracy": run["test_accuracy"],
@@ -2558,7 +2598,7 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
                     "collective_bytes": run["collective_bytes"], "per_rank": run["per_rank"]}
 
         # (b) The paper's gossip network, 3 layers: the simulated run,
-        # then the mesh twice.
+        # then the mesh, then the mesh's first layer solves again.
         rounds = topology.gossip_rounds_for_tolerance(
             topology.circular_mixing_matrix(m, GOSSIP_DEGREE), GOSSIP_TOL)
         spec = f"gossip:{rounds}:{GOSSIP_DEGREE}"
@@ -2570,16 +2610,18 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
         run_s = train_dssfn.main(train_argv(m, path_s) + gossip)["runs"][0]
         count("(b) simulated", run_s, 1, MESH_DEPTH)
         runs_b = []
-        for i in range(2):
+        for i, depth in enumerate((MESH_DEPTH, MESH_REPEAT_DEPTH)):
             path = os.path.join(tmp, f"mesh_gossip_{i}")
-            run_b = train_dssfn.main(mesh_argv(path, MESH_RANKS, "gloo", *gossip))["runs"][0]
-            count(f"(b) mesh {i + 1}", run_b, MESH_RANKS, MESH_DEPTH)
+            run_b = train_dssfn.main(mesh_argv(path, MESH_RANKS, "gloo", *gossip,
+                                               "--layers", str(depth)))["runs"][0]
+            count(f"(b) mesh {i + 1}", run_b, MESH_RANKS, depth)
             runs_b.append((run_b, card_params(torch, path)))
         (run_b, params_b), (run_b2, params_b2) = runs_b
         gaps_b = rel_gaps(torch, params_b.o, card_params(torch, path_s).o)
         if not max(gaps_b) <= MESH_GAP:
             raise AssertionError(f"5f(b) mesh vs simulated readouts {gaps_b}")
-        if not all(torch.equal(a, b) for a, b in zip(params_b.o, params_b2.o)):
+        if not (len(params_b2.o) == MESH_REPEAT_DEPTH + 1
+                and all(torch.equal(a, b) for a, b in zip(params_b.o, params_b2.o))):
             raise AssertionError("5f(b) the second mesh run differs from the first")
         mixes = k * (MESH_DEPTH + 1)
         permutes = MESH_RANKS * mixes * len(perms)
@@ -2594,12 +2636,13 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
                 f"{msgs_mix} messages a mix, {permutes} permutes, {want_bytes} bytes")
         cerr = consensus_errors(run_b["consensus_error"], params_b.o)
         print(f"5f(b) {spec} on {MESH_RANKS} gloo ranks, {MESH_DEPTH} layers: mesh "
-              f"{run_b['wall_time_s']:.3f} s and {run_b2['wall_time_s']:.3f} s, simulated "
+              f"{run_b['wall_time_s']:.3f} s and {run_b2['wall_time_s']:.3f} s "
+              f"({MESH_REPEAT_DEPTH} layer), simulated "
               f"{run_s['wall_time_s']:.3f} s; readout gaps {['%.2e' % g for g in gaps_b]}; "
               f"final consensus error <= {cerr:.3e} x max|O_l|; {len(perms)} hops a mix, "
               f"{msgs_mix} cross-rank messages ({rows_mix} rows) a mix as the schedule "
-              f"predicts, {want_bytes} bytes in all; the second mesh run bit-equal to the "
-              f"first on {card}", flush=True)
+              f"predicts, {want_bytes} bytes in all; the repeat's readouts bit-equal to the "
+              f"first run's on {card}", flush=True)
         out["b"] = {"wall_s": [run_b["wall_time_s"], run_b2["wall_time_s"]],
                     "sim_wall_s": run_s["wall_time_s"], "gaps": gaps_b, "cerr": cerr,
                     "hops": len(perms), "messages_per_mix": msgs_mix,
@@ -2626,9 +2669,9 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
                     "collective_counts": run_c3["collective_counts"]}
 
         # (d) (a)'s stack served: the net it trained (bit for bit its own
-        # ssfn.predict, and its float64 forward within STACK_TOL), and
-        # phase 5's logits off by what the two runs' readouts make them
-        # differ in float64, within STACK_TOL more.  Then the drill's mesh
+        # ssfn.predict, and its float64 forward within STACK_TOL), and the
+        # logits of phase 5's net cut to (a)'s depth off by what the two
+        # runs' readouts make them differ in float64, within STACK_TOL more.  Then the drill's mesh
         # leg on the card.
         xb = data.x_test[:, :32].contiguous()
         engine = serve.ServeEngine(serve.load_artifact(path_a), buckets=(32,))
@@ -2642,14 +2685,14 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
         x64 = xb.double().cpu().numpy()
         f64_mesh = forward_f64(np, [o.cpu().numpy() for o in params.o],
                                [r.cpu().numpy() for r in params.r], x64)
-        f64_dec = forward_f64(np, [o.cpu().numpy() for o in dec.o],
-                              [r.cpu().numpy() for r in dec.r], x64)
+        f64_dec = forward_f64(np, [o.cpu().numpy() for o in dec_a.o],
+                              [r.cpu().numpy() for r in dec_a.r], x64)
         got = logits.double().cpu().numpy()
         scale = float(np.abs(f64_dec).max())
         err_own = float(np.abs(got - f64_mesh).max())
         err_dec = float(np.abs(got - f64_dec).max())
         trained = float(np.abs(f64_mesh - f64_dec).max())
-        if not (n_fwd == layers and torch.equal(logits.to(own.device), own)
+        if not (n_fwd == depth_a and torch.equal(logits.to(own.device), own)
                 and err_own <= STACK_TOL * scale
                 and err_dec <= trained + STACK_TOL * scale):
             raise AssertionError(
@@ -2666,7 +2709,7 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
         if (sd != cpu_rt.snapshot()["stats"]
                 or kinds != [x["kind"] for x in cpu_rt.events if x["kind"] != "degrade"]
                 or [h.status for _, h in entries] != [h.status for _, h in cpu_entries]
-                or n_drill != layers * sd["batches"]):
+                or n_drill != depth_a * sd["batches"]):
             raise AssertionError(f"5f(d) card drill {sd}, {n_drill} launches; CPU drill "
                                  f"{cpu_rt.snapshot()['stats']}")
         launches["matmul_relu"] += n_fwd + n_drill
@@ -2691,7 +2734,7 @@ def mesh_slice(torch, np, card: str, exact: dict) -> dict:
           f"{bd['admm_ms'] / k:.3f} ms traced, {bd['admm_untraced_ms'] / k:.3f} untraced; "
           f"(b)'s simulated train {out['b']['sim_wall_s'] / ((MESH_DEPTH + 1) * k) * 1e3:.3f} "
           f"ms an iteration on {card}", flush=True)
-    for label, depth in (("a", layers), ("b", MESH_DEPTH)):
+    for label, depth in (("a", depth_a), ("b", MESH_DEPTH)):
         iters = (depth + 1) * k
         for r in out[label]["per_rank"]:
             print(f"5f(e) ({label}) rank {r['rank']}: train {r['wall_time_s']:.3f} s, "
@@ -4847,12 +4890,14 @@ def _clone(out):
 class OpRecorder:
     """Inside ``with``, every call of ``module.name`` (a kernel's op)
     keeps its arguments and a copy of its result in ``calls``, so that
-    each can be held against the plain version after the timed work.
-    The copy is made outside any dispatch mode, so that a cost analysis
-    recording the call does not count it."""
+    each can be held against the plain version after the timed work;
+    with ``copy_args`` a copy of its tensor arguments too, for callers
+    that reuse their buffers.  The copies are made outside any dispatch
+    mode, so that a cost analysis recording the call does not count them."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, copy_args: bool = False):
         self.module, self.name, self.calls = module, name, []
+        self.copy_args = copy_args
 
     def __enter__(self):
         self._op = op = getattr(self.module, self.name)
@@ -4860,9 +4905,11 @@ class OpRecorder:
         def call(*args, **kwargs):
             from torch.utils._python_dispatch import _disable_current_modes
 
+            with _disable_current_modes():
+                kept = _clone(tuple(args)) if self.copy_args else args
             out = op(*args, **kwargs)
             with _disable_current_modes():
-                self.calls.append((args, kwargs, _clone(out)))
+                self.calls.append((kept, kwargs, _clone(out)))
             return out
 
         setattr(self.module, self.name, call)
@@ -5227,53 +5274,80 @@ def one_card_plan(torch, danube: dict, card: str) -> dict:
             "step_flops": danube["step_flops"], "achieved_tflops": achieved / 1e12}
 
 
-def dryrun_sweep(card: str) -> dict:
+class DryrunSweep:
     """17(c): ``python -m repro_torch.launch.dryrun --shape train_4k`` over
-    the ten archs on the 16x16 plan, in a subprocess."""
-    from repro_torch.configs import ARCHS
-    from repro_torch.launch.mesh import HARDWARE
+    the ten archs on the 16x16 plan, in a subprocess started at once.  It
+    needs no card (fake and ``meta`` tensors), so it runs on the host
+    beside phase 16, and :meth:`result` waits for it; :meth:`close` stops
+    it if it is still running and removes its output."""
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
+        self.t0 = time.perf_counter()
+        print("17(c) the sweep starts in a subprocess beside phase 16: phase 16's host-bound "
+              "times (16(a) step ms and tokens/s, 16(d) fit s) and 17(c)'s traced-in times "
+              "are taken under its load", flush=True)
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        proc = subprocess.run(
+        self.log = open(os.path.join(self.tmp, "sweep.log"), "w+")
+        self.proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
-             "--out", tmp], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=DRYRUN_SWEEP_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise AssertionError(f"17(c) the sweep exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+             "--out", self.tmp], cwd=ROOT, env=env, stdout=self.log,
+            stderr=subprocess.STDOUT, text=True)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def result(self, card: str) -> dict:
+        from repro_torch.configs import ARCHS
+        from repro_torch.launch.mesh import HARDWARE
+
+        waited = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"17(c) the sweep ran over {DRYRUN_SWEEP_TIMEOUT_S} s")
+        waited = time.perf_counter() - waited
+        if rc != 0:
+            self.log.seek(0)
+            raise AssertionError(f"17(c) the sweep exited {rc}:\n{self.log.read()[-6000:]}")
         results = {}
         for arch in ARCHS:
-            with open(os.path.join(tmp, f"{arch}_train_4k_16x16.json")) as f:
+            with open(os.path.join(self.tmp, f"{arch}_train_4k_16x16.json")) as f:
                 results[arch] = json.load(f)
-    wall = time.perf_counter() - t0
-    rows = {}
-    for arch, res in results.items():
-        if res["status"] != "OK":
-            raise AssertionError(f"17(c) {arch}: {res['status']}")
-        r, peak = res["roofline"], res["memory"]["peak_bytes_per_device"]
-        bounded = res["cost"]["upper_bounds"]
-        rows[arch] = {"dominant": r["dominant"], "compute_s": r["compute_s"],
-                      "memory_s": r["memory_s"], "collective_s": r["collective_s"],
-                      "peak_gb": peak / 1e9, "trace_s": res["lower_compile_s"],
-                      "useful_flops_ratio": r["useful_flops_ratio"], "upper_bounds": bounded}
-        most = "at most " if bounded else ""
-        print(f"17(c) {arch} train_4k 16x16: {r['dominant']} (compute {most}"
-              f"{r['compute_s']:.4f} s, memory {most}{r['memory_s']:.4f} s, collective "
-              f"{r['collective_s']:.4f} s), peak {most}{peak / 1e9:.2f} GB a device against the "
-              f"card's {HARDWARE['hbm_bytes'] / 1e9:.0f} GB (activations whole under tensor "
-              f"parallelism), traced in {res['lower_compile_s']} s", flush=True)
-    print(f"17(c) the sweep took {wall:.1f} s on {card}'s host", flush=True)
-    return {"archs": rows, "wall_s": wall}
+        rows = {}
+        for arch, res in results.items():
+            if res["status"] != "OK":
+                raise AssertionError(f"17(c) {arch}: {res['status']}")
+            r, peak = res["roofline"], res["memory"]["peak_bytes_per_device"]
+            bounded = res["cost"]["upper_bounds"]
+            rows[arch] = {"dominant": r["dominant"], "compute_s": r["compute_s"],
+                          "memory_s": r["memory_s"], "collective_s": r["collective_s"],
+                          "peak_gb": peak / 1e9, "trace_s": res["lower_compile_s"],
+                          "useful_flops_ratio": r["useful_flops_ratio"],
+                          "upper_bounds": bounded}
+            most = "at most " if bounded else ""
+            print(f"17(c) {arch} train_4k 16x16: {r['dominant']} (compute {most}"
+                  f"{r['compute_s']:.4f} s, memory {most}{r['memory_s']:.4f} s, collective "
+                  f"{r['collective_s']:.4f} s), peak {most}{peak / 1e9:.2f} GB a device against "
+                  f"the card's {HARDWARE['hbm_bytes'] / 1e9:.0f} GB (activations whole under "
+                  f"tensor parallelism), traced in {res['lower_compile_s']} s", flush=True)
+        wall = time.perf_counter() - self.t0
+        print(f"17(c) the sweep ended {wall:.1f} s after it started beside phase 16 "
+              f"({waited:.1f} s waited for here) on {card}'s host", flush=True)
+        return {"archs": rows, "wall_s": wall, "waited_s": waited}
 
 
-def dryrun_slice(torch, card: str, danube: dict) -> tuple[int, dict]:
-    """Phase 17: (a)-(c).  Returns (a)'s gram launches and a summary."""
+def dryrun_slice(torch, card: str, danube: dict, sweep: DryrunSweep) -> tuple[int, dict]:
+    """Phase 17: (a)-(c), (c) the ``sweep`` started before phase 16.
+    Returns (a)'s gram launches and a summary."""
     t0 = time.perf_counter()
     launches, readout = readout_dryrun(torch, card)
     summary = {"card": card, "readout": readout, "one_card": one_card_plan(torch, danube, card),
-               "sweep": dryrun_sweep(card)}
+               "sweep": sweep.result(card)}
     summary["phase_s"] = time.perf_counter() - t0
     print(f"17 done in {summary['phase_s']:.1f} s", flush=True)
     print(json.dumps({"dryrun": summary}), flush=True)
@@ -5294,10 +5368,10 @@ SHARDED_MOE = {"arch": "phi35_moe_42b", "layers": 1, "batch": 2, "seq": 2048}
 # (16(b)'s f32 bar); positions whose top-2 routing differs between the
 # runs (a near-tie moved by that rounding) are counted and left out.
 SHARDED_LOGIT_TOL = 1e-5
-# (b) H2O-Danube3-4B at full width, 2 layers, f32, one make_train_step
+# (b) H2O-Danube3-4B at full width, 1 layer, f32, one make_train_step
 # sharded and unsharded on the same card and batch: 16(b)'s card-vs-CPU
 # bars (GRAD_TOL) for loss, grad_norm and each gathered gradient leaf.
-SHARDED_GRAD = {"arch": "h2o_danube3_4b", "layers": 2, "batch": 2, "seq": 4096, "lr": 3e-4}
+SHARDED_GRAD = {"arch": "h2o_danube3_4b", "layers": 1, "batch": 2, "seq": 4096, "lr": 3e-4}
 # After the first AdamW step each element has moved by lr * g / (|g| +
 # eps), about +-lr.  Where |g| > SHARDED_HELD_G = 1e3 eps, a gradient gap
 # dg moves the update by lr eps dg / g**2 at most, far below a thousandth
@@ -5310,9 +5384,9 @@ SHARDED_GRAD = {"arch": "h2o_danube3_4b", "layers": 2, "batch": 2, "seq": 4096, 
 SHARDED_PARAM_ULP = 2.0**-23
 SHARDED_PARAM_NEAR, SHARDED_HELD_G = 1e-3, 1e-5
 SHARDED_HELD_FRAC, SHARDED_PARAM_FRAC = 1e-6, 1e-3
-# (c) Danube at full width, 4 layers, bf16 params with f32 moments (16(a)'s
+# (c) Danube at full width, 2 layers, bf16 params with f32 moments (16(a)'s
 # setup), AdamW(3e-4), B=2, S=4096, through launch/train.py's grid.
-SHARDED_TRAIN = {"arch": "h2o_danube3_4b", "layers": 4, "batch": 2, "seq": 4096, "steps": 3,
+SHARDED_TRAIN = {"arch": "h2o_danube3_4b", "layers": 2, "batch": 2, "seq": 4096, "steps": 3,
                  "lr": 3e-4}
 # (e) launch/serve.py on Danube, 2 layers, bf16, sharded and unsharded
 # (FSDP re-gathers every weight each decode step, as GSPMD would under
@@ -6236,6 +6310,176 @@ def sharded_slice(torch, np, card: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+# Phase 19: the twins of examples/*.py, each at its script's defaults, and
+# train_lm once more at the size its record was taken at.  The kernels each
+# dSSFN twin launches, by the configs: quickstart's two trains of 6 layers
+# (a gram and 6 propagate_gram each), robust_networks' 9 solves, the
+# readout's 5 taps and one M=4 solve, serve_decode's train of 2 layers.
+EXAMPLES = ("quickstart", "gossip_vs_spectral_gap", "robust_networks", "layerwise_readout",
+            "serve_decode", "train_lm")
+EXAMPLES_LAUNCHES = {"quickstart": {"gram": 2, "propagate_gram": 12},
+                     "robust_networks": {"gram": 9}, "layerwise_readout": {"gram": 6},
+                     "serve_decode": {"gram": 1, "propagate_gram": 2}}
+EXAMPLES_SERVED = ("quickstart", "serve_decode")     # ssfn.predict and ServeEngine
+EXAMPLES_RECORDED = ["--steps", "2", "--batch", "1", "--seq", "32"]
+# The port's modules whose kernel ops the twins reach: (module, op).
+EXAMPLES_OPS = (("repro_torch.core.admm", "gram"),
+                ("repro_torch.core.engine", "propagate_gram"),
+                ("repro_torch.core.ssfn", "matmul_relu"),
+                ("repro_torch.serve.engine", "matmul_relu"))
+
+
+def held_example_calls(torch, calls: dict) -> dict:
+    """Every kernel call a twin made, held on its own inputs, by kernel:
+    gram against the float64 Gram (GRAM_F64_ULPS f32 ulps of max|G|, as
+    17(a); a 1xTF32 Gram misses it); propagate_gram's Y' against its
+    plain version (KERNEL_TOL x max|plain|) and its G against the float64
+    Gram of the kernel's own f32 Y' (GRAM_F64_ULPS), G exactly symmetric;
+    matmul_relu against its plain version (KERNEL_TOL x max|plain|).
+    Returns, by kernel, the calls held, their shapes and the worst
+    distance over its bar (<= 1 passes)."""
+    from repro_torch.kernels.matmul_relu import matmul_relu_ref
+    from repro_torch.kernels.propagate_gram import propagate_gram_ref
+
+    held = {}
+    with torch.no_grad():
+        if calls["gram"]:
+            ulps, plain = held_gram_calls(torch, calls["gram"])
+            held["gram"] = {"worst_of_bar": ulps / GRAM_F64_ULPS, "plain_ulps": plain}
+        worst = worst_plain = 0.0
+        for (w, y), kw, (y_new, g) in calls["propagate_gram"]:
+            if w.dtype != torch.float32:
+                raise AssertionError(f"propagate_gram: a {w.dtype} call; the twins' are f32")
+            want_y, want_g = propagate_gram_ref(w, y, **kw)
+            err, scale = max_err(y_new, want_y)
+            y64 = y_new.double()
+            g64 = y64 @ y64.mT + torch.eye(w.shape[0], dtype=torch.float64,
+                                           device=w.device) / kw["mu"]
+            ulp = 2.0**-24 * g64.abs().max()
+            worst = max(worst, err / (KERNEL_TOL["float32"] * scale) if scale else err,
+                        float((g.double() - g64).abs().max() / ulp) / GRAM_F64_ULPS,
+                        0.0 if torch.equal(g, g.mT) else math.inf)
+            worst_plain = max(worst_plain, float((want_g.double() - g64).abs().max() / ulp))
+        if calls["propagate_gram"]:
+            held["propagate_gram"] = {"worst_of_bar": worst, "plain_ulps": worst_plain}
+        worst = 0.0
+        for (w, x), _, got in calls["matmul_relu"]:
+            err, scale = max_err(got, matmul_relu_ref(w, x))
+            tol = KERNEL_TOL[str(w.dtype).rsplit(".", 1)[-1]] * scale
+            worst = max(worst, err / tol if tol else (0.0 if err == 0 else math.inf))
+        if calls["matmul_relu"]:
+            held["matmul_relu"] = {"worst_of_bar": worst}
+    for name, h in held.items():
+        h["calls"] = len(calls[name])
+        h["shapes"] = sorted({tuple(tuple(a.shape) for a in args)
+                              for args, _, _ in calls[name]})
+    return held
+
+
+def run_twin(torch, rec, counters, name: str, argv: list):
+    """One twin's ``main(argv)`` with its stdout captured (and echoed),
+    every kernel counter set to 0 just before and read just after, and
+    every call of the ops in EXAMPLES_OPS recorded with copies of its
+    inputs and result; returns (result, printed lines, launches, wall s,
+    recorded calls by kernel)."""
+    import contextlib
+    import importlib
+    import io
+
+    twin = rec.load_twin(name)
+    free(torch)
+    for c in counters.values():
+        c.reset_launch_count()
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        recs = [stack.enter_context(OpRecorder(importlib.import_module(m), op, copy_args=True))
+                for m, op in EXAMPLES_OPS]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = twin.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: c.launch_count() for k, c in counters.items()}
+    calls = {op: [] for _, op in EXAMPLES_OPS}
+    for r in recs:
+        calls[r.name] += r.calls
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue().splitlines(), launched, wall, calls
+
+
+def examples_slice(torch, card: str) -> tuple[dict, dict]:
+    """Phase 19: the six twins of examples/*.py on the card.  Returns the
+    kernel launches of their main paths and a summary."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_examples_record as rec
+
+    checkers = {"quickstart": rec.check_quickstart,
+                "gossip_vs_spectral_gap": rec.check_gossip_vs_spectral_gap,
+                "robust_networks": rec.check_robust_networks,
+                "layerwise_readout": rec.check_layerwise_readout,
+                "serve_decode": lambda c, out, printed: rec.check_serve_dssfn(
+                    c, out["dssfn"], printed),
+                "train_lm": rec.check_train_lm}
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    summary, failed = {"card": card, "bars": rec.BARS}, []
+    t_phase = time.perf_counter()
+    runs = [(name, name, []) for name in EXAMPLES]
+    runs.append(("train_lm recorded", "train_lm", EXAMPLES_RECORDED))
+    for name, twin, extra in runs:
+        out, printed, launched, wall, calls = run_twin(torch, rec, counters, twin,
+                                                       ["--device", "cuda", *extra])
+        entry = {"wall_s": wall, "launches": {k: n for k, n in launched.items() if n}}
+        t_held = time.perf_counter()
+        entry["held"] = held_example_calls(torch, calls)
+        entry["held_s"] = time.perf_counter() - t_held
+        for k, h in entry["held"].items():
+            if not h["worst_of_bar"] <= 1.0:
+                failed.append({"twin": name, "what": f"{k} calls against the plain or "
+                               "float64 version", **h})
+        for k, rec_calls in calls.items():
+            if len(rec_calls) != launched[k]:
+                failed.append({"twin": name, "what": f"{k}: {len(rec_calls)} calls held of "
+                               f"{launched[k]} launches"})
+        if name == "train_lm":
+            # 200 steps: no record at this size.  The script's own verdict
+            # ("improved": the last loss below the first less 0.5).
+            losses = out["losses"]
+            entry["losses"] = [losses[0], losses[-1]]
+            if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] - 0.5
+                    and "(improved)" in printed[-1]):
+                failed.append({"twin": name, "what": "loss did not fall by 0.5 in 200 steps",
+                               "losses": entry["losses"]})
+        else:
+            checks = rec.Checks()
+            checkers[twin](checks, out, printed)
+            entry.update(numbers=len(checks.records), worst_of_bar=checks.worst())
+            failed += [dict(r, twin=name) for r in checks.failed()]
+        want = EXAMPLES_LAUNCHES.get(name, {})
+        if any(launched[k] != n for k, n in want.items()) or \
+                (name in EXAMPLES_SERVED and not launched["matmul_relu"]):
+            failed.append({"twin": name, "what": "launches", "stored": want, "got": launched})
+        for k, n in launched.items():
+            launches[k] += n
+        summary[name] = entry
+        print(f"19 {name}: {wall:.2f} s, launches {entry['launches']}"
+              + (f", {entry['numbers']} numbers, worst {entry['worst_of_bar']:.3f} of its bar"
+                 if "numbers" in entry else f", losses {entry['losses']} (improved)")
+              + f" on {card}", flush=True)
+        for k, h in entry["held"].items():
+            plain = (f"; the f32 plain version {h['plain_ulps']:.2f} f32 ulps of max|G| from "
+                     "float64" if "plain_ulps" in h else "")
+            print(f"19 {name}: every {k} call on its own inputs: worst {h['worst_of_bar']:.3f} "
+                  f"of its bar over {h['calls']} calls at {h['shapes']}{plain}", flush=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    summary["failed"] = failed
+    print(f"19 done in {summary['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"examples": summary}), flush=True)
+    if failed:
+        raise RuntimeError(f"phase 19: {len(failed)} checks failed: {failed}")
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -6278,23 +6522,50 @@ def main() -> int:
         sharded_slice(torch, np, card)
         print(f"card: {card}", flush=True)
         return 0
+    if "--examples-only" in args:
+        # Phase 19 alone.
+        examples_slice(torch, card)
+        print(f"card: {card}", flush=True)
+        return 0
     if "--dryrun-only" in args:
         # Phase 17 alone, after the 16(a) train it is held against.
-        dryrun_slice(torch, card, train_danube(torch, np, card))
+        sweep = DryrunSweep()
+        try:
+            dryrun_slice(torch, card, train_danube(torch, np, card), sweep)
+        finally:
+            sweep.close()
         print(f"card: {card}", flush=True)
         return 0
 
+    last = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        """Each phase's wall time, for the budget of the whole run."""
+        now = time.perf_counter()
+        print(f"phase {label} took {now - last[0]:.1f} s ({now - t0:.1f} s since the build "
+              "began)", flush=True)
+        last[0] = now
+
     cases = kernel_cases(torch, np)
     gram_cases, prop_cases = gram_kernel_cases(torch)
+    lap("2-3")
     launches, micro = serve_slice(torch, np, card)
     launches += runtime_slice(torch, np, card, micro)
+    lap("4-4b")
     train_launches, exact = train_slice(torch, card)
+    lap("5")
     gossip_launches = gossip_slice(torch, card, exact)
+    lap("5b")
     policy_launches = policy_slice(torch, card, exact)
+    lap("5c")
     fault_launches = fault_slice(torch, card, exact)
+    lap("5d")
     elastic_launches = elastic_slice(torch, np, card, exact)
+    lap("5e")
     mesh_launches = mesh_slice(torch, np, card, exact)
+    lap("5f")
     lint_launches = lint_slice(torch, np, card, exact, cases)
+    lap("5g")
     del exact
     for k in train_launches:
         train_launches[k] += (gossip_launches[k] + policy_launches[k] + fault_launches[k]
@@ -6303,16 +6574,19 @@ def main() -> int:
                  + lint_launches["matmul_relu"])
     flash_cases = flash_kernel_cases(torch)
     flash_launches = inference_slice(torch, np, card)
+    lap("6-7")
     torch.cuda.empty_cache()
     ssm_cases = ssm_kernel_cases(torch)
     ssm_split = ssm_profile(torch, card)
     ssm_launches, split = hybrid_slice(torch, np, card)
+    lap("8-9")
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         parent = parent_mlstm(torch, parent_dir, tmp) if parent_dir else None
         mlstm_cases = mlstm_kernel_cases(torch, parent)
         mlstm_split = mlstm_profile(torch, card, [MLSTM_HEADLINE, MLSTM_CASES[1]], parent)
         del parent
     mlstm_launches, xlstm_split = xlstm_slice(torch, np, card)
+    lap("10-11")
     zoo = {}
     for key, run in (("phi35_moe", lambda: moe_slice(torch, np, card, PHI, "12 Phi ", True)),
                      ("mixtral", lambda: moe_slice(torch, np, card, MIXTRAL, "12 Mixtral ",
@@ -6321,15 +6595,27 @@ def main() -> int:
                      ("musicgen", lambda: audio_slice(torch, np, card))):
         launched, zoo[key] = run()
         flash_launches += launched
-    zoo_train_launches, zoo_train = zoo_train_slice(torch, np, card)
-    flash_launches += zoo_train_launches["flash_attention"]
-    train_launches["gram"] += zoo_train_launches["gram"]
-    dryrun_launches, _ = dryrun_slice(torch, card, zoo_train["danube"])
+        lap(f"12-14 {key}")
+    sweep = DryrunSweep()
+    try:
+        zoo_train_launches, zoo_train = zoo_train_slice(torch, np, card)
+        flash_launches += zoo_train_launches["flash_attention"]
+        train_launches["gram"] += zoo_train_launches["gram"]
+        dryrun_launches, _ = dryrun_slice(torch, card, zoo_train["danube"], sweep)
+    finally:
+        sweep.close()
     train_launches["gram"] += dryrun_launches
+    lap("16-17")
     sharded_launches, _ = sharded_slice(torch, np, card)
     flash_launches += sharded_launches["flash_attention"]
     ssm_launches += sharded_launches["ssm_scan"]
     mlstm_launches += sharded_launches["mlstm_scan"]
+    lap("18")
+    example_launches, _ = examples_slice(torch, card)
+    launches += example_launches["matmul_relu"]
+    for k in ("gram", "propagate_gram"):
+        train_launches[k] += example_launches[k]
+    lap("19")
 
     def entry(name, source, replaces, launches, cases, headline):
         head = next(c for c in cases if c["key"] == headline)

@@ -22,7 +22,7 @@ from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn import xlstm as xlstm_lib
-from repro_torch.nn.layers import (dense_init, dense_init_by_slice, rms_norm, rms_norm_split,
+from repro_torch.nn.layers import (GenDraw, dense_init, rms_norm, rms_norm_split,
                                    round_up)
 from repro_torch.nn.mlp import swiglu
 from repro_torch.nn.rope import apply_rope
@@ -33,14 +33,15 @@ Params = dict[str, Any]
 
 # ---------------------------------------------------------------- attention
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
+def init_attn_params(draw: GenDraw, cfg: ModelConfig) -> Params:
     d, hd = cfg.d_model, cfg.hd
     dt = cfg.torch_dtype
+    kq, kk, kv, ko = draw.split(4)
     return {
-        "wq": dense_init(gen, stack + (d, cfg.num_heads * hd), dt),
-        "wk": dense_init(gen, stack + (d, cfg.num_kv_heads * hd), dt),
-        "wv": dense_init(gen, stack + (d, cfg.num_kv_heads * hd), dt),
-        "wo": dense_init(gen, stack + (cfg.num_heads * hd, d), dt),
+        "wq": kq.dense((d, cfg.num_heads * hd), dt),
+        "wk": kk.dense((d, cfg.num_kv_heads * hd), dt),
+        "wv": kv.dense((d, cfg.num_kv_heads * hd), dt),
+        "wo": ko.dense((cfg.num_heads * hd, d), dt),
     }
 
 
@@ -180,7 +181,7 @@ def apply_attention(
 
 # ---------------------------------------------------------------- mlp / moe
 
-def init_ffn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()) -> Params:
+def init_ffn_params(draw: GenDraw, cfg: ModelConfig) -> Params:
     """The SwiGLU FFN's weights, or with ``cfg.num_experts`` the MoE's: a
     router (d, E) in f32 whatever the model's dtype, as in the reference,
     and expert weights (E, d, f), (E, f, d) drawn one expert at a time
@@ -190,16 +191,18 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ..
     dt = cfg.torch_dtype
     if cfg.num_experts:
         e = cfg.num_experts
+        kr, kg, ku, kd = draw.split(4)
         return {
-            "router": dense_init(gen, stack + (d, e), torch.float32),
-            "wg": dense_init_by_slice(gen, stack + (e, d, f), dt),
-            "wu": dense_init_by_slice(gen, stack + (e, d, f), dt),
-            "wd": dense_init_by_slice(gen, stack + (e, f, d), dt),
+            "router": kr.dense((d, e), torch.float32),
+            "wg": kg.dense((e, d, f), dt, by_slice=True),
+            "wu": ku.dense((e, d, f), dt, by_slice=True),
+            "wd": kd.dense((e, f, d), dt, by_slice=True),
         }
+    kg, ku, kd = draw.split(3)
     return {
-        "wg": dense_init(gen, stack + (d, f), dt),
-        "wu": dense_init(gen, stack + (d, f), dt),
-        "wd": dense_init(gen, stack + (f, d), dt),
+        "wg": kg.dense((d, f), dt),
+        "wu": ku.dense((d, f), dt),
+        "wd": kd.dense((f, d), dt),
     }
 
 
@@ -223,15 +226,16 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
 
 # ------------------------------------------------------- transformer layer
 
-def init_transformer_layer(
-    gen: torch.Generator, cfg: ModelConfig, stack: tuple[int, ...] = ()
-) -> Params:
+def init_transformer_layer(draw: GenDraw, cfg: ModelConfig) -> Params:
+    """One layer's parameters (a stack of them from a stacked draw, e.g.
+    ``GenDraw(gen).layers(L)``)."""
     d, dt = cfg.d_model, cfg.torch_dtype
+    k_attn, k_ffn = draw.split(2)
     return {
-        "ln1": torch.ones(stack + (d,), dtype=dt, device=gen.device),
-        "ln2": torch.ones(stack + (d,), dtype=dt, device=gen.device),
-        "attn": init_attn_params(gen, cfg, stack),
-        "ffn": init_ffn_params(gen, cfg, stack),
+        "ln1": draw.ones((d,), dt),
+        "ln2": draw.ones((d,), dt),
+        "attn": init_attn_params(k_attn, cfg),
+        "ffn": init_ffn_params(k_ffn, cfg),
     }
 
 

@@ -44,7 +44,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm as ssm_lib
-from repro_torch.nn.layers import dense_init, embed_init, rms_norm
+from repro_torch.nn.layers import GenDraw, dense_init, embed_init, rms_norm
 
 Params = dict[str, Any]
 
@@ -74,7 +74,7 @@ class HybridModel:
         return {
             "embed": embed_init(gen, v, d, cfg.torch_dtype),
             "mamba": blocks.init_mamba_layer(gen, cfg, stack=(self.num_periods, self.per_period)),
-            "shared_attn": blocks.init_transformer_layer(gen, cfg),   # ONE copy
+            "shared_attn": blocks.init_transformer_layer(GenDraw(gen), cfg),   # ONE copy
             "ln_f": torch.ones((d,), dtype=cfg.torch_dtype, device=gen.device),
             "head": dense_init(gen, (d, v), cfg.torch_dtype),
         }

@@ -42,7 +42,7 @@ from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.layers import (dense_init, embed_init, embed_lookup, rms_norm,
+from repro_torch.nn.layers import (GenDraw, KeyDraw, embed_lookup, rms_norm,
                                    vocab_parallel_embed_lookup)
 from repro_torch.sharding import parallel as par
 
@@ -116,23 +116,33 @@ class TransformerModel:
         self.cfg = cfg
 
     # ------------------------------------------------------------- params
-    def init(self, gen: torch.Generator) -> Params:
-        """Seeded random parameters on the generator's device."""
+    def init(self, gen: torch.Generator | None = None, *, key=None,
+             device: str | torch.device | None = None) -> Params:
+        """Seeded random parameters: drawn from ``gen`` on the generator's
+        device, or from a threefry ``key`` (:mod:`repro_torch.prng`) on
+        ``device`` (``None`` meaning ``cuda``), which gives ``repro``'s
+        ``init(key)`` weights to a few f32 ulps.  One layout over either
+        draw (:class:`~repro_torch.nn.layers.GenDraw`, ``KeyDraw``)."""
+        if (gen is None) == (key is None):
+            raise ValueError("pass exactly one of gen or key=")
+        draw = GenDraw(gen) if key is None else KeyDraw(key, resolve_device(device))
         cfg = self.cfg
         v, d, dt = cfg.padded_vocab, cfg.d_model, cfg.torch_dtype
+        # The reference's key tree; a generator draws in this code's order.
+        k_embed, k_layers, k_head, k_extra = draw.split(4)
         params: Params = {
-            "layers": blocks.init_transformer_layer(gen, cfg, stack=(cfg.num_layers,)),
-            "ln_f": torch.ones((d,), dtype=dt, device=gen.device),
+            "layers": blocks.init_transformer_layer(k_layers.layers(cfg.num_layers), cfg),
+            "ln_f": draw.ones((d,), dt),
         }
         if cfg.family == "audio":
             nc = cfg.num_codebooks
-            params["embed"] = torch.stack([embed_init(gen, v, d, dt) for _ in range(nc)])
-            params["head"] = dense_init(gen, (d, nc * v), dt)
+            params["embed"] = torch.stack([k.embed(v, d, dt) for k in k_embed.split(nc)])
+            params["head"] = k_head.dense((d, nc * v), dt)
         else:
-            params["embed"] = embed_init(gen, v, d, dt)
-            params["head"] = dense_init(gen, (d, v), dt)
+            params["embed"] = k_embed.embed(v, d, dt)
+            params["head"] = k_head.dense((d, v), dt)
         if cfg.family == "vlm":
-            params["patch_proj"] = dense_init(gen, (cfg.patch_dim, d), dt)
+            params["patch_proj"] = k_extra.dense((cfg.patch_dim, d), dt)
         return params
 
     # -------------------------------------------------------------- embed

@@ -3,13 +3,18 @@
 Port of ``repro/nn/layers.py``.  The init helpers draw from a
 ``torch.Generator`` with the reference's distributions (not its numbers:
 ``jax.random`` and torch give different draws from one seed), on the
-generator's device.
+generator's device.  A model's parameter tree is laid out once over a
+*draw* (:class:`GenDraw` or :class:`KeyDraw`); a :class:`KeyDraw` gives
+the reference's own numbers from its threefry key.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 def dense_init(
@@ -40,6 +45,62 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> 
     """N(0, 1) * 0.02, drawn in f32 and cast."""
     w = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=torch.float32)
     return (w * 0.02).to(dtype)
+
+
+class GenDraw:
+    """The init helpers over one ``torch.Generator``: every leaf is drawn
+    from its stream in call order (:meth:`split` hands out the same
+    stream), with ``stack`` leading the shapes of stacked layers."""
+
+    def __init__(self, gen: torch.Generator, stack: tuple[int, ...] = ()):
+        self.gen, self.stack, self.device = gen, tuple(stack), gen.device
+
+    def split(self, n: int) -> list[GenDraw]:
+        return [self] * n
+
+    def layers(self, n: int) -> GenDraw:
+        return GenDraw(self.gen, self.stack + (n,))
+
+    def dense(self, shape, dtype: torch.dtype, by_slice: bool = False) -> torch.Tensor:
+        """:func:`dense_init`; ``by_slice`` one matrix at a time
+        (:func:`dense_init_by_slice`)."""
+        init = dense_init_by_slice if by_slice else dense_init
+        return init(self.gen, self.stack + tuple(shape), dtype)
+
+    def embed(self, vocab: int, d: int, dtype: torch.dtype) -> torch.Tensor:
+        return embed_init(self.gen, vocab, d, dtype)
+
+    def ones(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        return torch.ones(self.stack + tuple(shape), dtype=dtype, device=self.device)
+
+
+class KeyDraw(GenDraw):
+    """The init helpers over a threefry key tree (:mod:`repro_torch.prng`),
+    as the reference's ``init(key)`` draws: :meth:`split` is its
+    ``jax.random.split``, :meth:`layers` its ``vmap`` over one key a layer
+    (the keys' batch shape leads the shapes), :meth:`dense`'s scale an f32
+    quotient.  ``prng.normal`` gives jax's normals to 2 f32 ulps.  Each
+    leaf is drawn whole in f32 on ``device`` (an MoE's experts too, so
+    this is for configs whose f32 leaves fit) and cast."""
+
+    def __init__(self, keys, device: torch.device):
+        self.keys, self.device = prng.key_data(keys), device
+        self.stack = self.keys.shape[:-1]
+
+    def split(self, n: int) -> list[KeyDraw]:
+        return [KeyDraw(k, self.device) for k in np.moveaxis(prng.split(self.keys, n), -2, 0)]
+
+    def layers(self, n: int) -> KeyDraw:
+        return KeyDraw(prng.split(self.keys, n), self.device)
+
+    def dense(self, shape, dtype: torch.dtype, by_slice: bool = False) -> torch.Tensor:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        scale = np.float32(1.0) / np.sqrt(np.float32(fan_in))
+        return (prng.normal(self.keys, tuple(shape), device=self.device)
+                * float(scale)).to(dtype)
+
+    def embed(self, vocab: int, d: int, dtype: torch.dtype) -> torch.Tensor:
+        return (prng.normal(self.keys, (vocab, d), device=self.device) * 0.02).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -33,6 +33,7 @@ from repro.configs import ALIASES as J_ALIASES
 from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
 from repro.models.steps import make_loss_fn as j_make_loss_fn
+from repro_torch import prng
 from repro_torch.configs import ALIASES, ARCHS, get_config
 from repro_torch.convert import (
     transformer_param_shapes,
@@ -109,6 +110,40 @@ def test_param_shapes_match_init_and_reference():
     assert jax.tree.map(lambda a: tuple(a.shape), port) == shapes
     assert jax.tree.map(lambda a: tuple(a.shape), jparams) == shapes
     assert all(t.dtype == torch.float32 for t in jax.tree.leaves(port))
+
+
+# prng.normal is jax's normal to 2 f32 ulps; scaled by 1/sqrt(fan_in) (a
+# binade boundary may double them) and rounded once more: at most 5 ulps.
+KEY_INIT_ULPS = 5
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("stablelm_3b", "float32"), ("stablelm_3b", "bfloat16"), ("phi35_moe_42b", "bfloat16"),
+    ("internvl2_1b", "float32"), ("musicgen_medium", "float32")])
+def test_init_from_a_key_is_the_reference_init(arch, dtype):
+    jcfg = dataclasses.replace(j_get_config(arch).reduced(), dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    want = j_build_model(jcfg).init(jax.random.PRNGKey(3))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # a few hundred small eager ops a leaf
+    try:
+        got = build_model(cfg).init(key=prng.PRNGKey(3), device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want), jax.tree.leaves(got)):
+        assert str(g.dtype) == f"torch.{w.dtype}", path
+        bf16 = w.dtype == jnp.bfloat16
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if bf16:
+            # An f32 draw a few ulps from a bf16 rounding boundary may
+            # round to the neighbour: one bf16 ulp on a few elements.
+            assert np.all(np.abs(g - w) <= 2.0 ** -7 * np.abs(w)), path
+            assert np.mean(g != w) < 1e-3, path
+        else:
+            assert np.all(np.abs(g - w) <= KEY_INIT_ULPS * np.spacing(np.abs(w))), path
+    with pytest.raises(ValueError, match="exactly one"):
+        build_model(cfg).init()
 
 
 # ------------------------------------------------------------------ convert
