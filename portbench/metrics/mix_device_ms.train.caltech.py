@@ -1,0 +1,5 @@
+"""``mix_device_ms.train`` (see its file), in the cells that report ``train_s.caltech``."""
+from portbench.harness import cells
+
+_same = cells.metric_module("mix_device_ms.train")
+read, examples = _same.read, _same.examples
